@@ -1,0 +1,76 @@
+"""Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+The sources in ``sgdml_tpu_torch/csrc/*.cu`` have a plain C interface, so
+they compile in seconds without PyTorch's headers. The shared library goes
+to ``build/kernels/`` beside the package (git-ignored), named by a hash of
+the sources and flags so that an edited source is never served stale. The
+build runs at first use, in the process that needs the kernel; nothing is
+downloaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+__all__ = ['load_library', 'BUILD_DIR']
+
+_CSRC = pathlib.Path(__file__).resolve().parents[1] / 'csrc'
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'kernels'
+_FLAGS = [
+    '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+    '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    candidates = [os.path.join(cuda_home, 'bin', 'nvcc')] if cuda_home else []
+    candidates += [shutil.which('nvcc') or '', '/usr/local/cuda/bin/nvcc']
+    for path in candidates:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError(
+        'nvcc not found (set CUDA_HOME): the CUDA kernels of sgdml_tpu_torch '
+        'are built from source at first use.'
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load ``libsgdml_kernels``; declare its C
+    functions' argument and return types."""
+    sources = sorted(_CSRC.glob('*.cu'))
+    digest = hashlib.sha256(' '.join(_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / ('libsgdml_kernels_%s.so' % digest.hexdigest()[:16])
+    if not lib_path.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix('.so.%d.tmp' % os.getpid())
+        cmd = [nvcc, *_FLAGS, '-o', str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                'nvcc failed (%d):\n%s\n%s' % (proc.returncode, ' '.join(cmd), proc.stderr)
+            )
+        # ptxas's report of registers, shared memory and spills per kernel.
+        lib_path.with_suffix('.ptxas.txt').write_text(proc.stderr)
+        os.replace(tmp, lib_path)
+
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ('sgdml_fused_predict_f32', 'sgdml_fused_predict_f64'):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 6 + [ctypes.c_double, i32, i32, i32, ptr, ptr, i32, ptr]
+        fn.restype = i32
+    lib.sgdml_cuda_error_string.argtypes = [i32]
+    lib.sgdml_cuda_error_string.restype = ctypes.c_char_p
+    return lib
