@@ -15,6 +15,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -66,11 +67,39 @@ def load_library() -> ctypes.CDLL:
         os.replace(tmp, lib_path)
 
     lib = ctypes.CDLL(str(lib_path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ('sgdml_fused_predict_f32', 'sgdml_fused_predict_f64'):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 6 + [ctypes.c_double, i32, i32, i32, ptr, ptr, i32, ptr]
-        fn.restype = i32
+    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    argtypes = {
+        # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, E, F_d, device, stream
+        'sgdml_fused_predict': [ptr] * 6 + [f64, i32, i32, i32, ptr, ptr, i32, ptr],
+        # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, planes, e_part, s_part, device, stream
+        'sgdml_planes': [ptr] * 6 + [f64, i32, i32, i32, ptr, ptr, ptr, i32, ptr],
+        # xq, xt, ja, planes, e_part, s_part, B, T, D, splits, per, partial, E, F_d, device, stream
+        'sgdml_forces': [ptr] * 6 + [i32] * 5 + [ptr, ptr, ptr, i32, ptr],
+        # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, splits, per, scratch, E, F_d, device, stream
+        'sgdml_two_pass': [ptr] * 6 + [f64] + [i32] * 5 + [ptr, ptr, ptr, i32, ptr],
+    }
+    for stem, types in argtypes.items():
+        for suffix in ('_f32', '_f64'):
+            fn = getattr(lib, stem + suffix)
+            fn.argtypes = types
+            fn.restype = i32
     lib.sgdml_cuda_error_string.argtypes = [i32]
     lib.sgdml_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_report(lib: ctypes.CDLL) -> dict:
+    """``{kernel: 'N registers, M bytes smem, ... spill ...'}`` from the
+    ptxas report written beside the library at its build; a kernel is named
+    by its function and scalar type, e.g. ``planes_kernel<double>``."""
+    path = pathlib.Path(lib._name).with_suffix('.ptxas.txt')
+    report, name = {}, None
+    for line in path.read_text().splitlines() if path.exists() else []:
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kind = re.search(r'([a-z_]+_kernel)I([df])', entry.group(1))
+            name = ('%s<%s>' % (kind.group(1), {'d': 'double', 'f': 'float'}[kind.group(2)])
+                    if kind else entry.group(1))
+        elif name and ('spill' in line or 'Used' in line):
+            report[name] = (report.get(name, '') + ' ' + line.split(':', 1)[-1].strip()).strip()
+    return report
