@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one NVIDIA GPU.
 
 Run from the repository root, with one card and no arguments:
 
@@ -26,9 +26,20 @@ each a plain assertion that ends the run with a traceback when it fails:
    ``GDMLPredict.predict`` for requests of 1, 17, 512 and 10,000 geometries
    in f64 and f32, each against the plain path, and geometries per second;
 6. 200 NVE steps and 50 Langevin steps of MD on the golden model, one K1
-   launch per force evaluation.
+   launch per force evaluation;
+7. training on the card through ``GDMLTrain(device='cuda')``: (a) the dense
+   kernel assembly against the reference's golden kernels and against the
+   CPU plain path at a ragged shape with two permutations; (b) the
+   reference's training recipes (the golden split, std, coefficients,
+   integration constant and predictions; energy constraints; a symmetric
+   molecule with and without discovered permutations); (c) the ethanol
+   recipe of ``bench.py`` at M = 200, whose held-out force MAE must be the
+   JAX package's, and at M = 1000 (27,000 unknowns), with each phase's
+   seconds, the peak device memory and K1's launches, and the assembly at
+   the JAX package's 64 MB tile budget and at the port's, in turns. K1 runs
+   in the integration constant and in every validation prediction.
 
-Phases 4-6 are the main path: each sets the launch counts to 0 before it
+Phases 4-7 are the main path: each sets the launch counts to 0 before it
 and reads them after. The last two lines are the kernels' JSON record and
 ``{"ok": true, ...}``.
 """
@@ -36,6 +47,7 @@ and reads them after. The last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import re
@@ -46,13 +58,15 @@ import time
 import numpy as np
 import torch
 
-from sgdml_tpu_torch.datasets.synthetic import generate_md_dataset
+from sgdml_tpu_torch.datasets.synthetic import generate_md_dataset, generate_symmetric_md_dataset
 from sgdml_tpu_torch.md import MDEngine
 from sgdml_tpu_torch.ops import _build, fused_predict
+from sgdml_tpu_torch.ops import kernel as kernel_ops
 from sgdml_tpu_torch.ops import descriptor as desc_ops
 from sgdml_tpu_torch.predict import (
-    GDMLPredict, _predict_from_tables_body, _predict_geoms, center_tables,
+    GDMLPredict, _predict_from_tables_body, _predict_geoms, center_tables, desc_perm_table,
 )
+from sgdml_tpu_torch.train import GDMLTrain
 from sgdml_tpu_torch.utils import io
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -86,6 +100,20 @@ SWEEP_D, SWEEP_T, SWEEP_B = (10, 36, 105, 210, 435), (30, 100, 200, 400, 1000), 
 # plain path so that the energy drift of 200 steps stays far under the
 # bound (1.6e-5 of the mean kinetic energy there).
 MD_DT, MD_KT, MD_STEPS, MD_DRIFT = 0.02, 0.05, 200, 1e-3
+
+# Phase 7: the ragged assembly check (N atoms, M points: multiples of no
+# tile); the ethanol recipe of bench.py (N, frames, data seed, split seed,
+# validation points, sig, lam) at its two training sizes; the held-out f64
+# force MAE at M = 200 that the JAX package's bench recorded (BENCH_r05.json;
+# the original sGDML gives 0.031677) and the tolerance on it.
+ASSEMBLY_RAGGED = (7, 23)
+ETHANOL = (9, 12_000, 0, 1, 500, 10.0, 1e-10)
+ETHANOL_M = (200, 1000)
+ETHANOL_MAE = (200, 0.03168, 1e-4)
+
+# H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s) and
+# HBM3 bandwidth, for K1's bound.
+H100_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
 
 
 def rel_err(ours, ref):
@@ -237,6 +265,9 @@ def phase_kernel_vs_plain(device):
                     times[label, dtype] = (ms, plain_ms)
                 line.append('%s %.3f ms vs plain %.3f ms (%.1f TFLOP/s)' % (
                     name, ms, plain_ms, 8.0 * B * T * D / ms * 1e-9))
+            b_ms, b_by = bound(B, T, D, args[0].element_size())
+            line.append('bound %.4f ms by %s, route(T, D) at %.1f%% of it' % (
+                b_ms, b_by, 100 * b_ms / times[label, dtype][0]))
             print('    %-9s B=%5d T=%4d D=%4d %s  %s' % (label, B, T, D, NAME[dtype], '; '.join(line)))
             if fp.route(T, D) == 'two_pass':
                 out, split = fp.planes(*args), fp.split_k(B, D, T, n_sms)
@@ -381,20 +412,206 @@ def phase_md(device):
     return counts
 
 
+def launch_counts():
+    return dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
+
+
+def golden_dataset():
+    data = dict(np.load(os.path.join(GOLDEN, 'train_predict_ref.npz'), allow_pickle=True))
+    ds = {'type': 'd', 'name': np.array('synth5'), 'theory': np.array('morse'),
+          'z': data['z'], 'R': data['R'], 'E': data['E'], 'F': data['F']}
+    ds['md5'] = io.dataset_md5(ds)
+    return data, ds
+
+
+def held_out(ds, task, n):
+    """The first ``n`` frames outside the training split, as bench.py picks them."""
+    ti = np.setdiff1d(np.arange(len(ds['R'])), task['idxs_train'])[:n]
+    return ds['R'][ti].reshape(len(ti), -1), ds['F'][ti].reshape(len(ti), -1), ti
+
+
+def phase_train_goldens(device):
+    """7a: the dense assembly on the card against the reference's kernels, and
+    against the CPU plain path at a ragged shape with P = 2."""
+    for fixture in ('kernel_ref.npz', 'kernel_ecstr_ref.npz'):
+        data = np.load(os.path.join(GOLDEN, fixture))
+        K = kernel_ops.assemble_kernel(
+            torch.as_tensor(data['R_desc'], device=device), torch.as_tensor(data['R_d_desc'], device=device),
+            desc_perm_table(data['perms']), float(data['sig']), data['perms'].shape[1],
+            use_E_cstr='ecstr' in fixture, tile_i=4, tile_j=2).cpu().numpy()
+        np.testing.assert_allclose(K, data['K'], rtol=1e-8, atol=1e-10)
+        print('    assemble_kernel(%s) %s: max |dK| %.2e against the reference (rtol 1e-8, atol 1e-10)' % (
+            device, fixture, np.abs(K - data['K']).max()))
+    n_atoms, m = ASSEMBLY_RAGGED
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=m, seed=3)
+    perms = np.stack([np.arange(n_atoms), np.r_[1, 0, np.arange(2, n_atoms)]])
+    for use_E_cstr in (False, True):
+        Ks = {}
+        for dev in ('cpu', device):
+            X, Jc = desc_ops.descriptor_batch(torch.as_tensor(ds['R'], dtype=torch.float64, device=dev), n_atoms)
+            Ks[dev] = kernel_ops.assemble_kernel(X, Jc, desc_perm_table(perms), 3.0, n_atoms,
+                                             use_E_cstr=use_E_cstr, tile_i=5, tile_j=7).cpu()
+        err = rel_err(Ks[device], Ks['cpu'])
+        print('    assemble_kernel N=%d M=%d P=2 tiles 5 x 7 E_cstr=%s: %s against the CPU plain path '
+              '%.2e of max |K| (bound 1e-12)' % (n_atoms, m, use_E_cstr, device, err))
+        assert err <= 1e-12, err
+
+
+def phase_train_reference(device):
+    """7b: the reference's training recipes (tests/test_train.py and
+    tests/test_perm.py) on the card, held to their tolerances."""
+    data, ds = golden_dataset()
+    trainer = GDMLTrain(device=device)
+    task = trainer.create_task(ds, 30, ds, 20, sig=4.0, lam=1e-10, use_sym=False, rng=np.random.RandomState(7))
+    model = trainer.train(task, solver='analytic')
+    np.testing.assert_array_equal(task['idxs_train'], data['idxs_train'])
+    np.testing.assert_allclose(model['std'], data['std'], rtol=1e-12)
+    a_err = np.abs(model['alphas_F'] - data['alphas_F']).max() / np.abs(data['alphas_F']).max()
+    assert a_err < 1e-4, a_err
+    np.testing.assert_allclose(model['c'], data['c'], rtol=1e-5)
+    E, F = GDMLPredict(model, device=device).predict(data['R_test'])
+    np.testing.assert_allclose(E, data['e_pred'], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(F, data['f_pred'], rtol=1e-5, atol=1e-7)
+    print('    golden recipe: split identical; alphas_F %.2e of max |alpha| (bound 1e-4); c %.2e rel (1e-5); '
+          'max |dE| %.2e, max |dF| %.2e against the reference' % (
+              a_err, abs(model['c'] - data['c']) / abs(data['c']), np.abs(E - data['e_pred']).max(),
+              np.abs(F - data['f_pred']).max()))
+
+    task = trainer.create_task(ds, 25, ds, 10, sig=4.0, lam=1e-10, use_sym=False, use_E_cstr=True,
+                               rng=np.random.RandomState(3))
+    model = trainer.train(task, solver='analytic')
+    E, _ = GDMLPredict(model, device=device).predict(data['R_test'])
+    e_mae = np.abs(E - data['E'][100:120]).mean()
+    assert 'alphas_E' in model and e_mae < 0.1, e_mae
+    print('    use_E_cstr recipe: energy MAE %.4f on R_test (bound 0.1)' % e_mae)
+
+    sym = generate_symmetric_md_dataset(n_frames=60, seed=0)
+    maes, n_perms = {}, {}
+    for use_sym in (False, True):
+        task = trainer.create_task(sym, 30, sym, 10, sig=6.0, lam=1e-10, use_sym=use_sym,
+                                   rng=np.random.RandomState(13))
+        model = trainer.train(task, solver='analytic')
+        R, F_ref, _ = held_out(sym, task, 40)
+        _, F = GDMLPredict(model, device=device).predict(R)
+        maes[use_sym], n_perms[use_sym] = np.abs(F - F_ref).mean(), task['perms'].shape[0]
+    assert n_perms[True] > 1 and maes[True] <= 1.1 * maes[False], (n_perms, maes)
+    print('    symmetric molecule: find_perms found P=%d; force MAE sGDML %.4f vs GDML %.4f (bound 1.1x)' % (
+        n_perms[True], maes[True], maes[False]))
+
+
+def phase_train_ethanol(device, card):
+    """7c: the ethanol recipe of bench.py at M = 200 (force MAE against the
+    JAX package's) and at M = 1000 (phase seconds and peak memory), and the
+    assembly at the JAX package's 64 MB tile budget and at the port's."""
+    n_atoms, n_frames, seed, split_seed, n_valid, sig, lam = ETHANOL
+    t0 = time.perf_counter()
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
+    print('    ethanol data N=%d, %d frames in %.1f s' % (n_atoms, n_frames, time.perf_counter() - t0))
+    for m in ETHANOL_M:
+        trainer = GDMLTrain(device=device)
+        task = trainer.create_task(ds, m, ds, n_valid, sig=sig, lam=lam, use_sym=False,
+                                   rng=np.random.RandomState(split_seed))
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        # Twice: the first call also pays one-off set-up (cuSOLVER's handle
+        # and workspace, the allocator's growth).
+        cold = trainer.train(task, solver='analytic')
+        t_cold = trainer.times['total']
+        model = trainer.train(task, solver='analytic')
+        a_diff = np.abs(cold['alphas_F'] - model['alphas_F']).max() / np.abs(model['alphas_F']).max()
+        assert a_diff <= 1e-6, a_diff
+        peak = torch.cuda.max_memory_allocated()
+        during = {k: v - before[k] for k, v in launch_counts().items()}
+        R, F_ref, _ = held_out(ds, task, 1000)
+        pred = GDMLPredict(model, batch_size=1000, device=device)
+        E, F = pred.predict(R)
+        mae = float(np.abs(F - F_ref).mean())
+        Rt = torch.as_tensor(R, dtype=torch.float64, device=device)
+        Xq, Jcq = desc_ops.descriptor_batch(Rt, n_atoms)
+        E_p, F_p = _predict_from_tables_body(Xq, Jcq, pred.tables, pred.alphas_E_lin, pred.sig, pred.std,
+                                             pred.c, n_atoms=n_atoms)
+        p_err = max(rel_err(torch.as_tensor(E), E_p.cpu()), rel_err(torch.as_tensor(F), F_p.cpu()))
+        assert np.isfinite(E).all() and np.isfinite(F).all() and p_err <= TOL[torch.float64], p_err
+        t = trainer.times
+        n = m * 3 * n_atoms
+        print('    ethanol M=%d (%d unknowns, K %.2f GB): train() cold %.3f s, warm %.3f s = descriptors %.3f + '
+              'assembly %.3f + Cholesky %.3f + model %.3f + integration constant %.3f; assembly %.1f%% of '
+              'train(); peak allocated %.2f GB; held-out force MAE %.6f on %d frames (f64); K1 launches in '
+              'two train() %s, their alphas %.1e apart; held-out predictions vs plain %.2e (%s)' % (
+                  m, n, 8 * n * n / 1e9, t_cold, t['total'], t['descriptors'], t['assembly'], t['cholesky'],
+                  t['model creation'], t['integration constant'], 100 * t['assembly'] / t['total'],
+                  peak / 1e9, mae, len(R), during, a_diff, p_err, card))
+        if m == ETHANOL_MAE[0]:
+            assert abs(mae - ETHANOL_MAE[1]) <= ETHANOL_MAE[2], mae
+
+    # The tile budget: the JAX package's 64 MB against the port's, at M = 1000.
+    X, Jc = desc_ops.descriptor_batch(
+        torch.as_tensor(task['R_train'].reshape(m, -1), dtype=torch.float64, device=device), n_atoms)
+    dperms = desc_perm_table(task['perms'])
+    tiles = {'64 MB': kernel_ops._tile_sizes(m, n_atoms, 64 * 1024**2, 8),
+             'port': kernel_ops.default_tile_sizes(m, n_atoms, 1)}
+    secs = {name: [] for name in tiles}
+    peaks = {}
+    for name in ('64 MB', 'port', 'port', '64 MB'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        K = kernel_ops.assemble_kernel(X, Jc, dperms, sig, n_atoms, tile_i=tiles[name][0], tile_j=tiles[name][1])
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+        peaks[name] = (torch.cuda.max_memory_allocated() - base - K.numel() * 8) / 1e9
+        del K
+    for name, (ti, tj) in tiles.items():
+        print('    assembly M=%d at the %s tile budget: tiles %d x %d (%d tiles), %.3f and %.3f s in turns; '
+              'peak above K %.3f GB (%s)' % (m, name, ti, tj, -(-m // ti) * -(-m // tj), *secs[name],
+                                             peaks[name], card))
+
+
+def phase_train(device, card):
+    """7: training on the card, the main path for K1 through the integration
+    constant and the validation predictions."""
+    t0 = time.perf_counter()
+    fused_predict.reset_launches()
+    phase_train_goldens(device)
+    phase_train_reference(device)
+    phase_train_ethanol(device, card)
+    counts = launch_counts()
+    assert counts['total'] > 0 and counts['one_pass'] > 0 and counts['pass_a'] > 0, counts
+    print('[7 train] assembly matches the goldens and the plain path; the reference recipes and the '
+          'ethanol M=%d force MAE reproduced; M=%d trained; launches %s; %.1f s' % (
+              ETHANOL_MAE[0], ETHANOL_M[-1], counts, time.perf_counter() - t0))
+    return counts
+
+
+def bound(B, T, D, itemsize):
+    """(ms, 'bytes' or 'operations'): the least time of one contraction on
+    an H100 SXM: 8 B T D operations at 67 TFLOP/s (FP64 tensor core and FP32
+    alike) or its inputs read and outputs written once at 3.35 TB/s."""
+    flops = 8.0 * B * T * D
+    n_bytes = itemsize * (B * D + 2 * T * D + 2 * T + B + B * D)
+    t_ops, t_bytes = flops / H100_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
 def main():
+    logging.basicConfig(level=logging.WARNING, format='%(levelname)s %(name)s: %(message)s')
     smi = phase_device()
     device = 'cuda'
     phase_build()
     max_abs, times = phase_kernel_vs_plain(device)
-    main_path = [phase_golden(device), phase_serving(device, smi), phase_md(device)]
+    main_path = [phase_golden(device), phase_serving(device, smi), phase_md(device),
+                 phase_train(device, smi)]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]
+    bound_ms, bound_by = bound(*SHAPES['at-at'], 8)
     print(json.dumps({'kernels': [{
         'name': 'fused_predict', 'route': 'cuda',
         'source': 'sgdml_tpu_torch/csrc/fused_predict.cu',
         'replaces': 'sgdml_tpu/ops/pallas_predict.py:43',
         'launches': counts['total'], 'max_abs_err': max_abs, 'ms': ms, 'plain_ms': plain_ms,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
         'launches_by_path': {k: counts[k] for k in ('one_pass', 'pass_a', 'pass_b')},
     }]}))
     print(smi)

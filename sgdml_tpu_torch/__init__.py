@@ -1,10 +1,12 @@
-"""sGDML on PyTorch and CUDA: the serving path of ``sgdml_tpu`` for NVIDIA GPUs.
+"""sGDML on PyTorch and CUDA: ``sgdml_tpu`` for NVIDIA GPUs.
 
 Symmetric Gradient Domain Machine Learning (sGDML) reconstructs
 energy-conserving molecular force fields by kernel ridge regression in the
-gradient domain. This package serves trained models -- batched energy and
-force prediction and molecular dynamics -- with PyTorch tensors on an
-explicit device. Its one hand-written kernel, the fused (E, F) contraction
+gradient domain. This package trains models (symmetry discovery, dense
+kernel assembly, an f64 Cholesky solve) and serves them -- batched energy
+and force prediction and molecular dynamics -- with PyTorch tensors. Every
+engine runs on the GPU (``device='cuda'``) unless the caller asks for the
+CPU. Its one hand-written kernel, the fused (E, F) contraction
 (``ops/fused_predict.py``, ``csrc/fused_predict.cu``), runs every CUDA
 prediction; CPU tensors take its plain PyTorch version.
 
@@ -14,6 +16,8 @@ package imports neither JAX nor ``sgdml_tpu``.
 """
 
 import logging
+
+import torch
 
 __version__ = '0.1.0'
 
@@ -29,3 +33,18 @@ def _done(self, message, *args, **kws):
 
 
 logging.Logger.done = _done
+
+
+def resolve_device(device) -> torch.device:
+    """The engines' device: ``'cuda'`` by default, the CPU only when asked.
+
+    Raises ``RuntimeError`` for a CUDA device when PyTorch sees no card, so
+    that nothing falls back to the CPU unasked.
+    """
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is False); "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device

@@ -21,7 +21,10 @@ import numpy as np
 
 from ..utils import io
 
-__all__ = ['SYSTEMS', 'make_molecule', 'MorseField', 'generate_md_dataset']
+__all__ = [
+    'SYSTEMS', 'make_molecule', 'MorseField', 'generate_md_dataset',
+    'generate_symmetric_md_dataset',
+]
 
 SYSTEMS = {
     'ethanol_like': 9,
@@ -144,4 +147,84 @@ def generate_md_dataset(
     dataset['E_mean'], dataset['E_var'] = dataset['E'].mean(), dataset['E'].var()
     dataset['F_min'], dataset['F_max'] = dataset['F'].min(), dataset['F'].max()
     dataset['F_mean'], dataset['F_var'] = dataset['F'].mean(), dataset['F'].var()
+    return dataset
+
+
+def generate_symmetric_md_dataset(n_frames: int = 800, seed: int = 0):
+    """A molecule with an exact permutation symmetry (for sym-discovery
+    tests): two identical 'methyl-like' H3 groups attached to a C-C core,
+    mirroring why benzene/toluene need sGDML.
+
+    Atoms: [C, C, H, H, H, H, H, H] — swapping the two CH3 groups and
+    rotating each H3 triple are physical symmetries of the Morse field
+    because equilibrium distances are built symmetric.
+    """
+    # Symmetric reference geometry.
+    c1 = np.array([0.0, 0.0, 0.0])
+    c2 = np.array([1.5, 0.0, 0.0])
+
+    def h3(center, sign):
+        out = []
+        for ang in (0, 2 * np.pi / 3, 4 * np.pi / 3):
+            out.append(
+                center
+                + np.array(
+                    [sign * 0.36, 0.94 * np.cos(ang), 0.94 * np.sin(ang)]
+                )
+            )
+        return out
+
+    ref_pos = np.array([c1, c2] + h3(c1, -1) + h3(c2, +1))
+    z = np.array([6, 6, 1, 1, 1, 1, 1, 1])
+
+    rng = np.random.default_rng(seed)
+    field = MorseField(ref_pos, k=2.0)
+
+    r = ref_pos.copy()
+    v = rng.normal(size=r.shape) * np.sqrt(0.02)
+    frames, energies, forces = [], [], []
+    _, f = field.energy_forces(r[None])
+    f = f[0]
+    dt, friction, temperature = 0.04, 0.05, 0.02
+    for step in range(200 + n_frames):
+        v = v + 0.5 * dt * f
+        r = r + 0.5 * dt * v
+        c1_ = np.exp(-friction * dt)
+        v = c1_ * v + np.sqrt((1 - c1_**2) * temperature) * rng.normal(size=v.shape)
+        r = r + 0.5 * dt * v
+        e, f = field.energy_forces(r[None])
+        e, f = e[0], f[0]
+        v = v + 0.5 * dt * f
+        if step >= 200:
+            frames.append(r.copy())
+            energies.append(e)
+            forces.append(f.copy())
+
+    # Real MD visits symmetry-equivalent basins (e.g. methyl rotations at
+    # 500 K); emulate that by relabeling a random subset of frames with
+    # exact group elements. Atoms: [C0, C1, H(C0) x3, H(C1) x3].
+    # The field's symmetry group (order 6): swap the two CH3 units, and
+    # correlated C3 rotations of both H triples.
+    swap = np.array([1, 0, 5, 6, 7, 2, 3, 4])
+    rot = np.array([0, 1, 3, 4, 2, 6, 7, 5])
+    group = [np.arange(8), rot, rot[rot], swap, swap[rot], swap[rot[rot]]]
+
+    frames = np.array(frames)
+    forces = np.array(forces)
+    for i in range(len(frames)):
+        g = group[rng.integers(len(group))]
+        frames[i] = frames[i][g]
+        forces[i] = forces[i][g]
+
+    dataset = {
+        'type': 'd',
+        'code_version': '0.1.0',
+        'name': np.array('synth_sym'),
+        'theory': np.array('morse'),
+        'z': z,
+        'R': np.array(frames),
+        'E': np.array(energies),
+        'F': np.array(forces),
+    }
+    dataset['md5'] = io.dataset_md5(dataset)
     return dataset

@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from . import resolve_device
 from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
 from .predict import build_tables, center_tables, predict_from_tables
@@ -24,7 +25,7 @@ __all__ = ['MDEngine']
 
 
 class MDEngine:
-    """MD over a trained model dict on an explicit device.
+    """MD over a trained model dict on one device.
 
     Parameters
     ----------
@@ -34,14 +35,15 @@ class MDEngine:
         convention as the reference's ASE-driven MD
         (sgdml/intf/ase_calc.py:93-106).
     dtype: computation dtype (``torch.float64`` default).
-    device: the device to run on (required).
+    device: the device to run on: the GPU unless the caller asks for the
+        CPU (``device='cpu'``); without a card the default raises.
     """
 
-    def __init__(self, model, masses=None, dtype=torch.float64, *, device):
+    def __init__(self, model, masses=None, dtype=torch.float64, *, device='cuda'):
         model = as_model_dict(model)
         if masses is None:
             masses = ATOMIC_MASSES[np.asarray(model['z'], dtype=np.int64)]
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_atoms = int(model['z'].shape[0])
         self.sig = float(np.squeeze(model['sig']))
         self.std = float(np.squeeze(model.get('std', 1.0)))

@@ -150,13 +150,13 @@ class GDMLModel:
     # -- engines -------------------------------------------------------------
 
     def predictor(self, **kwargs):
-        """A :class:`~sgdml_tpu_torch.predict.GDMLPredict`; pass ``device=``."""
+        """A :class:`~sgdml_tpu_torch.predict.GDMLPredict` (on the GPU unless ``device=`` says otherwise)."""
         from ..predict import GDMLPredict
 
         return GDMLPredict(self.data, **kwargs)
 
     def md_engine(self, **kwargs):
-        """A :class:`~sgdml_tpu_torch.md.MDEngine`; pass ``device=``."""
+        """A :class:`~sgdml_tpu_torch.md.MDEngine` (on the GPU unless ``device=`` says otherwise)."""
         from ..md import MDEngine
 
         return MDEngine(self.data, **kwargs)

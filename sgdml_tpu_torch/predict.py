@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import resolve_device
 from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
 from .ops import fused_predict
@@ -208,11 +209,12 @@ class GDMLPredict:
     transfer_dtype: optional narrower ``torch.dtype`` for host<->device
         copies of geometries and results (compute stays in ``dtype``).
     mesh: multi-device serving is not ported; must be None.
-    device: the device to serve on (required, e.g. ``'cuda'`` or ``'cpu'``).
+    device: the device to serve on: the GPU unless the caller asks for the
+        CPU (``device='cpu'``); without a card the default raises.
     """
 
     def __init__(self, model, dtype=torch.float64, batch_size: int | None = None,
-                 transfer_dtype=None, mesh=None, *, device):
+                 transfer_dtype=None, mesh=None, *, device='cuda'):
         if mesh is not None:
             raise NotImplementedError(
                 'mesh= (data-parallel serving over several GPUs) is ROADMAP '
@@ -222,7 +224,7 @@ class GDMLPredict:
         if not io.is_model(model):
             raise ValueError('The provided data structure is not a valid model.')
 
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_atoms = int(model['z'].shape[0])
         self.dim_i = 3 * self.n_atoms
         self.dtype = dtype

@@ -1,4 +1,4 @@
-"""File schemas and fingerprints (the part the serving path needs).
+"""File schemas, fingerprints and schema checks.
 
 On-disk formats are dict-of-ndarray ``.npz`` files discriminated by a
 ``type`` key -- ``'d'`` dataset / ``'t'`` task / ``'m'`` model -- in the
@@ -19,7 +19,10 @@ __all__ = [
     'load_dict',
     'save_dict',
     'artifact_type',
+    'is_dataset',
+    'is_task',
     'is_model',
+    'validate_dataset',
 ]
 
 # Standard atomic weights (u), indexed by nuclear charge Z (IUPAC 2021
@@ -85,5 +88,38 @@ def artifact_type(data: dict) -> str:
     return str(t)
 
 
+def is_dataset(data) -> bool:
+    return artifact_type(data) == 'd'
+
+
+def is_task(data) -> bool:
+    return artifact_type(data) == 't'
+
+
 def is_model(data) -> bool:
     return artifact_type(data) == 'm'
+
+
+def validate_dataset(dataset: dict):
+    """Schema check for dataset dicts (reference: sgdml/utils/io.py:327-411)."""
+    if not is_dataset(dataset):
+        raise ValueError("Not a dataset ('type' != 'd').")
+    for key in ('z', 'R', 'F', 'name'):
+        if key not in dataset:
+            raise ValueError("Dataset is missing key '%s'." % key)
+    R, F, z = dataset['R'], dataset['F'], dataset['z']
+    if R.ndim != 3 or R.shape[2] != 3:
+        raise ValueError('R must have shape (n_geoms, n_atoms, 3).')
+    if F.shape != R.shape:
+        raise ValueError('F must match the shape of R.')
+    if z.shape[0] != R.shape[1]:
+        raise ValueError('z length must equal the number of atoms.')
+    if 'E' in dataset and dataset['E'].shape[0] != R.shape[0]:
+        raise ValueError('E must have one entry per geometry.')
+    if 'lattice' in dataset:
+        lat = dataset['lattice']
+        if lat.shape != (3, 3):
+            raise ValueError('lattice must be 3x3 (vectors as columns).')
+        if abs(np.linalg.det(lat)) < 1e-12:
+            raise ValueError('lattice vectors are not invertible.')
+    return dataset

@@ -1,0 +1,97 @@
+"""The port's dense analytic solve (solvers/analytic.py) on the CPU against
+the JAX package: the Cholesky rung, the LU rung on a system that is not
+positive definite, the whole solve, and the routes that are not ported."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sgdml_tpu.solvers import analytic as jax_analytic
+from sgdml_tpu_torch.datasets.synthetic import generate_md_dataset
+from sgdml_tpu_torch.ops import descriptor as desc_ops
+from sgdml_tpu_torch.predict import desc_perm_table
+from sgdml_tpu_torch.solvers import analytic
+from sgdml_tpu_torch.train import GDMLTrain
+
+
+def _system(n=40, seed=0, psd=True):
+    """K whose -K + lam I is positive definite (or indefinite), and y."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, n))
+    K = -(A @ A.T) / n if psd else (A + A.T) / 2
+    return K, rng.normal(size=n)
+
+
+def test_cho_solve_neg_matches_jax():
+    K, y = _system()
+    A = analytic._neg_shift_(torch.as_tensor(K.copy()), 1e-3)
+    np.testing.assert_array_equal(A.numpy(), -K + 1e-3 * np.eye(len(K)))
+    alphas, ok = analytic._cho_solve_neg(A, torch.as_tensor(y))
+    ref, ok_j = jax_analytic._cho_solve_neg(jnp.asarray(K), jnp.asarray(y), 1e-3)
+    assert ok and bool(ok_j)
+    np.testing.assert_allclose(alphas.numpy(), np.asarray(ref), rtol=1e-10, atol=1e-12)
+
+
+def test_lu_rung_on_a_system_that_is_not_positive_definite(monkeypatch):
+    K, y = _system(psd=False)
+    A = analytic._neg_shift_(torch.as_tensor(K.copy()), 1e-3)
+    assert analytic._cho_solve_neg(A, torch.as_tensor(y)) == (None, False)
+    ref = np.asarray(jax_analytic._lu_solve_neg(jnp.asarray(K), jnp.asarray(y), 1e-3))
+    np.testing.assert_allclose(analytic._lu_solve_neg(A, torch.as_tensor(y)).numpy(), ref, rtol=1e-9)
+
+    # The solve takes the LU rung when the factor fails.
+    monkeypatch.setattr(analytic, 'assemble_kernel', lambda *a, **k: torch.as_tensor(K.copy()))
+    task = {'sig': 1.0, 'lam': 1e-3}
+    X, Jc = torch.zeros(2, 10, dtype=torch.float64), torch.zeros(2, 10, 3, dtype=torch.float64)
+    out = analytic.Analytic().solve(task, X, Jc, desc_perm_table(np.arange(5)[None]), y)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-9)
+
+
+@pytest.mark.parametrize('use_E_cstr', [False, True])
+def test_solve_matches_jax(use_E_cstr):
+    ds = generate_md_dataset(n_atoms=5, n_frames=12, seed=4)
+    R = ds['R'][:10].reshape(10, -1)
+    X, Jc = desc_ops.descriptor_batch(torch.as_tensor(R), 5)
+    dperms = desc_perm_table(np.array([[0, 1, 2, 3, 4], [1, 0, 2, 3, 4]]))
+    n = 10 * 15 + (10 if use_E_cstr else 0)
+    y = np.random.default_rng(1).normal(size=n)
+    task = {'sig': 3.0, 'lam': 1e-6, 'use_E_cstr': use_E_cstr}
+    solver = analytic.Analytic()
+    ours = solver.solve(task, X, Jc, dperms, y)
+    ref = jax_analytic.Analytic().solve(task, X.numpy(), Jc.numpy(), dperms, y)
+    assert ours.shape == (n,) and ours.dtype == torch.float64
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-7, atol=1e-9 * np.abs(ref).max())
+    assert solver.t_assemble > 0 and solver.t_solve > 0
+
+
+def test_memory_budget_and_estimate():
+    for args in [(200, 9, False), (1000, 9, False), (30, 5, True)]:
+        assert analytic.Analytic.est_memory_requirement(*args) == \
+            jax_analytic.Analytic.est_memory_requirement(*args)
+    assert analytic.Analytic.est_memory_requirement(1000, 9) == 24 * 27_000**2 + 8 * 27_000
+    assert analytic.memory_budget('cpu') == 12 * 1024**3
+
+
+def test_routes_that_are_not_ported_raise():
+    ds = generate_md_dataset(n_atoms=4, n_frames=30, seed=0)
+    X, Jc = desc_ops.descriptor_batch(torch.as_tensor(ds['R'][:5]), 4)
+    dperms = desc_perm_table(np.arange(4)[None])
+    with pytest.raises(NotImplementedError, match='ROADMAP queue 1 items 10 and 12'):
+        analytic.Analytic(max_memory=1e-6).solve({'sig': 2.0, 'lam': 1e-8}, X, Jc, dperms, np.zeros(60))
+    with pytest.raises(NotImplementedError, match='item 13'):
+        analytic.Analytic(mesh=object())
+
+    trainer = GDMLTrain(device='cpu')
+    np.random.seed(0)
+    task = trainer.create_task(ds, 5, ds, 5, sig=2.0, use_sym=False)
+    with pytest.raises(NotImplementedError, match='item 10'):
+        trainer.train(task, solver='cg')
+    with pytest.raises(NotImplementedError, match='items 10 and 12'):
+        GDMLTrain(max_memory=1e-6, device='cpu').train(task)
+    with pytest.raises(NotImplementedError, match='items 10 and 12'):
+        GDMLTrain(max_memory=1e-6, device='cpu').train(task, solver='analytic')
+    with pytest.raises(ValueError):
+        trainer.train(task, solver='lu')
+    with pytest.raises(NotImplementedError, match='item 13'):
+        GDMLTrain(mesh=object(), device='cpu')

@@ -56,5 +56,8 @@ def test_masses_and_forces_match_the_predictor(setup):
     E2, F2 = GDMLPredict(model, device='cpu').predict(r0.reshape(1, -1))
     np.testing.assert_allclose(float(E1), E2[0], rtol=1e-12)
     np.testing.assert_allclose(F1.numpy().ravel(), F2[0], rtol=1e-10, atol=1e-14)
-    with pytest.raises(TypeError):
-        MDEngine(model)  # the device is explicit
+    if torch.cuda.is_available():
+        assert MDEngine(model).device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            MDEngine(model)  # the card by default: no silent CPU fallback

@@ -187,8 +187,11 @@ def test_train_mode_matches_jax(golden, with_aE):
 
 def test_unported_options_and_device_are_explicit(golden):
     _, model = golden
-    with pytest.raises(TypeError):
-        GDMLPredict(model)  # no device: nothing picks one silently
+    if torch.cuda.is_available():
+        assert GDMLPredict(model).device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            GDMLPredict(model)  # the card by default: no silent CPU fallback
     with pytest.raises(TypeError):
         GDMLPredict(42, device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):

@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax():
     code = (
         'import sys, sgdml_tpu_torch, sgdml_tpu_torch.predict, sgdml_tpu_torch.md, '
         'sgdml_tpu_torch.models, sgdml_tpu_torch.datasets.synthetic, '
-        'sgdml_tpu_torch.ops.fused_predict, sgdml_tpu_torch.ops._build; '
+        'sgdml_tpu_torch.ops.fused_predict, sgdml_tpu_torch.ops._build, sgdml_tpu_torch.train, '
+        'sgdml_tpu_torch.perm, sgdml_tpu_torch.solvers.analytic, sgdml_tpu_torch.ops.kernel, '
+        'sgdml_tpu_torch.utils.profiling, sgdml_tpu_torch.utils.io; '
         "assert 'jax' not in sys.modules and 'sgdml_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if 'jax' in m or m == 'sgdml_tpu')"
     )
