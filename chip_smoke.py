@@ -37,9 +37,23 @@ each a plain assertion that ends the run with a traceback when it fails:
    JAX package's, and at M = 1000 (27,000 unknowns), with each phase's
    seconds, the peak device memory and K1's launches, and the assembly at
    the JAX package's 64 MB tile budget and at the port's, in turns. K1 runs
-   in the integration constant and in every validation prediction.
+   in the integration constant and in every validation prediction;
+8. training by CG on the card (``GDMLTrain(device='cuda').train(task,
+   solver='cg')`` and ``Iterative.solve``), K1 in every matvec: (a) the
+   ill-conditioned anchor of ``tests/dev_sigma_warmstart.py`` (M=200, five
+   sigmas, at two budgets) against the JAX package's CPU f64 iteration
+   counts; (b) ethanol M=1000 by CG with k capped well below M, against
+   phase 7c's dense model; (c) the aspirin recipe of ``bench_large.py``
+   (63,000 unknowns, past the dense bound): convergence, the re-measured
+   residual, the held-out force MAE, seconds by phase and peak memory; (d)
+   the full AT-AT width (540,000 unknowns) under a wall budget: the factor
+   at the memory cap, a falling residual, iterations per second, and the
+   column assembly at the JAX package's 1.5 GB tile budget and the port's in
+   turns. Each CG width also times one iteration's parts (the matvec, K1
+   inside it, the Woodbury apply) and K1 against its plain version at the
+   matvec's shape; those launches are not counted.
 
-Phases 4-7 are the main path: each sets the launch counts to 0 before it
+Phases 4-8 are the main path: each sets the launch counts to 0 before it
 and reads them after. The last two lines are the kernels' JSON record and
 ``{"ok": true, ...}``.
 """
@@ -66,6 +80,8 @@ from sgdml_tpu_torch.ops import descriptor as desc_ops
 from sgdml_tpu_torch.predict import (
     GDMLPredict, _predict_from_tables_body, _predict_geoms, center_tables, desc_perm_table,
 )
+from sgdml_tpu_torch.solvers import iterative as it_mod
+from sgdml_tpu_torch.solvers.analytic import Analytic, memory_budget
 from sgdml_tpu_torch.train import GDMLTrain
 from sgdml_tpu_torch.utils import io
 
@@ -110,6 +126,29 @@ ASSEMBLY_RAGGED = (7, 23)
 ETHANOL = (9, 12_000, 0, 1, 500, 10.0, 1e-10)
 ETHANOL_M = (200, 1000)
 ETHANOL_MAE = (200, 0.03168, 1e-4)
+
+# Phase 8a: the anchor recipe of tests/dev_sigma_warmstart.py (N, frames,
+# data seed, split seed, M, validation points, lam) and its sigmas; the JAX
+# package's CPU f64 iteration counts at each budget in GB (that script rerun
+# on a CPU; PERF.md), and the port's tolerance on them: 10% or 3 iterations,
+# whichever is larger.
+CG_ANCHOR = (9, 300, 3, 1, 200, 50, 1e-10)
+CG_ANCHOR_SIGS = (6.0, 8.0, 10.0, 12.0, 15.0)
+CG_ANCHOR_JAX = {0.1: (2289, 1436, 867, 618, 383), 0.75: (77, 45, 31, 22, 13)}
+CG_ANCHOR_TOL = (0.10, 3)
+# 8b: the budget in GB that caps k at 73 of phase 7c's M=1000 ethanol points,
+# and tests/test_iterative.py's bounds against the dense model: mean force
+# difference over mean |F|, and mean difference of centered energies.
+CG_ETHANOL_GB = 2.0
+CG_DENSE_BOUNDS = (5e-3, 1e-2)
+# 8c / 8d: the recipes of bench_large.py `aspirin` and `atat3000` (N, frames,
+# data seed, split seed, validation points, M, sig, lam) and their CG wall
+# budgets in seconds.
+CG_ASPIRIN = (21, 2200, 10, 1, 200, 1000, 15.0, 1e-8)
+CG_ATAT = (60, 3600, 11, 1, 200, 3000, 25.0, 1e-10)
+CG_ASPIRIN_SECONDS, CG_ATAT_SECONDS = 300.0, 60.0
+# The JAX package's column staging cap, timed against the port's in 8d.
+JAX_COLUMN_TILE_BYTES = 1.5e9
 
 # H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s) and
 # HBM3 bandwidth, for K1's bound.
@@ -566,6 +605,7 @@ def phase_train_ethanol(device, card):
         print('    assembly M=%d at the %s tile budget: tiles %d x %d (%d tiles), %.3f and %.3f s in turns; '
               'peak above K %.3f GB (%s)' % (m, name, ti, tj, -(-m // ti) * -(-m // tj), *secs[name],
                                              peaks[name], card))
+    return ds, task, model
 
 
 def phase_train(device, card):
@@ -575,13 +615,251 @@ def phase_train(device, card):
     fused_predict.reset_launches()
     phase_train_goldens(device)
     phase_train_reference(device)
-    phase_train_ethanol(device, card)
+    ethanol = phase_train_ethanol(device, card)
     counts = launch_counts()
     assert counts['total'] > 0 and counts['one_pass'] > 0 and counts['pass_a'] > 0, counts
     print('[7 train] assembly matches the goldens and the plain path; the reference recipes and the '
           'ethanol M=%d force MAE reproduced; M=%d trained; launches %s; %.1f s' % (
               ETHANOL_MAE[0], ETHANOL_M[-1], counts, time.perf_counter() - t0))
-    return counts
+    return counts, ethanol
+
+
+def cg_system(ds, task, n_atoms, device):
+    """Descriptors of a task's training points on the device, its
+    permutation table and its normalized force labels."""
+    m = task['R_train'].shape[0]
+    X, Jc = desc_ops.descriptor_batch(
+        torch.as_tensor(task['R_train'].reshape(m, -1), dtype=torch.float64, device=device), n_atoms)
+    y = task['F_train'].ravel()
+    return X, Jc, desc_perm_table(task['perms']), y / np.std(y), float(np.std(y))
+
+
+def true_resid(model, X, Jc, dperms, y, n_atoms):
+    """``|y - A x|`` of a force-only CG model, re-measured from its alphas."""
+    tab = it_mod.matvec_tables(X, Jc, dperms)
+    x = -torch.as_tensor(model['alphas_F'], dtype=torch.float64, device=X.device)
+    r = torch.as_tensor(y, device=X.device) - it_mod._matvec_A(
+        x, tab, float(model['sig']), float(model['lam']), n_atoms=n_atoms, use_E_cstr=False)
+    return float(torch.linalg.vector_norm(r))
+
+
+def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card):
+    """Device ms of one CG iteration and of its parts at a solve's shapes,
+    with the factor rebuilt from the solve's inducing columns: the whole
+    iteration (a chunk of CG_CHUNK_ITERS over its count), the matvec, K1
+    inside it (against its plain version, in turns), and the Woodbury apply.
+    Returns K1's (ms, plain ms, bound ms, bound by, B, T, D)."""
+    F, _ = it_mod.Iterative(device=X.device)._build_factor(X, Jc, dperms, sig, lam, idxs, n_atoms, False)
+    tab = it_mod.matvec_tables(X, Jc, dperms)
+    n = F.shape[1]
+    v = torch.as_tensor(np.random.default_rng(0).normal(size=n), device=X.device)
+    JA = desc_ops.jac_dot_vec(Jc, v.reshape(-1, 3 * n_atoms), n_atoms)[:, tab.dp].reshape(-1, X.shape[1])
+    JA = JA.contiguous()
+    args = (X - tab.mu, tab.Xt, JA, tab.xt_sq, torch.sum(tab.Xt * JA, dim=1), None, sig)
+    k1_ms, plain_ms = time_pair(lambda: fused_predict.fused_predict_tables(*args),
+                                lambda: fused_predict.fused_predict_tables_reference(*args))
+    mv_ms, apply_ms = time_pair(
+        lambda: it_mod._matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=False),
+        lambda: it_mod._factor_apply(F, v))
+    z = it_mod._factor_apply(F, v) / lam
+    zero = torch.zeros((), dtype=torch.int64, device=X.device)
+    state = (torch.zeros_like(v), v, z, z, v @ z, zero,
+             torch.zeros(it_mod.CG_CHUNK_ITERS, dtype=torch.float64, device=X.device), zero)
+    chunk_ms = cuda_ms(lambda: it_mod._pcg_chunk(state, F, tab, sig, lam, 1.0, 0.0, n_atoms=n_atoms,
+                                                 use_E_cstr=False, chunk_iters=it_mod.CG_CHUNK_ITERS), 2)
+    it_ms = chunk_ms / it_mod.CG_CHUNK_ITERS
+    B, D, T = X.shape[0], X.shape[1], tab.Xt.shape[0]
+    b_ms, b_by = bound(B, T, D, 8)
+    f_bytes = F.numel() * 8
+    print('    %s iteration split (k=%d columns, n=%d, factor %.2f GB): %.3f ms an iteration = matvec %.3f '
+          '(K1 %.3f, %.0f%% of the iteration) + Woodbury apply %.3f (%.0f%%; reads the factor twice, %.0f GB/s) '
+          '+ the rest %.3f (the parts timed alone); K1 at B=%d T=%d D=%d f64 %.3f ms vs plain %.3f ms, bound %.4f ms by %s (%.1f%%), '
+          'route %s (%s)' % (
+              label, F.shape[0], n, f_bytes / 1e9, it_ms, mv_ms, k1_ms, 100 * k1_ms / it_ms, apply_ms,
+              100 * apply_ms / it_ms, 2 * f_bytes / apply_ms * 1e-6, it_ms - mv_ms - apply_ms, B, T, D, k1_ms,
+              plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(T, D), card))
+    return {'label': label, 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': b_by, 'iteration_ms': it_ms, 'matvec_ms': mv_ms, 'apply_ms': apply_ms}
+
+
+def cg_launches(before, iters):
+    during = {k: v - before[k] for k, v in launch_counts().items()}
+    return during, during['total'] / max(iters, 1)
+
+
+def phase_cg_anchor(device, card):
+    """8a: cold solves of the ill-conditioned anchor against the JAX
+    package's CPU f64 iteration counts."""
+    n_atoms, n_frames, seed, split, m, n_valid, lam = CG_ANCHOR
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
+    trainer = GDMLTrain(device=device)
+    task0 = trainer.create_task(ds, m, ds, n_valid, sig=CG_ANCHOR_SIGS[0], lam=lam, use_sym=False,
+                                rng=np.random.RandomState(split))
+    X, Jc, dperms, y, y_std = cg_system(ds, task0, n_atoms, device)
+    counts = dict.fromkeys(launch_counts(), 0)
+    first = None
+    for gb, refs in CG_ANCHOR_JAX.items():
+        for sig, ref in zip(CG_ANCHOR_SIGS, refs):
+            solver = it_mod.Iterative(trainer, max_memory=gb)
+            before = launch_counts()
+            _, _, iters, resid, _, idxs, conv = solver.solve(dict(task0, sig=sig), X, Jc, dperms, y, y_std)
+            during, per_it = cg_launches(before, iters)
+            counts = {k: counts[k] + during[k] for k in counts}
+            first = first or (sig, idxs)
+            t = solver.timer.durations
+            ok = abs(iters - ref) <= max(CG_ANCHOR_TOL[0] * ref, CG_ANCHOR_TOL[1])
+            print('    anchor M=%d budget %.2f GB sig=%4.1f: k=%d, %d iterations (JAX CPU f64 %d, %+.1f%%), '
+                  'converged %s, resid %.3e; %.1f iterations/s (cg %.3f s, factor %.3f s, leverage scores '
+                  '%.3f s); K1 %.2f launches an iteration %s (%s)' % (
+                      m, gb, sig, len(idxs) // (3 * n_atoms), iters, ref, 100 * (iters - ref) / ref, conv,
+                      resid, iters / t['cg'], t['cg'], t['factor'], t['leverage scores'], per_it,
+                      during, card))
+            assert conv and ok, (gb, sig, iters, ref)
+    split = cg_split('anchor', X, Jc, dperms, first[0], lam, n_atoms, first[1], card)
+    return counts, split
+
+
+def phase_cg_dense(device, ethanol, card):
+    """8b: ethanol M=1000 by CG with k well below M, against phase 7c's
+    dense model on held-out geometries."""
+    ds, task, dense = ethanol
+    n_atoms = task['R_train'].shape[1]
+    trainer = GDMLTrain(max_memory=CG_ETHANOL_GB, device=device)
+    before = launch_counts()
+    model = trainer.train(task, solver='cg')
+    during, per_it = cg_launches(before, model['solver_iters'])
+    k = len(model['inducing_pts_idxs']) // (3 * n_atoms)
+    R, F_ref, _ = held_out(ds, task, 1000)
+    Ea, Fa = GDMLPredict(dense, device=device).predict(R)
+    Ec, Fc = GDMLPredict(model, device=device).predict(R)
+    f_rel = float(np.abs(Fc - Fa).mean() / np.abs(Fa).mean())
+    e_diff = float(np.abs((Ec - Ec.mean()) - (Ea - Ea.mean())).mean())
+    conv = model['solver_resid'] <= model['solver_tol'] * model['norm_y_train']
+    t = trainer.times
+    print('    ethanol M=%d by CG at %.1f GB: k=%d of %d points, %d iterations, converged %s; train() %.3f s '
+          '(leverage scores %.3f, factor %.3f, cg %.3f: %.1f iterations/s); against the dense model on %d '
+          'held-out frames: mean |dF| / mean |F| %.2e (bound %.0e), centered |dE| %.2e (bound %.0e); CG force '
+          'MAE %.6f; K1 %.2f launches an iteration %s (%s)' % (
+              len(task['idxs_train']), CG_ETHANOL_GB, k, len(task['idxs_train']), model['solver_iters'], conv,
+              t['total'], t['leverage scores'], t['factor'], t['cg'], model['solver_iters'] / t['cg'], len(R),
+              f_rel, CG_DENSE_BOUNDS[0], e_diff, CG_DENSE_BOUNDS[1], np.abs(Fc - F_ref).mean(), per_it,
+              during, card))
+    assert conv and k < len(task['idxs_train']) // 4, (conv, k)
+    assert f_rel < CG_DENSE_BOUNDS[0] and e_diff < CG_DENSE_BOUNDS[1], (f_rel, e_diff)
+    X, Jc, dperms, _, _ = cg_system(ds, task, n_atoms, device)
+    split = cg_split('ethanol', X, Jc, dperms, float(task['sig']), float(task['lam']), n_atoms,
+                     model['inducing_pts_idxs'], card)
+    return during, split
+
+
+def cg_recipe(device, recipe, max_seconds):
+    """Data, the budget pinned to what the card has free (so the cap on k is
+    known), the task, and train() by CG with its peak memory."""
+    n_atoms, n_frames, seed, split, n_valid, m, sig, lam = recipe
+    t0 = time.perf_counter()
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
+    budget = memory_budget(device)
+    trainer = GDMLTrain(max_memory=budget / 1024**3, device=device)
+    task = trainer.create_task(ds, m, ds, n_valid, sig=sig, lam=lam, use_sym=False,
+                               rng=np.random.RandomState(split))
+    t_data = time.perf_counter() - t0
+    need = Analytic.est_memory_requirement(m, n_atoms)
+    assert need > torch.cuda.get_device_properties(0).total_memory, need
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    model = trainer.train(task, solver='cg', solver_max_seconds=max_seconds)
+    peak = torch.cuda.max_memory_allocated()
+    during, per_it = cg_launches(before, model['solver_iters'])
+    k = len(model['inducing_pts_idxs']) // (3 * n_atoms)
+    cap = min(m, it_mod.Iterative.max_n_inducing_pts(m, n_atoms, budget))
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    resid = true_resid(model, X, Jc, dperms, y, n_atoms)
+    return dict(ds=ds, task=task, model=model, times=trainer.times, peak=peak, during=during, per_it=per_it,
+                k=k, cap=cap, budget=budget, need=need, X=X, Jc=Jc, dperms=dperms, y=y, resid=resid,
+                t_data=t_data, n=m * 3 * n_atoms)
+
+
+def phase_cg_aspirin(device, card):
+    """8c: the bench_large.py aspirin recipe, past the dense bound."""
+    n_atoms, sig, lam = CG_ASPIRIN[0], CG_ASPIRIN[6], CG_ASPIRIN[7]
+    r = cg_recipe(device, CG_ASPIRIN, CG_ASPIRIN_SECONDS)
+    model, t = r['model'], r['times']
+    tol_b = model['solver_tol'] * model['norm_y_train']
+    conv = model['solver_resid'] <= tol_b
+    R, F_ref, _ = held_out(r['ds'], r['task'], 500)
+    _, F = GDMLPredict(model, device=device).predict(R)
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.1f GB): budget %.1f GB, k=%d (cap %d), '
+          '%d iterations, converged %s, recorded resid %.3e, re-measured %.3e (target %.3e); train() %.2f s = '
+          'descriptors %.3f + leverage scores %.2f + factor %.2f + cg %.2f (%.1f iterations/s) + model %.3f + '
+          'integration constant %.3f; data %.1f s; peak allocated %.2f GB; held-out force MAE %.5f (force '
+          'scale %.4f) on %d frames; K1 %.2f launches an iteration %s (%s)' % (
+              n_atoms, r['task']['R_train'].shape[0], sig, lam, r['n'], r['need'] / 1e9, r['budget'] / 1e9,
+              r['k'], r['cap'], model['solver_iters'], conv, model['solver_resid'], r['resid'], tol_b,
+              t['total'], t['descriptors'], t['leverage scores'], t['factor'], t['cg'],
+              model['solver_iters'] / t['cg'], t['model creation'], t['integration constant'], r['t_data'],
+              r['peak'] / 1e9, mae, scale, len(R), r['per_it'], r['during'], card))
+    assert r['k'] == r['cap'] and conv and r['resid'] <= tol_b, (r['k'], r['cap'], conv, r['resid'], tol_b)
+    assert np.isfinite(mae), mae
+    split = cg_split('aspirin', r['X'], r['Jc'], r['dperms'], sig, lam, n_atoms, model['inducing_pts_idxs'], card)
+    return r['during'], split
+
+
+def phase_cg_atat(device, card):
+    """8d: the bench_large.py atat3000 recipe at full width, under a wall
+    budget; then the column assembly at two tile budgets in turns."""
+    n_atoms, sig, lam = CG_ATAT[0], CG_ATAT[6], CG_ATAT[7]
+    r = cg_recipe(device, CG_ATAT, CG_ATAT_SECONDS)
+    model, t = r['model'], r['times']
+    drift = abs(r['resid'] - model['solver_resid']) / r['resid']
+    print('    AT-AT N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.0f GB): budget %.1f GB, k=%d (cap %d), '
+          'factor %.2f s, leverage scores %.2f s, %d iterations in %.1f s of CG (%.2f iterations/s, wall budget '
+          '%.0f s); residual %.4e -> %.4e (target %.3e), re-measured %.4e (drift %.2e, bound %.0e); train() %.1f '
+          's; data %.1f s; peak allocated %.2f GB; K1 %.2f launches an iteration %s (%s)' % (
+              n_atoms, r['task']['R_train'].shape[0], sig, lam, r['n'], r['need'] / 1e9, r['budget'] / 1e9,
+              r['k'], r['cap'], t['factor'], t['leverage scores'], model['solver_iters'], t['cg'],
+              model['solver_iters'] / t['cg'], CG_ATAT_SECONDS, model['norm_y_train'], model['solver_resid'],
+              model['solver_tol'] * model['norm_y_train'], r['resid'], drift, it_mod.RESID_REPLACE_DRIFT,
+              t['total'], r['t_data'], r['peak'] / 1e9, r['per_it'], r['during'], card))
+    assert r['k'] == r['cap'], (r['k'], r['cap'])
+    assert model['solver_resid'] < model['norm_y_train'] and drift <= it_mod.RESID_REPLACE_DRIFT, drift
+    split = cg_split('AT-AT', r['X'], r['Jc'], r['dperms'], sig, lam, n_atoms, model['inducing_pts_idxs'], card)
+
+    idxs = model['inducing_pts_idxs']
+    m, n_perms = r['X'].shape[0], r['dperms'].shape[0]
+    rows = {'JAX 1.5 GB': kernel_ops.column_tile_rows(m, len(idxs), n_atoms, n_perms, budget=JAX_COLUMN_TILE_BYTES),
+            'port': kernel_ops.column_tile_rows(m, len(idxs), n_atoms, n_perms)}
+    secs = {name: [] for name in rows}
+    for name in ('JAX 1.5 GB', 'port', 'port', 'JAX 1.5 GB'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C = kernel_ops.assemble_kernel_columns(r['X'], r['Jc'], r['dperms'], sig, n_atoms, idxs, tile_i=rows[name])
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+        del C
+    for name, ti in rows.items():
+        print('    AT-AT column assembly (%d x %d, %.1f GB) at the %s tile budget: %d rows a tile (%d tiles), '
+              '%.3f and %.3f s in turns (%s)' % (r['n'], len(idxs), r['n'] * len(idxs) * 8 / 1e9, name, ti,
+                                                -(-m // ti), *secs[name], card))
+    return r['during'], split
+
+
+def phase_cg(device, ethanol, card):
+    """8: CG training on the card; K1 runs in every matvec."""
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(launch_counts(), 0)
+    splits = []
+    for run in (lambda: phase_cg_anchor(device, card), lambda: phase_cg_dense(device, ethanol, card),
+                lambda: phase_cg_aspirin(device, card), lambda: phase_cg_atat(device, card)):
+        during, split = run()
+        counts = {k: counts[k] + during[k] for k in counts}
+        splits.append(split)
+    assert counts['one_pass'] > 0 and counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
+    print('[8 cg] anchor within %d%% of the JAX CPU f64 counts; ethanol CG agrees with the dense model; aspirin '
+          '(63,000 unknowns) converged; AT-AT (540,000 unknowns) ran at the memory cap; launches %s; %.1f s' % (
+              100 * CG_ANCHOR_TOL[0], counts, time.perf_counter() - t0))
+    return counts, splits
 
 
 def bound(B, T, D, itemsize):
@@ -600,8 +878,10 @@ def main():
     device = 'cuda'
     phase_build()
     max_abs, times = phase_kernel_vs_plain(device)
-    main_path = [phase_golden(device), phase_serving(device, smi), phase_md(device),
-                 phase_train(device, smi)]
+    main_path = [phase_golden(device), phase_serving(device, smi), phase_md(device)]
+    train_counts, ethanol = phase_train(device, smi)
+    cg_counts, splits = phase_cg(device, ethanol, smi)
+    main_path += [train_counts, cg_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]
@@ -613,6 +893,7 @@ def main():
         'launches': counts['total'], 'max_abs_err': max_abs, 'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
         'launches_by_path': {k: counts[k] for k in ('one_pass', 'pass_a', 'pass_b')},
+        'cg_matvec_shapes': splits,
     }]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -2,13 +2,15 @@
 
 Symmetric Gradient Domain Machine Learning (sGDML) reconstructs
 energy-conserving molecular force fields by kernel ridge regression in the
-gradient domain. This package trains models (symmetry discovery, dense
-kernel assembly, an f64 Cholesky solve) and serves them -- batched energy
-and force prediction and molecular dynamics -- with PyTorch tensors. Every
+gradient domain. This package trains models (symmetry discovery, then a
+dense kernel assembly and an f64 Cholesky solve, or Nystrom-preconditioned
+CG for systems past the dense bound) and serves them -- batched energy and
+force prediction and molecular dynamics -- with PyTorch tensors. Every
 engine runs on the GPU (``device='cuda'``) unless the caller asks for the
 CPU. Its one hand-written kernel, the fused (E, F) contraction
 (``ops/fused_predict.py``, ``csrc/fused_predict.cu``), runs every CUDA
-prediction; CPU tensors take its plain PyTorch version.
+prediction, every CG matvec included; CPU tensors take its plain PyTorch
+version.
 
 Module names mirror ``sgdml_tpu`` one for one. Model files (the
 reference's ``.npz`` layout) move freely between the two packages. This

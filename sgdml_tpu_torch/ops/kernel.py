@@ -26,8 +26,13 @@ loops here:
 
 The Jacobian Gram term uses the closed form of :func:`gram_maps` (one
 descriptor per off-diagonal atom block), so full ``(D, 3N)`` Jacobians are
-never formed for the force-force blocks. Assembly is plain PyTorch (cuBLAS
-products and elementwise kernels) on any device.
+never formed for the force-force blocks.
+
+:func:`assemble_kernel_columns` assembles a column subset ``K[:, cols]`` for
+the iterative solver's Nystrom preconditioner, in the matmul form of
+:func:`column_force_tile`, written row tile by row tile into a preallocated
+tensor. Assembly is plain PyTorch (cuBLAS products and elementwise kernels)
+on any device.
 """
 
 from __future__ import annotations
@@ -41,9 +46,14 @@ import torch
 from .descriptor import incidence
 
 __all__ = [
+    'COLUMN_TILE_BUDGET_BYTES',
     'Mat52Coeffs',
     'TILE_BUDGET_BYTES',
     'assemble_kernel',
+    'assemble_kernel_columns',
+    'column_force_tile',
+    'column_tables',
+    'column_tile_rows',
     'default_tile_sizes',
     'expand_perm_jacobian',
     'gram_maps',
@@ -382,4 +392,119 @@ def assemble_kernel(
             # Energy-energy block: -sum_p k(x_j, x_i^p).
             ee = _value_tile(X[j0:j1], Xit, sig).reshape(j1 - j0, i1 - i0, n_perms).sum(2)
             K[n_f + i0:n_f + i1, n_f + j0:n_f + j1] = ee.T
+    return K
+
+
+def column_tables(X, Jc, desc_perms, col_3n_idxs, n_atoms, s_perm):
+    """Column-side tables for a force-column subset.
+
+    Column ``c = (j, q)``: training point ``j = c // 3N``, partial ``q = c %
+    3N``. Returns ``(Xjp (C, P, D), Jt_col (C, P, D))``: the permuted
+    descriptors of the column points and their permuted Jacobian restricted
+    to the one partial ``q = (atom, xyz)`` of each column, through the
+    incidence factorization ``J[d, 3n + y] = s_perm[p, d, n] Jc[p, d, y]``,
+    so that no full ``(C, P, D, 3N)`` Jacobian is formed.
+    """
+    dim_i = 3 * n_atoms
+    cols = torch.as_tensor(np.asarray(col_3n_idxs), dtype=torch.int64, device=X.device)
+    dp = torch.as_tensor(np.asarray(desc_perms), dtype=torch.int64, device=X.device)
+    col_j, col_q = cols // dim_i, cols % dim_i
+    Xjp = X[col_j][:, dp]  # (C, P, D)
+    j_sel = Jc[col_j, :, col_q % 3][:, dp]  # (C, P, D)
+    s_sel = s_perm.index_select(2, col_q // 3).permute(2, 0, 1)  # (C, P, D)
+    return Xjp, s_sel * j_sel
+
+
+def column_force_tile(Xi, Jci, Xjp, Jt_col, s_id, sig):
+    """Force-block rows of ``K[:, cols]`` for one row tile.
+
+    ``Xi (I, D)`` / ``Jci (I, D, 3)`` are the row points' tables; the column
+    tables come from :func:`column_tables`. Returns ``(blk (I 3N, C), u5 (I,
+    C, P), cj (I, C, P))``; the last two feed the energy-constraint rows.
+
+    Everything that involves ``d = x_i - x_c^p`` is in matmul form: ``|d|^2 =
+    |x_i|^2 + |x_c^p|^2 - 2 x_i.x_c^p`` and the Jacobian contractions as a
+    self term plus one ``(C P, D) x (D, I 3N)`` product each, so the ``(I, C,
+    P, D)`` difference tensor never exists. The two products are weighted and
+    summed over the permutations in place.
+    """
+    tile_i, dim_d = Xi.shape
+    dim_i = 3 * s_id.shape[1]
+    n_cols, n_perms = Xjp.shape[:2]
+    Ji = torch.einsum('dn,idc->idnc', s_id, Jci).reshape(tile_i, dim_d, dim_i)
+
+    Xj_flat = Xjp.reshape(n_cols * n_perms, dim_d)
+    Jt_flat = Jt_col.reshape(n_cols * n_perms, dim_d)
+
+    cross = (Xi @ Xj_flat.T).view(tile_i, n_cols, n_perms)
+    d2 = torch.sum(Xi * Xi, dim=-1)[:, None, None] + torch.sum(Xjp * Xjp, dim=-1)[None] - 2.0 * cross
+    u5 = _SQRT5 * torch.sqrt(torch.clamp(d2, min=0.0))
+    b, cc = Mat52Coeffs.hess(u5, sig)  # (I, C, P)
+    cj = (Xi @ Jt_flat.T).view(tile_i, n_cols, n_perms) - torch.sum(Xjp * Jt_col, dim=-1)[None]
+
+    # J_i^T d = J_i^T x_i - J_i^T x_c^p, and g = (J_i^T J_t)[:, q], in
+    # (c, p, i, x) layout.
+    a_self = torch.einsum('id,idx->ix', Xi, Ji)  # (I, X)
+    Ji_mat = Ji.permute(1, 0, 2).reshape(dim_d, tile_i * dim_i)
+    a_cross = (Xj_flat @ Ji_mat).view(n_cols, n_perms, tile_i, dim_i)
+    g = (Jt_flat @ Ji_mat).view(n_cols, n_perms, tile_i, dim_i)
+
+    w1 = 5.0 * b * cj  # (I, C, P)
+    # blk[i, c, x] = sum_p w1 a_self - sum_p (w1 a_cross + cc g)
+    a_cross.mul_(w1.permute(1, 2, 0)[..., None]).addcmul_(g, cc.permute(1, 2, 0)[..., None])
+    blk = w1.sum(2).T[:, :, None] * a_self[None] - a_cross.sum(1)  # (C, I, X)
+    return blk.permute(1, 2, 0).reshape(tile_i * dim_i, n_cols), u5, cj
+
+
+# Bytes of a column tile's working set as column_tile_rows estimates it: two
+# (C, P, I, 3N) products and three (I, C, 3N) planes. The JAX package keeps
+# 1.5 GB on a 16 GB TPU. On an 80 GB card the one-pass Nystrom build's peak is
+# 16 bytes per factor element, capped at 40% of the budget
+# (solvers/iterative.py, max_n_inducing_pts); while the columns are assembled
+# only they exist (8 bytes per element, at most 20% of it), so 4 GiB of staging
+# stays under the build's later peak.
+COLUMN_TILE_BUDGET_BYTES = 4 << 30
+
+
+def column_tile_rows(m, n_cols, n_atoms, n_perms, dtype_bytes=8, budget=None):
+    """Row points per column tile for ``budget`` bytes (default
+    :data:`COLUMN_TILE_BUDGET_BYTES`): ``(2 P + 3) C 3N`` elements a row."""
+    budget = COLUMN_TILE_BUDGET_BYTES if budget is None else budget
+    per_row = (2 * n_perms + 3) * n_cols * 3 * n_atoms * dtype_bytes
+    return max(1, min(m, int(budget // max(per_row, 1))))
+
+
+def assemble_kernel_columns(
+    R_desc, R_d_desc, desc_perms, sig, n_atoms, col_3n_idxs,
+    tile_i: int | None = None, use_E_cstr: bool = False,
+):
+    """``K[:, cols]`` for flat force-column indices ``col_3n_idxs`` into the
+    ``M 3N`` axis (the Nystrom preconditioner's inducing columns), on the
+    inputs' device. With ``use_E_cstr`` the M energy-constraint rows are
+    appended; the columns stay force columns.
+
+    Row tiles of ``tile_i`` points (default :func:`column_tile_rows`) are
+    written into a preallocated ``(M 3N [+M], C)`` tensor, the last tile
+    ragged. Same layout and values as ``sgdml_tpu.ops.kernel``'s.
+    """
+    X, Jc = R_desc, R_d_desc
+    m = X.shape[0]
+    dim_i = 3 * n_atoms
+    n_cols = int(np.asarray(col_3n_idxs).shape[0])
+    key = _perms_key(desc_perms)
+    if tile_i is None:
+        tile_i = column_tile_rows(m, n_cols, n_atoms, key[1][0], X.element_size())
+    s_id, s_perm = _tile_constants(key, n_atoms, X.device, X.dtype)[:2]
+    Xjp, Jt_col = column_tables(X, Jc, desc_perms, col_3n_idxs, n_atoms, s_perm)
+
+    n_f = m * dim_i
+    K = torch.empty((n_f + (m if use_E_cstr else 0), n_cols), dtype=X.dtype, device=X.device)
+    for i0 in range(0, m, tile_i):
+        i1 = min(m, i0 + tile_i)
+        blk, u5, cj = column_force_tile(X[i0:i1], Jc[i0:i1], Xjp, Jt_col, s_id, sig)
+        K[i0 * dim_i:i1 * dim_i] = blk
+        if use_E_cstr:
+            # Energy-constraint rows under the force columns:
+            # K[E_off + i, (j, q)] = -sum_p w(u) (d^T J_t[:, q]).
+            K[n_f + i0:n_f + i1] = -torch.sum(Mat52Coeffs.grad(u5, sig) * cj, dim=2)
     return K

@@ -9,9 +9,11 @@ failed factorization shows as ``info != 0`` from
 ``torch.linalg.cholesky_ex``, read once after the factor.
 
 Memory: ``K`` is negated and shifted in place, so the factor is the only
-second ``n^2`` buffer. Only the dense route of ``sgdml_tpu`` is ported; a
-system whose ``24 n^2`` bytes exceed the device's budget raises
-``NotImplementedError`` (the large-system routes are ROADMAP items 10 and 12).
+second ``n^2`` buffer. Of the analytic routes of ``sgdml_tpu`` only the dense
+one is ported; a system whose ``24 n^2`` bytes exceed the device's budget
+raises ``NotImplementedError``: the iterative solver
+(``solvers/iterative.py``, ``solver='cg'``) trains it, and the large-M
+analytic paths are ROADMAP queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -108,8 +110,8 @@ class Analytic:
         if need > budget:
             raise NotImplementedError(
                 'the dense analytic system of %d training points (%.1f GB) does not fit the '
-                'budget of %.1f GB; the iterative solver and the large-M analytic paths are '
-                'ROADMAP queue 1 items 10 and 12' % (n_train, need / 1e9, budget / 1e9))
+                "budget of %.1f GB; solver='cg' (the iterative solver) trains it, and the large-M "
+                'analytic paths are ROADMAP queue 1 item 12' % (n_train, need / 1e9, budget / 1e9))
 
         def sync():
             if device.type == 'cuda':
@@ -143,3 +145,11 @@ class Analytic:
         sgdml/solvers/analytic.py:153-159)."""
         n = n_train * 3 * n_atoms + (n_train if use_E_cstr else 0)
         return 3 * n**2 * 8 + n * 8
+
+    @staticmethod
+    def est_memory_grid(n_train, n_atoms):
+        """Bytes the JAX package's f32 packed-triangle grid route needs
+        (``sgdml_tpu.solvers.analytic``; ROADMAP queue 1 item 12, not
+        ported): the trainer's solver choice follows that package's rule."""
+        n = (-(-n_train // 8) * 8) * 3 * n_atoms
+        return 3 * n**2

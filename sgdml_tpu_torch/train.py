@@ -5,12 +5,12 @@ API and artifact layout mirror ``sgdml_tpu.train`` and the reference's
 with MD5 provenance and stratified train/validation splits; model dicts hold
 everything inference needs, in the file layout both packages read. Training
 runs in float64 on the trainer's device (the GPU unless the caller asks for
-the CPU): descriptors, the dense kernel assembly and its Cholesky solve, the
-alpha-contracted Jacobians and the integration constant, whose prediction
-pass launches the fused (E, F) kernel on a GPU.
+the CPU): descriptors, then either the dense kernel assembly and its Cholesky
+solve or the Nystrom-preconditioned CG solver, the alpha-contracted Jacobians
+and the integration constant. On a GPU the prediction passes (every CG
+matvec, the integration constant) launch the fused (E, F) kernel.
 
-Only the dense analytic route is ported. The iterative solver and the
-large-M analytic paths are ROADMAP queue 1 items 10 and 12, multi-GPU item
+The large-M analytic paths are ROADMAP queue 1 item 12 and multi-GPU item
 13; those routes raise ``NotImplementedError``.
 """
 
@@ -25,7 +25,8 @@ import torch
 from . import __version__, resolve_device
 from .ops import descriptor as desc_ops
 from .predict import GDMLPredict, desc_perm_table
-from .solvers.analytic import Analytic
+from .solvers.analytic import Analytic, memory_budget
+from .solvers.iterative import Iterative
 from .utils import io
 from .utils.profiling import PhaseTimer
 
@@ -41,14 +42,17 @@ class GDMLTrain:
 
     Parameters
     ----------
-    max_memory: device-memory budget in GB for the dense solve; None takes
-        the device's free memory (12 GB on the CPU).
+    max_memory: device-memory budget in GB for the solver choice, the dense
+        solve and the CG preconditioner; None takes the device's free memory
+        (12 GB on the CPU).
     mesh: multi-device training is not ported; must be None.
     device: where training runs: the GPU unless the caller asks for the CPU
         (``device='cpu'``); without a card the default raises.
 
-    After :meth:`train`, ``times`` holds its seconds by phase, with the
-    solve split into ``'assembly'`` and ``'cholesky'``, and ``'total'``.
+    After :meth:`train`, ``times`` holds its seconds by phase and
+    ``'total'``; the dense solve is split into ``'assembly'`` and
+    ``'cholesky'``, the CG solve into ``'leverage scores'``, ``'factor'`` and
+    ``'cg'``.
     """
 
     def __init__(self, max_memory: float | None = None, mesh=None, *, device='cuda'):
@@ -256,13 +260,21 @@ class GDMLTrain:
     # Training
     # ------------------------------------------------------------------
 
-    def train(self, task, solver=None, callback=None):
+    def train(self, task, solver=None, save_progr_callback=None, callback=None,
+              solver_max_seconds=None, factor_slices=None):
         """Train a model from a task dict.
 
-        ``solver=None`` and ``'analytic'`` take the dense analytic solve,
-        which raises ``NotImplementedError`` when its ``24 n^2`` bytes do not
-        fit the memory budget (the iterative solver and the large-M paths
-        are ROADMAP items 10 and 12); ``'cg'`` raises.
+        Solver selection follows the JAX package's (itself the reference's
+        memory heuristic, sgdml/train.py:949-971): the dense analytic solve
+        when its ``24 n^2`` bytes fit the budget, Nystrom-preconditioned CG
+        when not even the JAX package's f32 grid route would fit. Between the
+        two that package takes the grid route, which is not ported (ROADMAP
+        queue 1 item 12): ``solver=None`` raises there, and ``solver='cg'``
+        trains such a system. Pass ``solver='analytic'`` or ``'cg'`` to
+        override. ``solver_max_seconds`` bounds the CG wall clock (an
+        unconverged model is returned, and flagged); ``save_progr_callback``
+        receives CG checkpoints; ``factor_slices`` is validated as in the JAX
+        package and used only by its int8 factor (item 11).
         """
         t_start = timeit.default_timer()
         timer = PhaseTimer(self.device)
@@ -270,11 +282,19 @@ class GDMLTrain:
         n_train, n_atoms = task['R_train'].shape[:2]
         use_E_cstr = bool(task['use_E'] and task.get('use_E_cstr', False))
 
-        solver = solver or 'analytic'
-        if solver == 'cg':
-            raise NotImplementedError(
-                "solver='cg' (the Nystrom-preconditioned iterative solver) is ROADMAP queue 1 item 10")
-        if solver != 'analytic':
+        if solver is None:
+            budget = (memory_budget(self.device) if self._max_memory is None
+                      else self._max_memory * 1024**3)
+            if Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr) < budget:
+                solver = 'analytic'
+            elif Analytic.est_memory_grid(n_train, n_atoms) < budget:
+                raise NotImplementedError(
+                    'the dense system of %d training points does not fit the budget of %.1f GB, where the '
+                    "JAX package takes its f32 grid route (ROADMAP queue 1 item 12, not ported); "
+                    "solver='cg' trains this system" % (n_train, budget / 1e9))
+            else:
+                solver = 'cg'
+        if solver not in ('analytic', 'cg'):
             raise ValueError("solver must be None, 'analytic' or 'cg', got %r" % (solver,))
 
         lat_and_inv = None
@@ -299,10 +319,30 @@ class GDMLTrain:
         y_std = float(np.std(y))
         y = y / y_std
 
-        log.info('Using analytic solver.')
-        analytic = Analytic(self, callback=callback, max_memory=self._max_memory)
-        with timer.phase('solve (analytic: assembly + Cholesky)'):
-            alphas = analytic.solve(task, R_desc, R_d_desc, dperms, y)
+        solver_keys = {}
+        if solver == 'analytic':
+            log.info('Using analytic solver.')
+            analytic = Analytic(self, callback=callback, max_memory=self._max_memory)
+            with timer.phase('solve (analytic: assembly + Cholesky)'):
+                alphas = analytic.solve(task, R_desc, R_d_desc, dperms, y)
+            solve_times = {'assembly': analytic.t_assemble, 'cholesky': analytic.t_solve}
+        else:
+            log.info('Using iterative solver (Nystrom-preconditioned CG).')
+            iterative = Iterative(self, callback=callback, max_memory=self._max_memory,
+                                  factor_slices=factor_slices, device=self.device)
+            with timer.phase('solve (iterative: Nystrom-pCG)'):
+                (alphas, solver_keys['solver_tol'], solver_keys['solver_iters'], solver_keys['solver_resid'],
+                 _, solver_keys['inducing_pts_idxs'], is_conv) = iterative.solve(
+                    task, R_desc, R_d_desc, dperms, y, y_std,
+                    save_progr_callback=save_progr_callback, max_seconds=solver_max_seconds)
+            solver_keys['norm_y_train'] = float(np.linalg.norm(y))
+            solve_times = dict(iterative.timer.durations)
+            if not is_conv:
+                log.warning(
+                    'Iterative solver did not converge! Continuing with the unconverged model; its '
+                    'accuracy will likely be poor. Tips: (1) are the geometries highly correlated? '
+                    '(2) try a larger sigma.'
+                )
 
         alphas_E = None
         alphas_F = alphas
@@ -311,6 +351,7 @@ class GDMLTrain:
 
         with timer.phase('model creation'):
             model = self.create_model(task, solver, R_desc, R_d_desc, y_std, alphas_F, alphas_E=alphas_E)
+            model.update(solver_keys)
 
         if model['use_E']:
             with timer.phase('integration constant'):
@@ -320,8 +361,7 @@ class GDMLTrain:
                     else E_train_mean
                 )
         timer.log_summary(logging.DEBUG)
-        self.times = dict(timer.durations, assembly=analytic.t_assemble, cholesky=analytic.t_solve,
-                          total=timeit.default_timer() - t_start)
+        self.times = dict(timer.durations, **solve_times, total=timeit.default_timer() - t_start)
         return model
 
     def _recov_int_const(self, model, task, R_desc, R_d_desc) -> float:
