@@ -49,12 +49,16 @@ each a plain assertion that ends the run with a traceback when it fails:
    the full AT-AT width (540,000 unknowns) under a wall budget: the factor
    at the memory cap, a falling residual, iterations per second, and the
    column assembly at the JAX package's 1.5 GB tile budget and the port's in
-   turns. Each CG width also times one iteration's parts (the matvec, K1
-   inside it, the Woodbury apply) and K1 against its plain version at the
-   matvec's shape; those launches are not counted.
+   turns. In 8c and 8d the residual is re-measured, and three factor
+   columns are checked, through the plain contraction, apart from K1 and
+   the solver's matvec. Each CG width also holds K1 against its plain
+   version on the solve's own tables (one matvec's inputs) and times one
+   iteration's parts (the matvec, K1 inside it, the Woodbury apply); those
+   launches are not counted.
 
 Phases 4-8 are the main path: each sets the launch counts to 0 before it
-and reads them after. The last two lines are the kernels' JSON record and
+drives the path (phase 8 before each training run or solve) and reads them
+right after. The last two lines are the kernels' JSON record and
 ``{"ok": true, ...}``.
 """
 
@@ -78,7 +82,7 @@ from sgdml_tpu_torch.ops import _build, fused_predict
 from sgdml_tpu_torch.ops import kernel as kernel_ops
 from sgdml_tpu_torch.ops import descriptor as desc_ops
 from sgdml_tpu_torch.predict import (
-    GDMLPredict, _predict_from_tables_body, _predict_geoms, center_tables, desc_perm_table,
+    GDMLPredict, _predict_from_tables_body, _predict_geoms, build_tables, center_tables, desc_perm_table,
 )
 from sgdml_tpu_torch.solvers import iterative as it_mod
 from sgdml_tpu_torch.solvers.analytic import Analytic, memory_budget
@@ -147,6 +151,12 @@ CG_DENSE_BOUNDS = (5e-3, 1e-2)
 CG_ASPIRIN = (21, 2200, 10, 1, 200, 1000, 15.0, 1e-8)
 CG_ATAT = (60, 3600, 11, 1, 200, 3000, 25.0, 1e-10)
 CG_ASPIRIN_SECONDS, CG_ATAT_SECONDS = 300.0, 60.0
+# 8c's held-out force MAE bound, a share of the mean |F| of those frames
+# (tests/test_torch_iterative.py's bound); the factor columns checked in 8c
+# and 8d against the plain matvec of unit vectors, and their bound (max
+# |delta| over max |value|; both sides are f64 sums of the same terms).
+CG_MAE_SHARE = 0.08
+CG_COLUMNS_CHECKED, CG_COLUMN_TOL = 3, 1e-12
 # The JAX package's column staging cap, timed against the port's in 8d.
 JAX_COLUMN_TILE_BYTES = 1.5e9
 
@@ -634,21 +644,49 @@ def cg_system(ds, task, n_atoms, device):
     return X, Jc, desc_perm_table(task['perms']), y / np.std(y), float(np.std(y))
 
 
+def plain_matvec(v, X, Jc, dperms, sig, lam, n_atoms):
+    """``A v`` of a force-only system through ``predict.py``'s tables and
+    the plain contraction: apart from K1 and from the solver's matvec."""
+    JA = desc_ops.jac_dot_vec(Jc, v.reshape(X.shape[0], -1), n_atoms)
+    _, F = _predict_from_tables_body(X, Jc, center_tables(*build_tables(X, JA, dperms)), None, sig, 1.0, 0.0,
+                                     n_atoms=n_atoms)
+    return -F.reshape(-1) + lam * v
+
+
 def true_resid(model, X, Jc, dperms, y, n_atoms):
-    """``|y - A x|`` of a force-only CG model, re-measured from its alphas."""
-    tab = it_mod.matvec_tables(X, Jc, dperms)
+    """``|y - A x|`` of a force-only CG model, re-measured from its alphas
+    through the plain matvec."""
     x = -torch.as_tensor(model['alphas_F'], dtype=torch.float64, device=X.device)
-    r = torch.as_tensor(y, device=X.device) - it_mod._matvec_A(
-        x, tab, float(model['sig']), float(model['lam']), n_atoms=n_atoms, use_E_cstr=False)
+    r = torch.as_tensor(y, device=X.device) - plain_matvec(
+        x, X, Jc, dperms, float(model['sig']), float(model['lam']), n_atoms)
     return float(torch.linalg.vector_norm(r))
+
+
+def check_columns(label, r, sig, n_atoms):
+    """Kernel columns at ``CG_COLUMNS_CHECKED`` of a solve's inducing
+    indices (the factor's input) against ``K e_j`` by the plain matvec."""
+    idxs = np.asarray(r['model']['inducing_pts_idxs'])
+    cols = idxs[np.linspace(0, len(idxs) - 1, CG_COLUMNS_CHECKED).astype(int)]
+    X, Jc, dperms = r['X'], r['Jc'], r['dperms']
+    C = kernel_ops.assemble_kernel_columns(X, Jc, dperms, sig, n_atoms, cols)
+    refs = []
+    for j in cols:
+        e = torch.zeros(C.shape[0], dtype=torch.float64, device=X.device)
+        e[j] = 1.0
+        refs.append(-plain_matvec(e, X, Jc, dperms, sig, 0.0, n_atoms))
+    err = rel_err(C, torch.stack(refs, dim=1))
+    print('    %s factor columns %s against the plain matvec of unit vectors: %.2e of max |K| (bound %.0e)' % (
+        label, cols.tolist(), err, CG_COLUMN_TOL))
+    assert err <= CG_COLUMN_TOL, (label, err)
 
 
 def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card):
     """Device ms of one CG iteration and of its parts at a solve's shapes,
     with the factor rebuilt from the solve's inducing columns: the whole
     iteration (a chunk of CG_CHUNK_ITERS over its count), the matvec, K1
-    inside it (against its plain version, in turns), and the Woodbury apply.
-    Returns K1's (ms, plain ms, bound ms, bound by, B, T, D)."""
+    inside it (checked against its plain version on one matvec's inputs,
+    then timed in turns with it), and the Woodbury apply.
+    Returns K1's shape, times, bound and error against the plain version."""
     F, _ = it_mod.Iterative(device=X.device)._build_factor(X, Jc, dperms, sig, lam, idxs, n_atoms, False)
     tab = it_mod.matvec_tables(X, Jc, dperms)
     n = F.shape[1]
@@ -656,8 +694,11 @@ def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card):
     JA = desc_ops.jac_dot_vec(Jc, v.reshape(-1, 3 * n_atoms), n_atoms)[:, tab.dp].reshape(-1, X.shape[1])
     JA = JA.contiguous()
     args = (X - tab.mu, tab.Xt, JA, tab.xt_sq, torch.sum(tab.Xt * JA, dim=1), None, sig)
-    k1_ms, plain_ms = time_pair(lambda: fused_predict.fused_predict_tables(*args),
-                                lambda: fused_predict.fused_predict_tables_reference(*args))
+    B, D, T = X.shape[0], X.shape[1], tab.Xt.shape[0]
+    kernel = lambda: fused_predict.fused_predict_tables(*args)  # noqa: E731
+    plain = lambda: fused_predict.fused_predict_tables_reference(*args)  # noqa: E731
+    max_abs = check('CG matvec %s B=%d T=%d D=%d f64' % (label, B, T, D), kernel, plain, TOL[torch.float64])
+    k1_ms, plain_ms = time_pair(kernel, plain)
     mv_ms, apply_ms = time_pair(
         lambda: it_mod._matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=False),
         lambda: it_mod._factor_apply(F, v))
@@ -668,7 +709,6 @@ def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card):
     chunk_ms = cuda_ms(lambda: it_mod._pcg_chunk(state, F, tab, sig, lam, 1.0, 0.0, n_atoms=n_atoms,
                                                  use_E_cstr=False, chunk_iters=it_mod.CG_CHUNK_ITERS), 2)
     it_ms = chunk_ms / it_mod.CG_CHUNK_ITERS
-    B, D, T = X.shape[0], X.shape[1], tab.Xt.shape[0]
     b_ms, b_by = bound(B, T, D, 8)
     f_bytes = F.numel() * 8
     print('    %s iteration split (k=%d columns, n=%d, factor %.2f GB): %.3f ms an iteration = matvec %.3f '
@@ -679,11 +719,13 @@ def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card):
               100 * apply_ms / it_ms, 2 * f_bytes / apply_ms * 1e-6, it_ms - mv_ms - apply_ms, B, T, D, k1_ms,
               plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(T, D), card))
     return {'label': label, 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
-            'bound_by': b_by, 'iteration_ms': it_ms, 'matvec_ms': mv_ms, 'apply_ms': apply_ms}
+            'bound_by': b_by, 'max_abs_err': max_abs, 'iteration_ms': it_ms, 'matvec_ms': mv_ms,
+            'apply_ms': apply_ms}
 
 
-def cg_launches(before, iters):
-    during = {k: v - before[k] for k, v in launch_counts().items()}
+def cg_launches(iters):
+    """The counts since the last reset, and K1 launches an iteration."""
+    during = launch_counts()
     return during, during['total'] / max(iters, 1)
 
 
@@ -701,9 +743,9 @@ def phase_cg_anchor(device, card):
     for gb, refs in CG_ANCHOR_JAX.items():
         for sig, ref in zip(CG_ANCHOR_SIGS, refs):
             solver = it_mod.Iterative(trainer, max_memory=gb)
-            before = launch_counts()
+            fused_predict.reset_launches()
             _, _, iters, resid, _, idxs, conv = solver.solve(dict(task0, sig=sig), X, Jc, dperms, y, y_std)
-            during, per_it = cg_launches(before, iters)
+            during, per_it = cg_launches(iters)
             counts = {k: counts[k] + during[k] for k in counts}
             first = first or (sig, idxs)
             t = solver.timer.durations
@@ -725,9 +767,9 @@ def phase_cg_dense(device, ethanol, card):
     ds, task, dense = ethanol
     n_atoms = task['R_train'].shape[1]
     trainer = GDMLTrain(max_memory=CG_ETHANOL_GB, device=device)
-    before = launch_counts()
+    fused_predict.reset_launches()
     model = trainer.train(task, solver='cg')
-    during, per_it = cg_launches(before, model['solver_iters'])
+    during, per_it = cg_launches(model['solver_iters'])
     k = len(model['inducing_pts_idxs']) // (3 * n_atoms)
     R, F_ref, _ = held_out(ds, task, 1000)
     Ea, Fa = GDMLPredict(dense, device=device).predict(R)
@@ -767,10 +809,10 @@ def cg_recipe(device, recipe, max_seconds):
     assert need > torch.cuda.get_device_properties(0).total_memory, need
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    before = launch_counts()
+    fused_predict.reset_launches()
     model = trainer.train(task, solver='cg', solver_max_seconds=max_seconds)
+    during, per_it = cg_launches(model['solver_iters'])
     peak = torch.cuda.max_memory_allocated()
-    during, per_it = cg_launches(before, model['solver_iters'])
     k = len(model['inducing_pts_idxs']) // (3 * n_atoms)
     cap = min(m, it_mod.Iterative.max_n_inducing_pts(m, n_atoms, budget))
     X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
@@ -790,18 +832,20 @@ def phase_cg_aspirin(device, card):
     R, F_ref, _ = held_out(r['ds'], r['task'], 500)
     _, F = GDMLPredict(model, device=device).predict(R)
     mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    drift = abs(r['resid'] - model['solver_resid']) / r['resid']
     print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.1f GB): budget %.1f GB, k=%d (cap %d), '
-          '%d iterations, converged %s, recorded resid %.3e, re-measured %.3e (target %.3e); train() %.2f s = '
-          'descriptors %.3f + leverage scores %.2f + factor %.2f + cg %.2f (%.1f iterations/s) + model %.3f + '
-          'integration constant %.3f; data %.1f s; peak allocated %.2f GB; held-out force MAE %.5f (force '
-          'scale %.4f) on %d frames; K1 %.2f launches an iteration %s (%s)' % (
+          '%d iterations, converged %s, recorded resid %.3e, re-measured by the plain matvec %.3e (drift %.2e; '
+          'target %.3e); train() %.2f s = descriptors %.3f + leverage scores %.2f + factor %.2f + cg %.2f (%.1f '
+          'iterations/s) + model %.3f + integration constant %.3f; data %.1f s; peak allocated %.2f GB; held-out '
+          'force MAE %.5f (force scale %.4f, bound %.4f) on %d frames; K1 %.2f launches an iteration %s (%s)' % (
               n_atoms, r['task']['R_train'].shape[0], sig, lam, r['n'], r['need'] / 1e9, r['budget'] / 1e9,
-              r['k'], r['cap'], model['solver_iters'], conv, model['solver_resid'], r['resid'], tol_b,
+              r['k'], r['cap'], model['solver_iters'], conv, model['solver_resid'], r['resid'], drift, tol_b,
               t['total'], t['descriptors'], t['leverage scores'], t['factor'], t['cg'],
               model['solver_iters'] / t['cg'], t['model creation'], t['integration constant'], r['t_data'],
-              r['peak'] / 1e9, mae, scale, len(R), r['per_it'], r['during'], card))
+              r['peak'] / 1e9, mae, scale, CG_MAE_SHARE * scale, len(R), r['per_it'], r['during'], card))
     assert r['k'] == r['cap'] and conv and r['resid'] <= tol_b, (r['k'], r['cap'], conv, r['resid'], tol_b)
-    assert np.isfinite(mae), mae
+    assert drift <= it_mod.RESID_REPLACE_DRIFT and mae < CG_MAE_SHARE * scale, (drift, mae, scale)
+    check_columns('aspirin', r, sig, n_atoms)
     split = cg_split('aspirin', r['X'], r['Jc'], r['dperms'], sig, lam, n_atoms, model['inducing_pts_idxs'], card)
     return r['during'], split
 
@@ -815,7 +859,8 @@ def phase_cg_atat(device, card):
     drift = abs(r['resid'] - model['solver_resid']) / r['resid']
     print('    AT-AT N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.0f GB): budget %.1f GB, k=%d (cap %d), '
           'factor %.2f s, leverage scores %.2f s, %d iterations in %.1f s of CG (%.2f iterations/s, wall budget '
-          '%.0f s); residual %.4e -> %.4e (target %.3e), re-measured %.4e (drift %.2e, bound %.0e); train() %.1f '
+          '%.0f s); residual %.4e -> %.4e (target %.3e), re-measured by the plain matvec %.4e (drift %.2e, bound '
+          '%.0e); train() %.1f '
           's; data %.1f s; peak allocated %.2f GB; K1 %.2f launches an iteration %s (%s)' % (
               n_atoms, r['task']['R_train'].shape[0], sig, lam, r['n'], r['need'] / 1e9, r['budget'] / 1e9,
               r['k'], r['cap'], t['factor'], t['leverage scores'], model['solver_iters'], t['cg'],
@@ -824,6 +869,7 @@ def phase_cg_atat(device, card):
               t['total'], r['t_data'], r['peak'] / 1e9, r['per_it'], r['during'], card))
     assert r['k'] == r['cap'], (r['k'], r['cap'])
     assert model['solver_resid'] < model['norm_y_train'] and drift <= it_mod.RESID_REPLACE_DRIFT, drift
+    check_columns('AT-AT', r, sig, n_atoms)
     split = cg_split('AT-AT', r['X'], r['Jc'], r['dperms'], sig, lam, n_atoms, model['inducing_pts_idxs'], card)
 
     idxs = model['inducing_pts_idxs']
@@ -890,7 +936,8 @@ def main():
         'name': 'fused_predict', 'route': 'cuda',
         'source': 'sgdml_tpu_torch/csrc/fused_predict.cu',
         'replaces': 'sgdml_tpu/ops/pallas_predict.py:43',
-        'launches': counts['total'], 'max_abs_err': max_abs, 'ms': ms, 'plain_ms': plain_ms,
+        'launches': counts['total'], 'max_abs_err': max(max_abs, *(s['max_abs_err'] for s in splits)),
+        'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
         'launches_by_path': {k: counts[k] for k in ('one_pass', 'pass_a', 'pass_b')},
         'cg_matvec_shapes': splits,

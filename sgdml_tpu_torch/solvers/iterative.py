@@ -27,9 +27,10 @@ This is the single-device f64 route of ``sgdml_tpu.solvers.iterative``, the
 one the JAX package takes off the TPU. CG runs in chunks of
 :data:`CG_CHUNK_ITERS` iterations whose state stays on the device: where the
 JAX package's ``while_loop`` exits early on convergence, a chunk here carries
-an ``active`` flag through ``torch.where`` and the host reads the chunk's
-results once. Between chunks the host loop re-measures the true residual,
-reports progress, checkpoints every ~2 minutes, monitors CG effectiveness and
+an ``active`` flag through ``torch.where``; the host reads the flag every
+:data:`CG_ACTIVE_READ_ITERS` iterations and the chunk's results once.
+Between chunks the host loop re-measures the true residual, reports
+progress, checkpoints every ~2 minutes, monitors CG effectiveness and
 restarts with a stronger preconditioner (reference: iterative.py:729-804).
 The int8 slice-stack factor and the Ozaki matvec rungs are ROADMAP queue 1
 item 11; the mesh branches item 13.
@@ -38,7 +39,6 @@ item 11; the mesh branches item 13.
 from __future__ import annotations
 
 import logging
-import os
 import timeit
 import zlib
 from typing import NamedTuple
@@ -83,9 +83,9 @@ RESID_REPLACE_DRIFT = 0.02
 RESEED_STAGNATION_ITERS = 500
 DEEP_STAGNATION_BUDGET_FRAC = 0.25
 DEEP_STAGNATION_ITERS_FRAC = 0.25
-# The JAX package's CG matvec precision ladder. Only its top rung, 'native'
-# (full f64), is ported; a checkpoint that stores a lower rung resumes there.
-MV_MM_LADDER = ('ozaki', 'ozaki8', 'ozaki10', 'native')
+# A converged chunk stops at the next multiple of this many iterations: one
+# host read of the ``active`` flag each time, in place of one an iteration.
+CG_ACTIVE_READ_ITERS = 10
 
 _SOLVE_CHUNK = 8192  # columns per triangular-solve / Gram chunk
 
@@ -151,7 +151,9 @@ def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, ch
     monitor); ``n_bad`` counts PSD-guard trips. Iteration ``i`` commits only
     while ``active`` (still above ``rtol * b_norm`` and fewer than
     ``chunk_iters`` steps), so ``it`` counts exactly the steps a loop that
-    exits on convergence would take.
+    exits on convergence would take. Every :data:`CG_ACTIVE_READ_ITERS`
+    iterations the host reads ``active`` and ends an inactive chunk, so a
+    converged solve runs at most that many idle iterations.
     """
     x, r, z, p, rz, _, hist, _ = state
     hist = torch.zeros_like(hist)
@@ -160,6 +162,8 @@ def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, ch
     thresh = rtol * b_norm
     active = torch.linalg.vector_norm(r) > thresh
     for i in range(chunk_iters):
+        if i % CG_ACTIVE_READ_ITERS == 0 and not bool(active):
+            break
         Ap = _matvec_A(p, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
         alpha = rz / (p @ Ap)
         x_new = x + alpha * p
@@ -269,9 +273,9 @@ class Iterative:
     mesh: multi-device solves are ROADMAP queue 1 item 13; must be None.
     factor_mode: ``'auto'`` or ``'f64'`` (the dense f64 factor);
         ``'ozaki'`` (the int8 slice stack) is item 11.
-    factor_slices: int8 slice count of the slice-stack factor, validated as
-        in the JAX package (3-10 or ``'auto'``; env ``SGDML_FACTOR_SLICES``);
-        the f64 factor does not use it.
+    factor_slices: int8 slice count of the slice-stack factor (item 11):
+        validated as in the JAX package (3-10 or ``'auto'``) and otherwise
+        unused by the f64 factor.
     seed: explicit solver seed; None derives one from the task's training
         split, so identical tasks give identical inducing sets.
     device: where the solve runs; None takes the trainer's device, else the GPU.
@@ -291,10 +295,7 @@ class Iterative:
                 "factor_mode='ozaki' (the int8 slice-stack factor) is ROADMAP queue 1 item 11")
         if factor_mode not in ('auto', 'f64'):
             raise ValueError("factor_mode must be 'auto', 'f64' or 'ozaki', got %r" % (factor_mode,))
-        if factor_slices is None:
-            env = os.environ.get('SGDML_FACTOR_SLICES')
-            factor_slices = int(env) if env else 'auto'
-        if factor_slices != 'auto' and not 3 <= factor_slices <= 10:
+        if factor_slices not in (None, 'auto') and not 3 <= factor_slices <= 10:
             raise ValueError("factor_slices must be in [3, 10] or 'auto'")
         if device is None:
             device = getattr(gdml_train, 'device', 'cuda')
@@ -302,7 +303,6 @@ class Iterative:
         self.callback = callback
         self._max_memory = max_memory
         self.factor_mode = factor_mode
-        self.factor_slices = factor_slices
         self.seed = seed
         self.device = resolve_device(device)
         self.timer = PhaseTimer(self.device)
@@ -358,7 +358,7 @@ class Iterative:
         factor and the ``Y`` chunks of pass 2). With ``max_memory=None`` the
         budget is what the device has free now, so a solve reads it once."""
         budget = memory_budget(self.device) if self._max_memory is None else self._max_memory * 1024**3
-        return min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget, factor_bytes=16.0))
+        return min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget))
 
     # -- main solve ----------------------------------------------------------
 
@@ -443,9 +443,11 @@ class Iterative:
 
         b = tensor(y)
         b_norm = float(np.linalg.norm(y))
-        mv_mm = MV_MM_LADDER[-1]
-        stored = str(task.get('solver_mv_mm', ''))
-        if stored in MV_MM_LADDER and stored != mv_mm:
+        # The JAX package's matvec precision ladder has int8 rungs below
+        # 'native' (item 11); a checkpoint stored at one resumes at 'native'.
+        mv_mm = 'native'
+        stored = str(task.get('solver_mv_mm', mv_mm))
+        if stored != mv_mm:
             log.info("Resuming at the matvec rung %r: only the top rung of the JAX package's ladder "
                      "is ported (the checkpoint stored %r).", mv_mm, stored)
 
@@ -689,34 +691,20 @@ class Iterative:
     # -- memory models (reference: iterative.py:827-866) --------------------
 
     @staticmethod
-    def max_n_inducing_pts(n_train, n_atoms, max_memory_bytes, n_dev=1, factor_bytes=16.0, streamed=False):
+    def max_n_inducing_pts(n_train, n_atoms, max_memory_bytes):
         """Inducing-point budget: the reference formula (iterative.py:827-844),
-        capped so that ``factor_bytes`` per element of the ``(k, n)`` factor
-        stay within 40% of the budget. The same function as the JAX
-        package's, so that k agrees at the same budget. At 16 bytes the cap
-        is the one-pass f64 build's peak (columns and ``Y`` chunks together).
-
-        ``streamed``: the JAX package's int8 slice-stack build (ROADMAP item
-        11): the stack at 72% of the budget less a 1.5 GB reserve.
-        """
+        capped so that the ``(k, n)`` factor's 16 bytes per element (the
+        one-pass f64 build's peak: columns and ``Y`` chunks together) stay
+        within 40% of the budget. The JAX package's function at its defaults,
+        so that k agrees at the same budget; its ``n_dev`` and ``streamed``
+        terms serve items 13 and 11."""
         sq, lin = 5, 4
         dim_i = 3 * n_atoms
-
-        if streamed:
-            n = n_train * dim_i
-            reserve = 1.5e9
-            avail = max(0.0, 0.72 * max_memory_bytes - reserve)
-            cap = avail * max(1, int(n_dev)) / (min(float(factor_bytes), 16.0) * n * dim_i)
-            return max(1, min(int(cap), n_train))
-
         to_dof = dim_i**2 * 8
-        sq_factor = lin * n_train * to_dof / max(1, int(n_dev))
+        sq_factor = float(lin * n_train * to_dof)
         ny_factor = sq * to_dof
         n_ind = (np.sqrt(sq_factor**2 + 4.0 * ny_factor * max_memory_bytes) - sq_factor) / (2 * ny_factor)
-
-        n = n_train * dim_i
-        split_budget_elems = 0.4 * max_memory_bytes / float(factor_bytes)
-        n_ind_split_cap = split_budget_elems * max(1, int(n_dev)) / (n * dim_i)
+        n_ind_split_cap = 0.4 * max_memory_bytes / 16.0 / (n_train * dim_i * dim_i)
         return max(1, min(int(n_ind), int(n_ind_split_cap), n_train))
 
     @staticmethod

@@ -158,11 +158,12 @@ def test_nystrom_factor_matches_jax(factor_case):
 
 
 @pytest.mark.parametrize('early', [False, True])
-def test_pcg_chunk_matches_jax(factor_case, early):
+def test_pcg_chunk_matches_jax(factor_case, monkeypatch, early):
     """One chunk from the same state: the device-side ``active`` mask counts
     exactly the steps of the JAX package's while-loop, whether the chunk runs
     its 50 steps (tol 1e-4) or converges within them (tol just above the
-    lowest residual of its first 25 steps)."""
+    lowest residual of its first 25 steps); a converged chunk stops its
+    matvecs at the next host read of ``active``."""
     task, X, Jc, dperms, y, F, *_, F_j, _ = factor_case
     sig, lam = 8.0, 1e-10
     b_norm = float(np.linalg.norm(y))
@@ -184,10 +185,14 @@ def test_pcg_chunk_matches_jax(factor_case, early):
     if early:
         rtol = 1.01 * float(np.asarray(jax_chunk(rtol)[6])[:25].min()) / b_norm
     x_j, _, _, _, _, it_j, hist_j, n_bad_j = jax_chunk(rtol)
+    matvec, calls = it_mod._matvec_A, []
+    monkeypatch.setattr(it_mod, '_matvec_A', lambda *a, **k: calls.append(1) or matvec(*a, **k))
     x, _, _, _, _, it, hist, n_bad = it_mod._pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, n_atoms=N_ATOMS,
                                                        use_E_cstr=False, chunk_iters=50)
     assert int(it) == int(it_j) and int(n_bad) == int(n_bad_j)
     assert (int(it) < 25) == early
+    every = it_mod.CG_ACTIVE_READ_ITERS
+    assert len(calls) == (-(-int(it) // every) * every if early else 50)
     # With 4 of 60 points the preconditioned system is still ill-conditioned
     # (lam = 1e-10): rounding differences grow along the chunk, so the
     # residual histories agree to 1e-6 over the first 10 steps and to 5% over
@@ -511,9 +516,7 @@ def test_solver_none_follows_the_jax_rule(ds, max_memory, expect):
 def test_memory_model_matches_jax():
     for args in [(60, 6, 12 * 1024**3), (200, 9, 0.1 * 1024**3), (200, 9, 0.75 * 1024**3),
                  (1000, 21, 79e9), (3000, 60, 79e9)]:
-        for kw in ({}, {'factor_bytes': 9.0, 'streamed': True}, {'n_dev': 4}):
-            assert it_mod.Iterative.max_n_inducing_pts(*args, **kw) == \
-                jax_it.Iterative.max_n_inducing_pts(*args, **kw), (args, kw)
+        assert it_mod.Iterative.max_n_inducing_pts(*args) == jax_it.Iterative.max_n_inducing_pts(*args), args
     assert it_mod.Iterative.max_n_inducing_pts(200, 9, 0.1 * 1024**3) == 18
     assert it_mod.Iterative.max_n_inducing_pts(3000, 60, 79e9) == 20
     assert it_mod.Iterative.est_memory_requirement(1000, 40, 21) == \
@@ -523,7 +526,7 @@ def test_memory_model_matches_jax():
             __import__('sgdml_tpu.solvers.analytic', fromlist=['Analytic']).Analytic.est_memory_grid(*args)
 
 
-def test_routes_that_are_not_ported_raise(monkeypatch):
+def test_routes_that_are_not_ported_raise():
     with pytest.raises(NotImplementedError, match='item 11'):
         it_mod.Iterative(factor_mode='ozaki', device='cpu')
     with pytest.raises(NotImplementedError, match='item 13'):
@@ -532,7 +535,6 @@ def test_routes_that_are_not_ported_raise(monkeypatch):
         it_mod.Iterative(factor_mode='f32', device='cpu')
     with pytest.raises(ValueError, match='factor_slices'):
         it_mod.Iterative(factor_slices=2, device='cpu')
-    monkeypatch.setenv('SGDML_FACTOR_SLICES', '6')
-    assert it_mod.Iterative(device='cpu').factor_slices == 6
-    assert it_mod.Iterative(factor_mode='f64', factor_slices=8, device='cpu').factor_slices == 8
+    for slices in (None, 'auto', 3, 10):
+        assert it_mod.Iterative(factor_mode='f64', factor_slices=slices, device='cpu').factor_mode == 'f64'
     assert it_mod.Iterative(GDMLTrain(device='cpu')).device == torch.device('cpu')
