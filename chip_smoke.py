@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and command-line paths once on one NVIDIA GPU.
 
 Run from the repository root, with one card and no arguments:
 
@@ -54,16 +54,36 @@ each a plain assertion that ends the run with a traceback when it fails:
    the solver's matvec. Each CG width also holds K1 against its plain
    version on the solve's own tables (one matvec's inputs) and times one
    iteration's parts (the matvec, K1 inside it, the Woodbury apply); those
-   launches are not counted.
+   launches are not counted;
+9. the command line (``sgdml_tpu_torch.cli``) and the host modules on the
+   card, in a temporary directory with the tune cache pointed there: (a) the
+   README's quick start ``all <ethanol> 200 1000 5000`` on phase 7c's data
+   (default sigma grid, symmetry discovery, default solver), its wall and
+   seconds by step; where the grid stopped, the selected sigma and the test
+   errors must be the JAX package's for the same command (its CPU f64 run,
+   ``tests/dev_quickstart_jax.py``); (b) ``all --gdml -s 10``
+   against ``GDMLTrain`` and ``GDMLPredict`` called directly: the same
+   split, coefficients within 1e-10 and recorded test errors within 1e-12;
+   (c) ``train --solver cg`` cut by ``--max_seconds``, then ``resume`` to
+   convergence, against phase 7c's dense model within 8b's bounds; (d) the
+   batch-size tuner (``prepare_parallel``) at the AT-AT width of phase 5 in
+   f64 and f32, its ladder, and a second call served from the cache; (e) the
+   ASE calculator through the stand-in for ASE of the CPU tests
+   (``tests/ase_standin.py``), 100 calls against ``GDMLPredict`` within
+   1e-12. Launches are counted over the CLI's commands, the tuner's first
+   calls and the calculator's calls, not over the library runs they are
+   compared with.
 
-Phases 4-8 are the main path: each sets the launch counts to 0 before it
-drives the path (phase 8 before each training run or solve) and reads them
-right after. The last two lines are the kernels' JSON record and
-``{"ok": true, ...}``.
+Phases 4-9 are the main path: each sets the launch counts to 0 before it
+drives the path (phases 8 and 9 before each training run, solve or command)
+and reads them right after. The last two lines are the kernels' JSON record
+and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import logging
 import math
@@ -71,12 +91,15 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from sgdml_tpu_torch import cli, perm, tune
 from sgdml_tpu_torch.datasets.synthetic import generate_md_dataset, generate_symmetric_md_dataset
+from sgdml_tpu_torch.intf import ase_calc
 from sgdml_tpu_torch.md import MDEngine
 from sgdml_tpu_torch.ops import _build, fused_predict
 from sgdml_tpu_torch.ops import kernel as kernel_ops
@@ -159,6 +182,23 @@ CG_MAE_SHARE = 0.08
 CG_COLUMNS_CHECKED, CG_COLUMN_TOL = 3, 1e-12
 # The JAX package's column staging cap, timed against the port's in 8d.
 JAX_COLUMN_TILE_BYTES = 1.5e9
+
+# Phase 9: the README's quick start (`all ethanol_dft.npz 200 1000 5000`) on
+# phase 7c's ethanol data, and the JAX package's result for the same command
+# on the CPU in f64 (tests/dev_quickstart_jax.py): the sigmas trained before
+# the grid stopped, the selected sigma and the recorded test force and energy
+# MAE, which the port's are held to within 1e-6 relative (the bound of
+# tests/test_torch_cli.py on recorded errors). That force MAE is 10.6% of
+# this data's mean |F|, so tests/test_cli.py's 10% bound (set at N=5) does
+# not apply here. 9c's CG wall budget in seconds (8b's cold solve takes
+# several times that) at 8b's memory budget; 9d's request size; 9e's
+# calculator calls.
+QUICKSTART = ('200', '1000', '5000')
+QUICKSTART_JAX = ((10, 20, 30, 40), 30, 0.03448262107392924, 0.01582989888423556)
+QUICKSTART_TOL = 1e-6
+CLI_CG_CUT_SECONDS = 0.1
+TUNE_BULK = 1000
+ASE_CALLS = 100
 
 # H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s) and
 # HBM3 bandwidth, for K1's bound.
@@ -426,7 +466,7 @@ def phase_serving(device, card, n_atoms=60, n_train=3000, requests=(1, 17, 512, 
                       NAME[dtype], B, B / ms * 1e3, ms, B / plain_ms * 1e3, plain_ms, B / e2e, card))
     print('[5 serving] AT-AT width: %d requests in f64 and f32 agree with the plain path; '
           'launches %s' % (2 * len(requests), counts))
-    return counts
+    return counts, model
 
 
 def phase_md(device):
@@ -791,6 +831,7 @@ def phase_cg_dense(device, ethanol, card):
     X, Jc, dperms, _, _ = cg_system(ds, task, n_atoms, device)
     split = cg_split('ethanol', X, Jc, dperms, float(task['sig']), float(task['lam']), n_atoms,
                      model['inducing_pts_idxs'], card)
+    split['solver_iters'] = int(model['solver_iters'])
     return during, split
 
 
@@ -908,6 +949,288 @@ def phase_cg(device, ethanol, card):
     return counts, splits
 
 
+@contextlib.contextmanager
+def in_dir(path):
+    os.makedirs(path, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(cwd)
+
+
+@contextlib.contextmanager
+def step_timer(records):
+    """Append ``(step, enclosing step, sig, seconds)`` for each step that
+    ``cli all`` runs: create (and the symmetry search in it), the grid's
+    train, each ``GDMLTrain.train`` and validation, select and test."""
+    stack = [None]
+
+    def wrap(owner, name, label, sig_of):
+        fn = getattr(owner, name)
+
+        def run(*args, **kw):
+            parent = stack[-1]
+            stack.append(label)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                stack.pop()
+                records.append((label, parent, sig_of(args), time.perf_counter() - t0))
+        return fn, run
+
+    no_sig = lambda args: None  # noqa: E731
+    patches = [(cli, 'create', 'create', no_sig), (cli, 'train', 'grid', no_sig),
+               (cli, 'select', 'select', no_sig), (cli, 'test', 'test', no_sig),
+               (cli, '_validate_model', 'validate', lambda args: float(np.squeeze(args[0]['sig']))),
+               (cli.GDMLTrain, 'train', 'train', lambda args: float(np.squeeze(args[1]['sig']))),
+               (perm, 'find_perms', 'symmetry search', no_sig)]
+    saved = []
+    for owner, name, label, sig_of in patches:
+        fn, run = wrap(owner, name, label, sig_of)
+        saved.append((owner, name, fn))
+        setattr(owner, name, run)
+    try:
+        yield records
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def final_model():
+    """The model file that ``all`` wrote into the working directory."""
+    names = [f for f in os.listdir('.') if f.endswith('.npz')]
+    assert len(names) == 1, names
+    return names[0], io.load_dict(names[0])
+
+
+def recorded(model, key):
+    """A model file's recorded error dict (``f_err`` or ``e_err``)."""
+    err = model[key]
+    return err.item() if isinstance(err, np.ndarray) else err
+
+
+def cli_quickstart(device, ds_path, ds, card):
+    """9a: ``sgdml-tpu-torch all <ethanol> 200 1000 5000``: the default sigma
+    grid, symmetry discovery and the default solver."""
+    records = []
+    fused_predict.reset_launches()
+    t0 = time.perf_counter()
+    with step_timer(records):
+        np.random.seed(1)
+        cli.main(['--device', device, 'all', ds_path, *QUICKSTART])
+    wall = time.perf_counter() - t0
+    during = launch_counts()
+    name, model = final_model()
+    task_dir = [d for d in os.listdir('.') if os.path.isdir(d)][0]
+    trained = sorted(f for f in os.listdir(task_dir) if f.startswith('model-'))
+    err, e_err = recorded(model, 'f_err'), recorded(model, 'e_err')
+    scale = float(np.abs(ds['F']).mean())
+    secs = {label: sum(r[3] for r in records if r[:2] == (label, None))
+            for label in ('create', 'grid', 'select', 'test')}
+    sigs = sorted({r[2] for r in records if r[0] == 'train'})
+    grid = ', '.join('sig %g: train %.3f + validate %.3f' % (
+        sig, sum(r[3] for r in records if r[:3] == ('train', 'grid', sig)),
+        sum(r[3] for r in records if r[:3] == ('validate', 'grid', sig))) for sig in sigs)
+    sym = sum(r[3] for r in records if r[0] == 'symmetry search')
+    ref_sigs, ref_sig, ref_f, ref_e = QUICKSTART_JAX
+    rel = max(abs(err['mae'] - ref_f) / ref_f, abs(e_err['mae'] - ref_e) / ref_e)
+    print('    quick start `all ethanol.npz %s` (N=9, %d frames, grid 10:10:100): %.3f s = create %.3f (symmetry search '
+          '%.3f, P=%d) + grid %.3f [%s] + select %.3f (validates %d models) + test %.3f; the grid stopped after %d of '
+          '10 sigmas; selected sig=%g -> %s; test force MAE %.8f (%.1f%% of mean |F|), energy MAE %.8f on %d frames, '
+          '%.1e relative from the JAX package\'s CPU f64 run (bound %.0e); K1 launches %s (%s)' % (
+              ' '.join(QUICKSTART), len(ds['R']), wall, secs['create'], sym, model['perms'].shape[0], secs['grid'],
+              grid, secs['select'], len(trained), secs['test'], len(trained), float(np.squeeze(model['sig'])), name,
+              err['mae'], 100 * err['mae'] / scale, e_err['mae'], model['n_test'], rel, QUICKSTART_TOL, during,
+              card))
+    assert io.is_model(model) and np.isfinite(err['mae']) and model['n_test'] == int(QUICKSTART[2]), err
+    assert tuple(sigs) == ref_sigs and float(np.squeeze(model['sig'])) == ref_sig and rel <= QUICKSTART_TOL
+    assert during['total'] > 0, during
+    return during
+
+
+def cli_vs_library(device, ds_path, ds, card):
+    """9b: ``all --gdml -s 10`` against ``GDMLTrain`` and ``GDMLPredict``
+    called directly on the same split and test indices."""
+    fused_predict.reset_launches()
+    np.random.seed(1)
+    cli.main(['--device', device, 'all', ds_path, *QUICKSTART, '--gdml', '-s', '10', '--task_dir', 't9b'])
+    during = launch_counts()
+    _, model = final_model()
+    n_train, n_valid, n_test = (int(x) for x in QUICKSTART)
+    trainer = GDMLTrain(device=device)
+    task = trainer.create_task(ds, n_train, ds, n_valid, sig=10, use_sym=False, rng=np.random.RandomState(1))
+    ref = trainer.train(task)
+    for key in ('idxs_train', 'idxs_valid'):
+        np.testing.assert_array_equal(model[key], ref[key])
+    a_err = float(np.abs(model['alphas_F'] - ref['alphas_F']).max() / np.abs(ref['alphas_F']).max())
+    # The test indices as `test` draws them (sgdml_tpu_torch/cli.py, _validate_model).
+    cands = np.setdiff1d(np.arange(len(ds['R'])), np.concatenate([task['idxs_train'], task['idxs_valid']]))
+    np.random.seed(0)
+    idxs = np.random.choice(cands, n_test, replace=False)
+    E, F = GDMLPredict(ref, device=device).predict(ds['R'][idxs].reshape(n_test, -1))
+    n_atoms = ds['R'].shape[1]
+    refs = {'f_err': cli.force_error_metrics(F, ds['F'][idxs].reshape(n_test, -1), n_atoms),
+            'e_err': cli.energy_error_metrics(E, ds['E'][idxs])}
+    e_rel = max(abs(recorded(model, key)[k] - v) / abs(v) for key, r in refs.items() for k, v in r.items())
+    print('    `all --gdml -s 10` against GDMLTrain/GDMLPredict: splits identical; alphas_F %.2e of max |alpha| (bound '
+          '1e-10); recorded test errors (%d metrics on %d frames) %.2e relative from force_error_metrics and '
+          'energy_error_metrics of GDMLPredict (bound 1e-12); K1 launches %s (%s)' % (
+              a_err, sum(len(r) for r in refs.values()), n_test, e_rel, during, card))
+    assert model['n_test'] == n_test and a_err <= 1e-10 and e_rel <= 1e-12, (a_err, e_rel)
+    return during
+
+
+def cli_cg_resume(device, ds_path, ethanol, cold_iters, card):
+    """9c: a CG training cut by its wall budget, then ``resume`` to
+    convergence, against phase 7c's dense model."""
+    ds, task7, dense = ethanol
+    n_train, n_valid = len(task7['idxs_train']), len(task7['idxs_valid'])
+    np.random.seed(ETHANOL[3])
+    cli.main(['--device', device, 'create', ds_path, str(n_train), str(n_valid), '-s', '%g' % ETHANOL[5], '--gdml',
+              '--task_dir', 't9c'])
+    path = os.path.join('t9c', io.model_file_name(task7))
+    counts, models, secs = [], [], []
+    for argv in (['train', 't9c', '--solver', 'cg', '--max_seconds', str(CLI_CG_CUT_SECONDS)],
+                 ['resume', path, ds_path]):
+        fused_predict.reset_launches()
+        t0 = time.perf_counter()
+        cli.main(['--device', device, *argv, '--max_memory', str(CG_ETHANOL_GB)])
+        secs.append(time.perf_counter() - t0)
+        counts.append(launch_counts())
+        models.append(io.load_dict(path))
+    cut, model = models
+    np.testing.assert_array_equal(model['idxs_train'], task7['idxs_train'])
+    conv = [m['solver_resid'] <= m['solver_tol'] * m['norm_y_train'] for m in models]
+    R, _, _ = held_out(ds, task7, 1000)
+    Ea, Fa = GDMLPredict(dense, device=device).predict(R)
+    Ec, Fc = GDMLPredict(model, device=device).predict(R)
+    f_rel = float(np.abs(Fc - Fa).mean() / np.abs(Fa).mean())
+    e_diff = float(np.abs((Ec - Ec.mean()) - (Ea - Ea.mean())).mean())
+    print('    ethanol M=%d by `train --solver cg --max_seconds %g --max_memory %g`: %d iterations in %.3f s, converged '
+          '%s (resid %.3e, target %.3e); `resume`: %d iterations in all (phase 8b cold: %d) in %.3f s, converged %s; '
+          'against the dense model on %d held-out frames: mean |dF| / mean |F| %.2e (bound %.0e), centered |dE| '
+          '%.2e (bound %.0e); K1 launches %s and %s (%s)' % (
+              n_train, CLI_CG_CUT_SECONDS, CG_ETHANOL_GB, cut['solver_iters'], secs[0], conv[0], cut['solver_resid'],
+              cut['solver_tol'] * cut['norm_y_train'], model['solver_iters'], cold_iters, secs[1], conv[1], len(R),
+              f_rel, CG_DENSE_BOUNDS[0], e_diff, CG_DENSE_BOUNDS[1], counts[0], counts[1], card))
+    assert conv == [False, True] and model['solver_iters'] > cut['solver_iters'], conv
+    assert f_rel < CG_DENSE_BOUNDS[0] and e_diff < CG_DENSE_BOUNDS[1], (f_rel, e_diff)
+    return {k: counts[0][k] + counts[1][k] for k in counts[0]}
+
+
+class Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def cli_tuner(device, model, card):
+    """9d: ``prepare_parallel`` at the AT-AT width of phase 5 in f64 and f32;
+    a second predictor's call comes from the cache (no launch)."""
+    logger, records = logging.getLogger(tune.__name__), Records()
+    level = logger.level
+    logger.addHandler(records)
+    logger.setLevel(logging.INFO)
+    counts = dict.fromkeys(launch_counts(), 0)
+    try:
+        for dtype in (torch.float64, torch.float32):
+            pred = GDMLPredict(model, dtype=dtype, device=device)
+            del records.messages[:]
+            fused_predict.reset_launches()
+            t0 = time.perf_counter()
+            gps = pred.prepare_parallel(n_bulk=TUNE_BULK)
+            secs = time.perf_counter() - t0
+            during = launch_counts()
+            counts = {k: counts[k] + during[k] for k in counts}
+            ladder = [m for m in records.messages if m.startswith('bucket')]
+            again = GDMLPredict(model, dtype=dtype, device=device)
+            fused_predict.reset_launches()
+            gps2 = again.prepare_parallel(n_bulk=TUNE_BULK)
+            print('    tuner %s N=%d M=%d n_bulk=%d: %s; chose batch_size %d (%.0f geometries/s) in %.2f s, K1 '
+                  'launches %s; a second predictor: batch_size %d from the cache, %d launches (%s)' % (
+                      NAME[dtype], pred.n_atoms, pred.n_train, TUNE_BULK, '; '.join(ladder), pred.batch_size, gps,
+                      secs, during, again.batch_size, fused_predict.LAUNCHES, card))
+            rungs = [b for b in tune.BUCKET_LADDER if b < 2 * max(TUNE_BULK, 32)]
+            assert len(ladder) == len(rungs) and during['total'] > 0, (ladder, during)
+            assert fused_predict.LAUNCHES == 0 and gps2 == gps and again.batch_size == pred.batch_size
+    finally:
+        logger.removeHandler(records)
+        logger.setLevel(level)
+    return counts
+
+
+def cli_ase(device, card):
+    """9e: the ASE calculator on the golden model, through the stand-in for
+    ASE that the CPU tests use (ASE is not installed), against
+    ``GDMLPredict`` converted by the unit factors."""
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    import ase_standin
+
+    model = io.load_dict(os.path.join(GOLDEN, 'model_ref.npz'))
+    R = np.load(os.path.join(GOLDEN, 'train_predict_ref.npz'))['R_test']
+    with ase_standin.installed():
+        calc = importlib.reload(ase_calc).SGDMLCalculator(model, device=device)
+    atoms = [ase_standin.Atoms(r) for r in R]
+    fused_predict.reset_launches()
+    t0 = time.perf_counter()
+    E_calc, F_calc = [], []
+    for i in range(ASE_CALLS):
+        calc.calculate(atoms[i % len(atoms)])
+        E_calc.append(calc.results['energy'])
+        F_calc.append(calc.results['forces'])
+    us = (time.perf_counter() - t0) / ASE_CALLS * 1e6
+    during = launch_counts()
+    E, F = GDMLPredict(model, device=device).predict(R)
+    picks = np.arange(ASE_CALLS) % len(R)
+    E_ref, F_ref = E[picks] * calc.E_to_eV, F[picks].reshape(ASE_CALLS, -1, 3) * calc.F_to_eV_Ang
+    e_rel = float(np.abs(np.array(E_calc) - E_ref).max() / np.abs(E_ref).max())
+    f_rel = float(np.abs(np.array(F_calc) - F_ref).max() / np.abs(F_ref).max())
+    print('    ASE calculator (stand-in ase module) on the golden model: %d calculate() calls, %.1f us a call; E %.2e, '
+          'F %.2e of max |value| from GDMLPredict times the unit factors (bound 1e-12); K1 launches %s (%s)' % (
+              ASE_CALLS, us, e_rel, f_rel, during, card))
+    assert e_rel <= 1e-12 and f_rel <= 1e-12 and during['total'] == ASE_CALLS, (e_rel, f_rel, during)
+    return during
+
+
+def phase_cli(device, ethanol, atat_model, cold_iters, card):
+    """9: the command line and the host modules on the card, in a temporary
+    directory, with the tune cache pointed there."""
+    t0 = time.perf_counter()
+    ds = ethanol[0]
+    counts = dict.fromkeys(launch_counts(), 0)
+    saved = os.environ.get(tune._CACHE_ENV)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_') as tmp:
+        os.environ[tune._CACHE_ENV] = os.path.join(tmp, 'bmark_cache.json')
+        try:
+            ds_path = os.path.join(tmp, 'ethanol.npz')
+            io.save_dict(ds_path, ds)
+            runs = (('9a', lambda: cli_quickstart(device, ds_path, ds, card)),
+                    ('9b', lambda: cli_vs_library(device, ds_path, ds, card)),
+                    ('9c', lambda: cli_cg_resume(device, ds_path, ethanol, cold_iters, card)),
+                    ('9d', lambda: cli_tuner(device, atat_model, card)),
+                    ('9e', lambda: cli_ase(device, card)))
+            for sub, run in runs:
+                with in_dir(os.path.join(tmp, sub)):
+                    during = run()
+                counts = {k: counts[k] + during[k] for k in counts}
+        finally:
+            if saved is None:
+                os.environ.pop(tune._CACHE_ENV, None)
+            else:
+                os.environ[tune._CACHE_ENV] = saved
+    assert counts['total'] > 0, counts
+    print('[9 cli] quick start = the JAX package\'s; CLI model = library model; resume converged and agrees with the '
+          'dense model; tuner ladder and cache; ASE calculator = GDMLPredict; launches %s; %.1f s' % (
+              counts, time.perf_counter() - t0))
+    return counts
+
+
 def bound(B, T, D, itemsize):
     """(ms, 'bytes' or 'operations'): the least time of one contraction on
     an H100 SXM: 8 B T D operations at 67 TFLOP/s (FP64 tensor core and FP32
@@ -924,10 +1247,12 @@ def main():
     device = 'cuda'
     phase_build()
     max_abs, times = phase_kernel_vs_plain(device)
-    main_path = [phase_golden(device), phase_serving(device, smi), phase_md(device)]
+    serving_counts, atat = phase_serving(device, smi)
+    main_path = [phase_golden(device), serving_counts, phase_md(device)]
     train_counts, ethanol = phase_train(device, smi)
     cg_counts, splits = phase_cg(device, ethanol, smi)
-    main_path += [train_counts, cg_counts]
+    cli_counts = phase_cli(device, ethanol, atat, splits[1]['solver_iters'], smi)
+    main_path += [train_counts, cg_counts, cli_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]

@@ -5,7 +5,8 @@ energy-conserving molecular force fields by kernel ridge regression in the
 gradient domain. This package trains models (symmetry discovery, then a
 dense kernel assembly and an f64 Cholesky solve, or Nystrom-preconditioned
 CG for systems past the dense bound) and serves them -- batched energy and
-force prediction and molecular dynamics -- with PyTorch tensors. Every
+force prediction and molecular dynamics -- with PyTorch tensors; the command
+line ``sgdml-tpu-torch`` (``cli.py``) runs the whole workflow. Every
 engine runs on the GPU (``device='cuda'``) unless the caller asks for the
 CPU. Its one hand-written kernel, the fused (E, F) contraction
 (``ops/fused_predict.py``, ``csrc/fused_predict.cu``), runs every CUDA

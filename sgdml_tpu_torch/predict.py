@@ -332,9 +332,12 @@ class GDMLPredict:
         return (_numpy(E), _numpy(F)) if return_E else (None, _numpy(F))
 
     def prepare_parallel(self, n_bulk: int = 1000, **kwargs):
-        raise NotImplementedError(
-            'prepare_parallel (the batch-size tuner, tune.py) is ROADMAP queue 1 item 8'
-        )
+        """Auto-tune ``batch_size`` for bulk throughput (API parity with the
+        reference's process auto-tuner, sgdml/predict.py:770).
+        Returns measured geometries/sec."""
+        from .tune import prepare_parallel as _tune
+
+        return _tune(self, n_bulk=n_bulk, **kwargs)
 
     def predict_train_forces(self, alphas_F, alphas_E=None):
         """CG matvec core: set coefficients, predict all training points.

@@ -197,8 +197,9 @@ def test_unported_options_and_device_are_explicit(golden):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         GDMLPredict(model, mesh=object(), device='cpu')
     pred = GDMLPredict(model, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        pred.prepare_parallel()
+    # The tuner is ported (tune.py): it installs a measured batch size.
+    assert pred.prepare_parallel(n_bulk=64, n_reps=1, use_cache=False) > 0
+    assert pred.batch_size in (64, 128)
     x = torch.zeros(1, 10, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         predict.predict_from_tables(

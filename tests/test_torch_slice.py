@@ -51,7 +51,11 @@ def test_importing_the_port_loads_no_jax():
         'sgdml_tpu_torch.models, sgdml_tpu_torch.datasets.synthetic, '
         'sgdml_tpu_torch.ops.fused_predict, sgdml_tpu_torch.ops._build, sgdml_tpu_torch.train, '
         'sgdml_tpu_torch.perm, sgdml_tpu_torch.solvers.analytic, sgdml_tpu_torch.ops.kernel, '
-        'sgdml_tpu_torch.utils.profiling, sgdml_tpu_torch.utils.io; '
+        'sgdml_tpu_torch.utils.profiling, sgdml_tpu_torch.utils.io, sgdml_tpu_torch.utils.ui, '
+        'sgdml_tpu_torch.cli, sgdml_tpu_torch.tune, sgdml_tpu_torch.intf.ase_calc, sgdml_tpu_torch.download, '
+        'sgdml_tpu_torch.scripts.dataset_from_aims, sgdml_tpu_torch.scripts.dataset_from_extxyz, '
+        'sgdml_tpu_torch.scripts.dataset_from_ipi, sgdml_tpu_torch.scripts.dataset_to_extxyz, '
+        'sgdml_tpu_torch.scripts.dataset_via_ase, sgdml_tpu_torch.scripts.datasets_from_model; '
         "assert 'jax' not in sys.modules and 'sgdml_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if 'jax' in m or m == 'sgdml_tpu')"
     )
