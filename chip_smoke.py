@@ -4,6 +4,10 @@ Run from the repository root, with one card and no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --grid-precision`` runs phases 1-2 and then only
+the comparison of the grid route's preconditioner built five ways on phase
+10a's system (``phase_grid_precision``).
+
 It imports only the port (``sgdml_tpu_torch``), builds its CUDA kernels from
 ``sgdml_tpu_torch/csrc/`` into ``build/kernels/``, and runs these phases,
 each a plain assertion that ends the run with a traceback when it fails:
@@ -72,10 +76,24 @@ each a plain assertion that ends the run with a traceback when it fails:
    (``tests/ase_standin.py``), 100 calls against ``GDMLPredict`` within
    1e-12. Launches are counted over the CLI's commands, the tuner's first
    calls and the calculator's calls, not over the library runs they are
-   compared with.
+   compared with;
+10. the analytic solver's f32 block-grid route on the card (``GDMLTrain(
+   device='cuda').train(task)`` past the dense bound): (a) the aspirin recipe
+   of ``bench_large.py`` ``bench_aspirin_analytic`` (63,000 unknowns) with
+   ``solver=None``: the route taken (and the log line of the pair region,
+   ROADMAP item 12b), the residual re-measured through the plain
+   contraction, the held-out force MAE, lmax, the lam' rungs, the
+   refinement iterations, seconds by phase, the packed Cholesky's TFLOP/s,
+   the peak memory against ``est_memory_grid``, the kept f32 factor
+   against the f64 system on a probe vector, and one refinement iteration
+   and its parts, each timed alone (the matvec, K1 inside it, checked
+   against its plain version on the solve's tables, the grid solve and its
+   leaf triangular solves); (b) phase 8c's aspirin task by the grid route, against 8c's CG
+   model; (c) energy constraints on a small ethanol task forced onto the
+   grid route by ``max_memory``, against the dense model.
 
-Phases 4-9 are the main path: each sets the launch counts to 0 before it
-drives the path (phases 8 and 9 before each training run, solve or command)
+Phases 4-10 are the main path: each sets the launch counts to 0 before it
+drives the path (phases 8-10 before each training run, solve or command)
 and reads them right after. The last two lines are the kernels' JSON record
 and ``{"ok": true, ...}``.
 """
@@ -101,12 +119,14 @@ from sgdml_tpu_torch import cli, perm, tune
 from sgdml_tpu_torch.datasets.synthetic import generate_md_dataset, generate_symmetric_md_dataset
 from sgdml_tpu_torch.intf import ase_calc
 from sgdml_tpu_torch.md import MDEngine
-from sgdml_tpu_torch.ops import _build, fused_predict
+from sgdml_tpu_torch.ops import _build, blockchol, fused_predict
 from sgdml_tpu_torch.ops import kernel as kernel_ops
 from sgdml_tpu_torch.ops import descriptor as desc_ops
+from sgdml_tpu_torch.ops._precision import _true_f32
 from sgdml_tpu_torch.predict import (
     GDMLPredict, _predict_from_tables_body, _predict_geoms, build_tables, center_tables, desc_perm_table,
 )
+from sgdml_tpu_torch.solvers import analytic as an_mod
 from sgdml_tpu_torch.solvers import iterative as it_mod
 from sgdml_tpu_torch.solvers.analytic import Analytic, memory_budget
 from sgdml_tpu_torch.train import GDMLTrain
@@ -199,6 +219,30 @@ QUICKSTART_TOL = 1e-6
 CLI_CG_CUT_SECONDS = 0.1
 TUNE_BULK = 1000
 ASE_CALLS = 100
+
+# Phase 10: the recipe of bench_large.py `bench_aspirin_analytic` (N, frames,
+# data seed, split seed, validation points, M, sig, lam) and its held-out
+# frames; its bound on the re-measured relative residual (the grid route's
+# warning threshold; the refinement CG stops at 1e-9); the refinement
+# iterations that the split's timed chunk runs; 10c's ethanol training
+# points with energy constraints, the budget in GB that leaves the grid
+# route but not the dense one, lam (1e-8, as 8c: at the ethanol recipe's
+# 1e-10 the grid route's lam'/lam is ~3e5 and its CG does not converge in
+# PCG_MAX_ITERS, on the CPU at M=100 too), and the bound on the relative
+# deviation of the two models' training forces (tests/test_analytic_grid.py's).
+GRID_ASPIRIN = (21, 1600, 10, 1, 200, 1000, 20.0, 1e-10)
+GRID_HELD_OUT = 500
+GRID_RESID = 1e-6
+GRID_SPLIT_ITERS = 20
+# 10a's bound on the kept factor's error on its probe vector as a share of
+# lam' |v|: the refinement CG pays for that error in iterations (the
+# precision comparison on the H100: 0.041 took 1,736 iterations, 0.103 with
+# the panel solve written into its own input 2,060, all f64 1,636). Power
+# steps for the top of the preconditioned spectrum in that comparison
+# (``--grid-precision``).
+GRID_FACTOR_SHIFT_TOL = 0.075
+GRID_EIG_STEPS = 30
+GRID_ECSTR = (400, 1.0, 1e-8, 1e-7)
 
 # H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s) and
 # HBM3 bandwidth, for K1's bound.
@@ -798,7 +842,7 @@ def phase_cg_anchor(device, card):
                       during, card))
             assert conv and ok, (gb, sig, iters, ref)
     split = cg_split('anchor', X, Jc, dperms, first[0], lam, n_atoms, first[1], card)
-    return counts, split
+    return counts, split, None
 
 
 def phase_cg_dense(device, ethanol, card):
@@ -832,7 +876,7 @@ def phase_cg_dense(device, ethanol, card):
     split = cg_split('ethanol', X, Jc, dperms, float(task['sig']), float(task['lam']), n_atoms,
                      model['inducing_pts_idxs'], card)
     split['solver_iters'] = int(model['solver_iters'])
-    return during, split
+    return during, split, None
 
 
 def cg_recipe(device, recipe, max_seconds):
@@ -888,7 +932,7 @@ def phase_cg_aspirin(device, card):
     assert drift <= it_mod.RESID_REPLACE_DRIFT and mae < CG_MAE_SHARE * scale, (drift, mae, scale)
     check_columns('aspirin', r, sig, n_atoms)
     split = cg_split('aspirin', r['X'], r['Jc'], r['dperms'], sig, lam, n_atoms, model['inducing_pts_idxs'], card)
-    return r['during'], split
+    return r['during'], split, r
 
 
 def phase_cg_atat(device, card):
@@ -929,24 +973,416 @@ def phase_cg_atat(device, card):
         print('    AT-AT column assembly (%d x %d, %.1f GB) at the %s tile budget: %d rows a tile (%d tiles), '
               '%.3f and %.3f s in turns (%s)' % (r['n'], len(idxs), r['n'] * len(idxs) * 8 / 1e9, name, ti,
                                                 -(-m // ti), *secs[name], card))
-    return r['during'], split
+    return r['during'], split, None
 
 
 def phase_cg(device, ethanol, card):
     """8: CG training on the card; K1 runs in every matvec."""
     t0 = time.perf_counter()
     counts = dict.fromkeys(launch_counts(), 0)
-    splits = []
+    splits, recipes = [], []
     for run in (lambda: phase_cg_anchor(device, card), lambda: phase_cg_dense(device, ethanol, card),
                 lambda: phase_cg_aspirin(device, card), lambda: phase_cg_atat(device, card)):
-        during, split = run()
+        during, split, recipe = run()
         counts = {k: counts[k] + during[k] for k in counts}
         splits.append(split)
+        recipes.append(recipe)
     assert counts['one_pass'] > 0 and counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
     print('[8 cg] anchor within %d%% of the JAX CPU f64 counts; ethanol CG agrees with the dense model; aspirin '
           '(63,000 unknowns) converged; AT-AT (540,000 unknowns) ran at the memory cap; launches %s; %.1f s' % (
               100 * CG_ANCHOR_TOL[0], counts, time.perf_counter() - t0))
-    return counts, splits
+    return counts, splits, recipes[2]
+
+
+@contextlib.contextmanager
+def grid_probe():
+    """Watch the grid route inside ``train()``: each ``chol_grid`` call's
+    side, ``info`` and device seconds (synchronized before and after), the
+    last factor that held, the ``Analytic`` instance that solved, and the
+    solver's log lines at INFO."""
+    probe = {'chol': [], 'factor': None, 'solver': None, 'log': Records()}
+    chol, solve = blockchol.chol_grid, Analytic._solve_grid_pcg
+
+    def timed_chol(G):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L, info = chol(G)
+        torch.cuda.synchronize()
+        probe['chol'].append((len(G) * G[0][0].shape[0], info, time.perf_counter() - t0))
+        if info == 0:
+            probe['factor'] = L
+        return L, info
+
+    def watched(self, *args, **kw):
+        probe['solver'] = self
+        return solve(self, *args, **kw)
+
+    logger = logging.getLogger(an_mod.__name__)
+    level = logger.level
+    logger.addHandler(probe['log'])
+    logger.setLevel(logging.INFO)
+    blockchol.chol_grid, Analytic._solve_grid_pcg = timed_chol, watched
+    try:
+        yield probe
+    finally:
+        blockchol.chol_grid, Analytic._solve_grid_pcg = chol, solve
+        logger.removeHandler(probe['log'])
+        logger.setLevel(level)
+
+
+def grid_train(trainer, task, solver=None):
+    """``trainer.train(task, solver)`` on the grid route, with its peak
+    memory above what was allocated before it, its K1 launches (from 0) and
+    the probe."""
+    with grid_probe() as probe:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fused_predict.reset_launches()
+        model = trainer.train(task, solver=solver)
+        during = launch_counts()
+    assert model['solver_name'] == 'analytic' and probe['solver'] is not None and probe['factor'] is not None
+    return model, during, torch.cuda.max_memory_allocated() - base, probe
+
+
+def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
+    """Device ms of one refinement-CG iteration at a grid solve's shapes
+    and factor (a chunk of GRID_SPLIT_ITERS), and of its parts, each timed
+    alone, so they need not add up to the iteration: the matvec, K1 inside
+    it (checked against its plain version on one matvec's inputs, then
+    timed in turns with it), the grid solve (the preconditioner) and its 2k
+    single-vector leaf triangular solves. Returns K1's shape, times, bound
+    and error against the plain version, and the parts' times."""
+    tab = it_mod.matvec_tables(X, Jc, dperms)
+    n = X.shape[0] * 3 * n_atoms
+    v = torch.as_tensor(np.random.default_rng(0).normal(size=n), device=X.device)
+    JA = desc_ops.jac_dot_vec(Jc, v.reshape(-1, 3 * n_atoms), n_atoms)[:, tab.dp].reshape(-1, X.shape[1])
+    JA = JA.contiguous()
+    args = (X - tab.mu, tab.Xt, JA, tab.xt_sq, torch.sum(tab.Xt * JA, dim=1), None, sig)
+    B, D, T = X.shape[0], X.shape[1], tab.Xt.shape[0]
+    kernel = lambda: fused_predict.fused_predict_tables(*args)  # noqa: E731
+    plain = lambda: fused_predict.fused_predict_tables_reference(*args)  # noqa: E731
+    max_abs = check('grid CG matvec %s B=%d T=%d D=%d f64' % (label, B, T, D), kernel, plain, TOL[torch.float64])
+    k1_ms, plain_ms = time_pair(kernel, plain)
+    A_apply, M_apply = an_mod._grid_operators(L32, None, None, tab, sig, lam, n_atoms=n_atoms, n=n,
+                                              use_E_cstr=False)
+    mv_ms, solve_ms = time_pair(lambda: A_apply(v), lambda: M_apply(v))
+    k, b = len(L32), L32[0][0].shape[0]
+    vb = torch.ones((b, 1), dtype=torch.float32, device=X.device)
+
+    def leaves():
+        for j in range(k):
+            torch.linalg.solve_triangular(L32[j][j], vb, upper=False)
+            torch.linalg.solve_triangular(L32[j][j].mT, vb, upper=True)
+
+    leaves()
+    leaf_ms = cuda_ms(leaves, 3)
+    z = M_apply(v)
+    state = (torch.zeros_like(v), v, z, z, v @ z, None)
+    chunk = lambda: an_mod._pcg_chol(state, A_apply, M_apply, 1.0, 0.0, max_iters=GRID_SPLIT_ITERS)  # noqa: E731
+    chunk()
+    it_ms = cuda_ms(chunk, 1) / GRID_SPLIT_ITERS
+    f_bytes = sum(blk.numel() * blk.element_size() for row in L32 for blk in row)
+    b_ms, b_by = bound(B, T, D, 8)
+    print('    %s refinement iteration (grid %d x %d blocks of %d, factor %.2f GB f32): %.3f ms in a chunk of %d; '
+          'its parts timed alone: matvec %.3f (K1 %.3f), grid solve %.3f (two sweeps read the factor: %.0f GB/s; '
+          'bytes floor %.3f) and its %d single-vector leaf triangular solves %.3f; K1 at B=%d T=%d D=%d f64 %.3f ms '
+          'vs plain %.3f ms, bound %.4f ms by %s (%.1f%%), route %s (%s)' % (
+              label, k, k, b, f_bytes / 1e9, it_ms, GRID_SPLIT_ITERS, mv_ms, k1_ms, solve_ms,
+              2 * f_bytes / solve_ms * 1e-6, 2 * f_bytes / H100_BYTES_PER_S * 1e3, 2 * k, leaf_ms, B, T, D, k1_ms,
+              plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(T, D), card))
+    return {'label': label, 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': b_by, 'max_abs_err': max_abs, 'iteration_ms': it_ms, 'matvec_ms': mv_ms,
+            'apply_ms': solve_ms, 'leaf_solves_ms': leaf_ms, 'solver_iters': int(iters)}
+
+
+def grid_llt(L, v):
+    """``L L^T v`` from a lower-triangle grid factor, in f64 (each block
+    cast on its own)."""
+    k, b = len(L), L[0][0].shape[0]
+    vb = v.split(b)
+
+    def blk(r, c):
+        return (torch.tril(L[r][c]) if r == c else L[r][c]).to(torch.float64)
+
+    u = [sum(blk(r, c).mT @ vb[r] for r in range(c, k)) for c in range(k)]
+    return torch.cat([sum(blk(r, c) @ u[c] for c in range(r + 1)) for r in range(k)])
+
+
+def grid_factor_error(L, X, Jc, dperms, sig, lam_p, n_atoms):
+    """How far a grid factor is from the f64 system it factors, on a
+    random probe vector ``v`` (zero on the padding): ``|L L^T v - A v|``
+    over ``|A v|`` and over ``lam' |v|``, with ``A = -K + lam' I`` applied
+    through the plain contraction, apart from K1."""
+    n = X.shape[0] * 3 * n_atoms
+    v = torch.zeros(len(L) * L[0][0].shape[0], dtype=torch.float64, device=X.device)
+    v[:n] = torch.as_tensor(np.random.default_rng(2).normal(size=n), device=X.device)
+    Av = plain_matvec(v[:n], X, Jc, dperms, sig, lam_p, n_atoms)
+    E = grid_llt(L, v)
+    E[:n] -= Av
+    e = float(torch.linalg.vector_norm(E))
+    return e / float(torch.linalg.vector_norm(Av)), e / (lam_p * float(torch.linalg.vector_norm(v)))
+
+
+def grid_M(L, n):
+    """The refinement CG's preconditioner from a grid factor of any dtype:
+    pad to the grid's side, solve in the factor's dtype, cast back (the
+    route's own ``M_ff`` for an f32 factor)."""
+    n_pad = len(L) * L[0][0].shape[0]
+
+    def M_apply(v):
+        vp = torch.zeros(n_pad, dtype=L[0][0].dtype, device=v.device)
+        vp[:n] = v
+        return blockchol.solve_grid(L, vp)[:n].to(v.dtype)
+
+    return M_apply
+
+
+def top_eig(A_apply, M_apply, n, device):
+    """The largest eigenvalue of ``M^-1 A`` by GRID_EIG_STEPS power steps
+    (from below). 1 for an exact factor of ``A + lam' I``; above 1 where
+    the factor's error eats into the shift ``lam'``."""
+    v = torch.as_tensor(np.random.default_rng(1).normal(size=n), device=device)
+    v = v / torch.linalg.vector_norm(v)
+    for _ in range(GRID_EIG_STEPS):
+        w = M_apply(A_apply(v))
+        top = torch.linalg.vector_norm(w)
+        v = w / top
+    return float(top)
+
+
+def grid_aspirin_train(device):
+    """10a's recipe, trained with solver=None on the grid route."""
+    n_atoms, n_frames, seed, split, n_valid, m, sig, lam = GRID_ASPIRIN
+    t0 = time.perf_counter()
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
+    trainer = GDMLTrain(device=device)
+    task = trainer.create_task(ds, m, ds, n_valid, sig=sig, lam=lam, use_sym=False, rng=np.random.RandomState(split))
+    t_data = time.perf_counter() - t0
+    need, grid_need = Analytic.est_memory_requirement(m, n_atoms), Analytic.est_memory_grid(m, n_atoms)
+    assert grid_need < memory_budget(device) < need, (grid_need, need)
+    model, during, peak, probe = grid_train(trainer, task)
+    return ds, task, trainer, model, during, peak, probe, t_data
+
+
+def phase_grid_aspirin(device, card):
+    """10a: the bench_large.py analytic aspirin recipe with solver=None."""
+    n_atoms, _, _, _, _, m, sig, lam = GRID_ASPIRIN
+    need, grid_need = Analytic.est_memory_requirement(m, n_atoms), Analytic.est_memory_grid(m, n_atoms)
+    ds, task, trainer, model, during, peak, probe, t_data = grid_aspirin_train(device)
+    solver, t = probe['solver'], trainer.times
+    pair_line = any('item 12b' in msg for msg in probe['log'].messages)
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    rel = true_resid(model, X, Jc, dperms, y, n_atoms) / float(np.linalg.norm(y))
+    R, F_ref, _ = held_out(ds, task, GRID_HELD_OUT)
+    _, F = GDMLPredict(model, device=device).predict(R)
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    n_pad, _, t_fac = probe['chol'][-1]
+    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.1f GB, the grid %.1f GB): solver=None took '
+          'the analytic grid route%s; lmax %.6e, rungs lam\'/info %s, lam\' %.6e; %d refinement iterations; relative '
+          'residual re-measured by the plain matvec %.3e (bound %.0e); train() %.2f s = descriptors %.3f + lmax %.3f + '
+          'assembly %.2f + factor %.2f (%d rung(s); the one that held %.3f s, %.1f TFLOP/s on n^3/3 at n=%d) + '
+          'refinement CG %.2f (%.1f iterations/s) + model %.3f + integration constant %.3f; data %.1f s; peak '
+          'allocated by train() %.2f GB (est_memory_grid %.2f GB); held-out force MAE %.5f on %d frames (force '
+          'scale %.4f, bound %.4f); K1 %.2f launches an iteration %s (%s)' % (
+              n_atoms, m, sig, lam, m * 3 * n_atoms, need / 1e9, grid_need / 1e9,
+              ' and logged the pair region (item 12b)' if pair_line else '', solver.lmax,
+              [(float('%.6g' % lp), info) for lp, info in solver.rungs], solver.lam_p_used, solver.pcg_iters, rel,
+              GRID_RESID, t['total'], t['descriptors'], t['lmax'], t['assembly'], t['factor'], len(solver.rungs),
+              t_fac, n_pad**3 / 3 / t_fac * 1e-12, n_pad, t['cg'], solver.pcg_iters / t['cg'], t['model creation'],
+              t['integration constant'], t_data, peak / 1e9, grid_need / 1e9, mae, len(R), scale,
+              CG_MAE_SHARE * scale, during['total'] / max(solver.pcg_iters, 1), during, card))
+    assert pair_line and 'lmax' in t and rel <= GRID_RESID and mae < CG_MAE_SHARE * scale, (pair_line, rel, mae)
+    L32, lam_p = probe['factor'], solver.lam_p_used
+    err, err_shift = grid_factor_error(L32, X, Jc, dperms, sig, lam_p, n_atoms)
+    tol = math.sqrt(n_pad) * float(torch.finfo(torch.float32).eps)
+    print('    the kept f32 factor on a probe vector: |L L^T v - (A + lam\' I) v| / |(A + lam\' I) v| %.3e (bound '
+          'sqrt(n) eps32 = %.3e), %.3f lam\' |v| (bound %.3f) (%s)' % (err, tol, err_shift, GRID_FACTOR_SHIFT_TOL,
+                                                                         card))
+    assert err <= tol and err_shift <= GRID_FACTOR_SHIFT_TOL, (err, tol, err_shift)
+    split = grid_split('aspirin grid', L32, X, Jc, dperms, sig, lam, n_atoms, solver.pcg_iters, card)
+    return during, split
+
+
+def refine(A_apply, M_apply, y):
+    """The grid route's refinement CG (its chunks, tolerance and cap) on
+    ``y`` with the preconditioner ``M_apply``: (iterations, relative
+    residual, seconds)."""
+    b_norm = float(torch.linalg.vector_norm(y))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z0 = M_apply(y)
+    state, iters, rel = (torch.zeros_like(y), y, z0, z0, y @ z0, None), 0, 1.0
+    for _ in range(-(-an_mod.PCG_MAX_ITERS // an_mod.PCG_CHUNK_ITERS)):
+        state, resid = an_mod._pcg_chol(state, A_apply, M_apply, b_norm, an_mod.PCG_RTOL,
+                                        max_iters=an_mod.PCG_CHUNK_ITERS)
+        done, rel = int(state[5]), float(resid) / b_norm
+        iters += done
+        if not math.isfinite(rel) or rel <= an_mod.PCG_RTOL or done < an_mod.PCG_CHUNK_ITERS:
+            break
+    return iters, rel, time.perf_counter() - t0
+
+
+def panel_alias_check(device, b, card):
+    """``chol_grid``'s panel solve ``B <- B L^-T`` at a grid block's side
+    ``b`` on seeded f32 inputs, written through ``out=`` into its own input
+    (the form the port used before) against a fresh output: max |delta|
+    over max |value|, and each result's residual ``|X L^T - B| / |B|``."""
+    g = torch.Generator().manual_seed(0)
+    A, B = (torch.randn(b, b, generator=g).to(device) for _ in range(2))
+    with _true_f32(torch.float32):
+        L = torch.linalg.cholesky(A @ A.mT / b + 2 * torch.eye(b, device=device))
+        fresh = torch.linalg.solve_triangular(L.mT, B, upper=True, left=False)
+        aliased = B.clone()
+        torch.linalg.solve_triangular(L.mT, aliased, upper=True, left=False, out=aliased)
+        resid = [float(torch.linalg.norm(X @ L.mT - B) / torch.linalg.norm(B)) for X in (fresh, aliased)]
+    print('    panel solve at b=%d f32: out= aliasing its input against a fresh output %.3e of max |value|; residual '
+          '|X L^T - B| / |B| fresh %.3e, aliased %.3e (%s)' % (b, rel_err(aliased, fresh), *resid, card))
+
+
+def chol_grid_out(G):
+    """``blockchol.chol_grid`` with its panel solve written through
+    ``out=`` into its own input, the form the port used before."""
+    k, b = len(G), G[0][0].shape[0]
+    with _true_f32(G[0][0].dtype):
+        for j in range(k):
+            G[j][j], info = torch.linalg.cholesky_ex(G[j][j])
+            for i in range(j + 1, k):
+                torch.linalg.solve_triangular(G[j][j].mT, G[i][j], upper=True, left=False, out=G[i][j])
+            for c in range(j + 1, k):
+                for r in range(c, k):
+                    G[r][c].addmm_(G[r][j], G[c][j].mT, alpha=-1)
+            if int(info) != 0:
+                return G, j * b + int(info)
+    return G, 0
+
+
+def phase_grid_precision(device, card):
+    """``--grid-precision``: 10a's system at the lam' its ladder chose, with
+    the preconditioner built five ways: the route's (f32 assembly, factor
+    and solve), the route with the panel solve through ``out=``
+    (``chol_grid_out``), the route's factor solved in f64, an f64 assembly
+    rounded to f32 before the f32 factor, and all f64. For each: the
+    refinement iterations to the route's tolerance, the factor's error on a
+    probe vector and the top of the preconditioned spectrum. First the
+    panel solve through ``out=`` (``panel_alias_check``)."""
+    n_atoms, _, _, _, _, m, sig, lam = GRID_ASPIRIN
+    for b in (512, 7875):
+        panel_alias_check(device, b, card)
+    ds, task, trainer, model, _, _, probe = grid_aspirin_train(device)[:7]
+    solver = probe['solver']
+    lam_p, L32 = solver.lam_p_used, probe['factor']
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    y = torch.as_tensor(y, device=X.device)
+    tab = it_mod.matvec_tables(X, Jc, dperms)
+    A_apply = an_mod._grid_operators(L32, None, None, tab, sig, lam, n_atoms=n_atoms, n=len(y), use_E_cstr=False)[0]
+    dim_i = 3 * n_atoms
+    spec = blockchol.grid_spec(-(-m // 8) * 8 * dim_i, target_block=an_mod.GRID_TARGET_BLOCK, align=dim_i)
+    print('    aspirin M=%d sig=%g lam=%g: the route took %d refinement iterations at lam\' %.6e (lmax %.6e, lam\'/lam '
+          '%.4e) in %.2f s (%s)' % (m, sig, lam, solver.pcg_iters, lam_p, solver.lmax, lam_p / lam,
+                                   trainer.times['cg'], card))
+
+    def assembled(dtype, factor_dtype, chol=blockchol.chol_grid):
+        G = kernel_ops.assemble_kernel_grid(X, Jc, dperms, sig, n_atoms, spec, dtype=dtype)
+        for row in G:
+            for j in range(len(row)):
+                row[j] = row[j].to(factor_dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L, info = chol(blockchol.grid_diag_add(G, lam_p))
+        torch.cuda.synchronize()
+        assert info == 0, info
+        return L, time.perf_counter() - t0
+
+    variants = (
+        ('f32 assembly, f32 factor, f32 solve (the route)', lambda: (L32, probe['chol'][-1][2])),
+        ('the route with the panel solve through out= into its own input',
+         lambda: assembled(torch.float32, torch.float32, chol_grid_out)),
+        ('the same f32 factor, solved in f64', lambda: ([[b.double() for b in row] for row in L32], 0.0)),
+        ('f64 assembly rounded to f32, f32 factor, f32 solve', lambda: assembled(torch.float64, torch.float32)),
+        ('f64 assembly, f64 factor, f64 solve', lambda: assembled(torch.float64, torch.float64)),
+    )
+    for label, build in variants:
+        L, t_fac = build()
+        M_apply = grid_M(L, len(y))
+        err, err_shift = grid_factor_error(L, X, Jc, dperms, sig, lam_p, n_atoms)
+        top = top_eig(A_apply, M_apply, len(y), X.device)
+        iters, rel, secs = refine(A_apply, M_apply, y)
+        print('    %s: %d refinement iterations to relative residual %.3e in %.2f s (%.3f ms an iteration); '
+              'factor %.2f s; |L L^T v - (A + lam\' I) v| / |(A + lam\' I) v| %.3e = %.3f lam\' |v|; top of '
+              'M^-1 A %.4f (%s)' % (label, iters, rel, secs, 1e3 * secs / max(iters, 1), t_fac, err, err_shift,
+                                     top, card))
+        del L, M_apply
+        torch.cuda.empty_cache()
+
+
+def phase_grid_vs_cg(device, aspirin_cg, card):
+    """10b: phase 8c's aspirin task by the grid route, against 8c's CG model
+    on held-out frames."""
+    task, cg_model = aspirin_cg['task'], aspirin_cg['model']
+    trainer = GDMLTrain(device=device)
+    model, during, peak, probe = grid_train(trainer, task, solver='analytic')
+    R, F_ref, _ = held_out(aspirin_cg['ds'], task, GRID_HELD_OUT)
+    _, Fg = GDMLPredict(model, device=device).predict(R)
+    _, Fc = GDMLPredict(cg_model, device=device).predict(R)
+    f_rel = float(np.abs(Fg - Fc).mean() / np.abs(Fc).mean())
+    t, tc, solver = trainer.times, aspirin_cg['times'], probe['solver']
+    print('    aspirin M=%d sig=%g lam=%g by the grid route: train() %.2f s (lmax %.2f, assembly %.2f, factor %.2f, '
+          'refinement CG %.2f), lam\' %.6e after %d rung(s), %d refinement iterations, peak %.2f GB, held-out force '
+          'MAE %.5f; by CG (phase 8c): train() %.2f s (leverage scores %.2f, factor %.2f, cg %.2f), %d iterations, '
+          'peak %.2f GB, held-out force MAE %.5f; mean |dF| / mean |F| between the two %.2e (bound %.0e) on %d '
+          'frames; K1 launches %s (%s)' % (
+              len(task['idxs_train']), float(task['sig']), float(task['lam']), t['total'], t['lmax'], t['assembly'],
+              t['factor'], t['cg'], solver.lam_p_used, len(solver.rungs), solver.pcg_iters, peak / 1e9,
+              np.abs(Fg - F_ref).mean(), tc['total'], tc['leverage scores'], tc['factor'], tc['cg'],
+              cg_model['solver_iters'], aspirin_cg['peak'] / 1e9, np.abs(Fc - F_ref).mean(), f_rel,
+              CG_DENSE_BOUNDS[0], len(R), during, card))
+    assert f_rel < CG_DENSE_BOUNDS[0], f_rel
+    return during
+
+
+def phase_grid_ecstr(device, ethanol, card):
+    """10c: energy constraints on the grid route (forced by max_memory)
+    against the dense model on the card, on the training geometries."""
+    ds = ethanol[0]
+    m, gb, lam, bound_rel = GRID_ECSTR
+    n_atoms = ds['R'].shape[1]
+    task = GDMLTrain(device=device).create_task(ds, m, ds, 100, sig=ETHANOL[5], lam=lam, use_sym=False,
+                                               use_E_cstr=True, rng=np.random.RandomState(ETHANOL[3]))
+    assert Analytic.est_memory_grid(m, n_atoms) < gb * 1024**3 < Analytic.est_memory_requirement(m, n_atoms, True)
+    trainer = GDMLTrain(max_memory=gb, device=device)
+    model, during, _, probe = grid_train(trainer, task)
+    dense = GDMLTrain(device=device).train(task)
+    R = task['R_train'].reshape(m, -1)
+    Eg, Fg = GDMLPredict(model, device=device).predict(R)
+    Ed, Fd = GDMLPredict(dense, device=device).predict(R)
+    f_rel = float(np.linalg.norm(Fg - Fd) / np.linalg.norm(Fd))
+    solver = probe['solver']
+    print('    ethanol M=%d lam=%g with energy constraints (%d unknowns) at %g GB: the grid route (%d rung(s), '
+          'lam\' %.4e, %d refinement iterations, train() %.3f s, border %.3f s) against the dense model: training '
+          'forces %.2e relative (bound %.0e), energies %.2e; K1 launches %s (%s)' % (
+              m, lam, m * (3 * n_atoms + 1), gb, len(solver.rungs), solver.lam_p_used, solver.pcg_iters,
+              trainer.times['total'], trainer.times['border'], f_rel, bound_rel,
+              float(np.abs(Eg - Ed).max() / np.abs(Ed).max()), during, card))
+    assert 'alphas_E' in model and f_rel < bound_rel, f_rel
+    return during
+
+
+def phase_grid(device, ethanol, aspirin_cg, card):
+    """10: the analytic solver's f32 grid route on the card; K1 runs in
+    lmax's power iteration, every refinement matvec and the integration
+    constant."""
+    t0 = time.perf_counter()
+    during, split = phase_grid_aspirin(device, card)
+    counts = during
+    for run in (lambda: phase_grid_vs_cg(device, aspirin_cg, card), lambda: phase_grid_ecstr(device, ethanol, card)):
+        during = run()
+        counts = {k: counts[k] + during[k] for k in counts}
+    assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
+    print('[10 grid] aspirin (63,000 unknowns) trained by the f32 grid route with solver=None; the grid agrees with '
+          'CG on 8c\'s task and with the dense model under energy constraints; launches %s; %.1f s' % (
+              counts, time.perf_counter() - t0))
+    return counts, split
 
 
 @contextlib.contextmanager
@@ -1246,13 +1682,19 @@ def main():
     smi = phase_device()
     device = 'cuda'
     phase_build()
+    if sys.argv[1:] == ['--grid-precision']:
+        phase_grid_precision(device, smi)
+        print(smi)
+        return
     max_abs, times = phase_kernel_vs_plain(device)
     serving_counts, atat = phase_serving(device, smi)
     main_path = [phase_golden(device), serving_counts, phase_md(device)]
     train_counts, ethanol = phase_train(device, smi)
-    cg_counts, splits = phase_cg(device, ethanol, smi)
+    cg_counts, splits, aspirin_cg = phase_cg(device, ethanol, smi)
     cli_counts = phase_cli(device, ethanol, atat, splits[1]['solver_iters'], smi)
-    main_path += [train_counts, cg_counts, cli_counts]
+    grid_counts, grid_split_ = phase_grid(device, ethanol, aspirin_cg, smi)
+    splits.append(grid_split_)
+    main_path += [train_counts, cg_counts, cli_counts, grid_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]

@@ -3,8 +3,9 @@
 Symmetric Gradient Domain Machine Learning (sGDML) reconstructs
 energy-conserving molecular force fields by kernel ridge regression in the
 gradient domain. This package trains models (symmetry discovery, then a
-dense kernel assembly and an f64 Cholesky solve, or Nystrom-preconditioned
-CG for systems past the dense bound) and serves them -- batched energy and
+dense kernel assembly and an f64 Cholesky solve; past the dense bound an
+f32 block-grid Cholesky with f64 refinement CG, or Nystrom-preconditioned
+CG) and serves them -- batched energy and
 force prediction and molecular dynamics -- with PyTorch tensors; the command
 line ``sgdml-tpu-torch`` (``cli.py``) runs the whole workflow. Every
 engine runs on the GPU (``device='cuda'``) unless the caller asks for the

@@ -28,6 +28,8 @@ The Jacobian Gram term uses the closed form of :func:`gram_maps` (one
 descriptor per off-diagonal atom block), so full ``(D, 3N)`` Jacobians are
 never formed for the force-force blocks.
 
+:func:`assemble_kernel_grid` assembles ``A = -K`` block by block into the
+packed triangle of ``ops/blockchol.py`` (the analytic solver's grid route).
 :func:`assemble_kernel_columns` assembles a column subset ``K[:, cols]`` for
 the iterative solver's Nystrom preconditioner, in the matmul form of
 :func:`column_force_tile`, written row tile by row tile into a preallocated
@@ -43,6 +45,7 @@ import math
 import numpy as np
 import torch
 
+from ._precision import _true_f32
 from .descriptor import incidence
 
 __all__ = [
@@ -51,6 +54,7 @@ __all__ = [
     'TILE_BUDGET_BYTES',
     'assemble_kernel',
     'assemble_kernel_columns',
+    'assemble_kernel_grid',
     'column_force_tile',
     'column_tables',
     'column_tile_rows',
@@ -393,6 +397,56 @@ def assemble_kernel(
             ee = _value_tile(X[j0:j1], Xit, sig).reshape(j1 - j0, i1 - i0, n_perms).sum(2)
             K[n_f + i0:n_f + i1, n_f + j0:n_f + j1] = ee.T
     return K
+
+
+def assemble_kernel_grid(
+    R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, dtype=torch.float32,
+    tile_i: int | None = None, tile_j: int | None = None, mm: str = 'native',
+):
+    """Assemble ``A = -K`` (force block only) into the block-grid packed
+    triangle of ``ops/blockchol.py``, on the inputs' device, in ``dtype``.
+
+    ``spec.n`` counts ``m_pad >= M`` points of ``3N`` rows each and
+    ``spec.b`` must be a multiple of ``3N``. Rows and columns of the padded
+    points are zero, and the padded diagonal is 1, so the padded system
+    stays SPD. Each ``(b, b)`` block is written tile by tile (``tile_i`` x
+    ``tile_j`` points, default :func:`default_tile_sizes` in ``dtype``,
+    capped at the block's points; edge tiles are smaller). float32 blocks
+    are computed from float32 descriptors with TF32 off. Same layout and
+    values as ``sgdml_tpu.ops.kernel.assemble_kernel_grid``; only
+    ``mm='native'`` is ported.
+    """
+    _check_mm(mm)
+    dim_i = 3 * n_atoms
+    if spec.b % dim_i != 0:
+        raise ValueError('grid blocks must be aligned to 3*n_atoms')
+    m = R_desc.shape[0]
+    b_pts = spec.b // dim_i
+    X, Jc = R_desc.to(dtype), R_d_desc.to(dtype)
+    key = _perms_key(desc_perms)
+    if tile_i is None or tile_j is None:
+        ti, tj = default_tile_sizes(spec.n // dim_i, n_atoms, key[1][0], X.element_size())
+        tile_i, tile_j = tile_i or ti, tile_j or tj
+    tile_i, tile_j = min(tile_i, b_pts), min(tile_j, b_pts)
+    consts = _tile_constants(key, n_atoms, X.device, dtype)
+    Xp, Jcp = perm_tables(X, Jc, desc_perms)
+
+    def block(bi, bj):
+        out = torch.zeros((spec.b, spec.b), dtype=dtype, device=X.device)
+        p0, q0 = bi * b_pts, bj * b_pts
+        for i0 in range(p0, min(m, p0 + b_pts), tile_i):
+            i1 = min(m, p0 + b_pts, i0 + tile_i)
+            for j0 in range(q0, min(m, q0 + b_pts), tile_j):
+                j1 = min(m, q0 + b_pts, j0 + tile_j)
+                blk = _perm_summed_tile(X[i0:i1], Jc[i0:i1], Xp[j0:j1], Jcp[j0:j1], sig, *consts)
+                out[(i0 - p0) * dim_i:(i1 - p0) * dim_i, (j0 - q0) * dim_i:(j1 - q0) * dim_i].view(
+                    i1 - i0, n_atoms, 3, j1 - j0, n_atoms, 3).copy_(blk.permute(0, 2, 3, 1, 4, 5)).neg_()
+        if bi == bj and p0 + b_pts > m:
+            out.diagonal()[max(0, m - p0) * dim_i:] = 1.0
+        return out
+
+    with _true_f32(dtype):
+        return [[block(i, j) for j in range(i + 1)] for i in range(spec.k)]
 
 
 def column_tables(X, Jc, desc_perms, col_3n_idxs, n_atoms, s_perm):

@@ -20,7 +20,6 @@ come from the incidence-factorized Jacobian transpose.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -30,6 +29,7 @@ from . import resolve_device
 from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
 from .ops import fused_predict
+from .ops._precision import _true_f32
 from .utils import io
 
 __all__ = [
@@ -91,26 +91,6 @@ def center_tables(Xt, JA) -> Tables:
     Xt = (Xt - mu[None, :]).contiguous()
     JA = JA.contiguous()
     return Tables(mu, Xt, JA, torch.sum(Xt * Xt, dim=1), torch.sum(Xt * JA, dim=1))
-
-
-@contextlib.contextmanager
-def _true_f32(dtype):
-    """True-f32 matrix products for float32 inputs: TF32 keeps about three
-    decimal digits, which would erase the accuracy the centered Gram form
-    buys (the JAX package forces 'highest' precision for the same reason)."""
-    if dtype != torch.float32:
-        yield
-        return
-    prev = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
-    torch.set_float32_matmul_precision('highest')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        if torch.get_float32_matmul_precision() != 'highest' or torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError('could not switch float32 matmuls to full precision')
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev[0])
-        torch.backends.cuda.matmul.allow_tf32 = prev[1]
 
 
 def _check_mm(mm: str):

@@ -1,19 +1,35 @@
-"""Closed-form solver: dense f64 Cholesky factorization of the assembled
-kernel system on the device (reference behavior:
-sgdml/solvers/analytic.py:49-151).
+"""Closed-form solver: Cholesky factorization of the assembled kernel system
+on the device (reference behavior: sgdml/solvers/analytic.py:49-151).
 
 The assembled kernel K is negated to make the system convex, shifted by
-the ridge ``lam`` on its diagonal and factorized. The ladder mirrors the
-reference: Cholesky -> LU -> least squares (for non-square systems). A
-failed factorization shows as ``info != 0`` from
-``torch.linalg.cholesky_ex``, read once after the factor.
+the ridge ``lam`` on its diagonal and factorized. A failed factorization
+shows as ``info != 0`` from ``torch.linalg.cholesky_ex``, read once after
+the factor (once per block column on the grid route). Two routes, chosen
+by the device-memory budget:
 
-Memory: ``K`` is negated and shifted in place, so the factor is the only
-second ``n^2`` buffer. Of the analytic routes of ``sgdml_tpu`` only the dense
-one is ported; a system whose ``24 n^2`` bytes exceed the device's budget
-raises ``NotImplementedError``: the iterative solver
-(``solvers/iterative.py``, ``solver='cg'``) trains it, and the large-M
-analytic paths are ROADMAP queue 1 item 12.
+* **dense f64** (the system's ``24 n^2`` bytes fit): ``K`` is negated and
+  shifted in place, so the factor is the only second ``n^2`` buffer. The
+  ladder mirrors the reference: Cholesky -> LU -> least squares (for
+  non-square systems).
+* **f32 block-grid packed + refinement CG** (past the dense bound): the
+  force block of ``A = -K + lam' I`` is assembled straight into the f32
+  block-grid triangle of ``ops/blockchol.py`` (``3 n^2`` bytes with
+  transients, ``est_memory_grid``), factorized by a blocked Cholesky, and
+  used as the preconditioner of conjugate gradients on the TRUE f64
+  system, whose matvec is the matrix-free prediction pass
+  (``solvers/iterative._matvec_A``: on a GPU the fused (E, F) kernel).
+  ``lam'`` is raised along a ladder of multiples of ``lmax`` (found by
+  power iteration through the same matvec) just far enough for the f32
+  factorization to hold, which bounds the preconditioned condition number
+  by ``lam'/lam``. Energy constraints add a dense border through an exact
+  Schur-complement preconditioner.
+
+Same routes and results as ``sgdml_tpu.solvers.analytic`` on one device,
+where H100 measurements re-decided two TPU rules: dense f64 stays the
+route wherever it fits (the JAX package leaves it past 8,192 unknowns
+because the TPU emulates f64), and the region where the JAX package takes
+its pair-precision route (``lam < 1e-7 lmax``) takes the grid route with a
+log line, until ROADMAP queue 1 item 12b ports that route.
 """
 
 from __future__ import annotations
@@ -24,7 +40,12 @@ import timeit
 import numpy as np
 import torch
 
-from ..ops.kernel import assemble_kernel
+from ..ops import blockchol
+from ..ops.kernel import (
+    _grad_row_tile, _perms_key, _tile_constants, _value_tile, assemble_kernel, assemble_kernel_grid,
+    expand_perm_jacobian, perm_tables,
+)
+from ..utils.profiling import PhaseTimer
 
 __all__ = ['Analytic', 'memory_budget']
 
@@ -32,6 +53,18 @@ log = logging.getLogger(__name__)
 
 # Budget on the CPU, where no allocator reports what is free.
 CPU_BUDGET_BYTES = 12 * 1024**3
+
+PCG_MAX_ITERS = 2500
+PCG_RTOL = 1e-9  # relative residual target (reference CG stops at 1e-4)
+PCG_CHUNK_ITERS = 250  # refinement-CG iterations between host reports
+GRID_TARGET_BLOCK = 8192  # side of a grid block, in unknowns
+# The lam' ladder in units of lmax. The unshifted rung is skipped when lam <
+# 1e-7 lmax: an f32 factorization needs the smallest eigenvalue above about
+# n eps32 lmax.
+LAM_P_SHIFTS = (0.0, 3e-7, 3e-6, 3e-5, 3e-4, 3e-3)
+BORDER_TILE = 64  # energy columns a tile of the border assembly
+
+_F32, _F64 = torch.float32, torch.float64
 
 
 def memory_budget(device) -> int:
@@ -69,16 +102,198 @@ def _lu_solve_neg(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -torch.linalg.solve(A, y)
 
 
+# -- the f32 grid route -------------------------------------------------------
+
+
+def _lmax_power(tab, sig, lam, *, n_atoms, use_E_cstr=False, iters=12, v0=None) -> float:
+    """Largest eigenvalue of ``A = -K + lam I`` by ``iters`` power
+    iterations through the matrix-free matvec (``iters + 1`` prediction
+    passes over ``tab``, ``solvers/iterative.MatvecTables``; no matrix is
+    formed). The start vector is ``v0``, else a standard normal draw from a
+    CPU generator seeded 0: a constant vector is a rigid translation, an
+    exact null vector of the force kernel, from which the iteration would
+    return ``lam``. One host read, at the end."""
+    from .iterative import _matvec_A
+
+    m = tab.X.shape[0]
+    n = m * 3 * n_atoms + (m if use_E_cstr else 0)
+    if v0 is None:
+        v0 = torch.randn(n, generator=torch.Generator().manual_seed(0), dtype=_F64)
+    v = torch.as_tensor(v0, dtype=tab.X.dtype).to(tab.X.device)
+    v = v / torch.linalg.vector_norm(v)
+
+    def mv(v):
+        return _matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+
+    for _ in range(iters):
+        w = mv(v)
+        v = w / torch.linalg.vector_norm(w)
+    return float(v @ mv(v))
+
+
+def _assemble_ee_A(X, sig, lam_p, desc_perms, tile=BORDER_TILE):
+    """Energy-energy border block of ``A = -K + lam' I``:
+    ``Aee[i, j] = sum_p k(x_i, x_j^p) + lam' delta_ij`` (the negation of the
+    assembled ee kernel block, sgdml/train.py:298-300), ``(M, M)``, tiled
+    over the columns."""
+    m, dim_d = X.shape
+    dp = torch.as_tensor(np.asarray(desc_perms), dtype=torch.int64, device=X.device)
+    Xp = X[:, dp]  # (M, P, D)
+    out = torch.empty((m, m), dtype=X.dtype, device=X.device)
+    for j0 in range(0, m, tile):
+        j1 = min(m, j0 + tile)
+        ee = _value_tile(X, Xp[j0:j1].reshape(-1, dim_d), sig)  # -k, (M, t P)
+        torch.neg(ee.view(m, j1 - j0, -1).sum(2), out=out[:, j0:j1])
+    out.diagonal().add_(lam_p)
+    return out
+
+
+def _assemble_fe_A(X, Jc, sig, desc_perms, n_atoms, tile=BORDER_TILE):
+    """Force-rows x energy-columns border of ``A = -K``:
+    ``A_fe[(i, x), j] = -grad_x k(x_j, x_i^p)^T J_i`` summed over the
+    permutations (the negation of the assembled ef kernel border, same tile
+    math as ``assemble_kernel``'s E blocks; reference sgdml/train.py:251-265),
+    ``(M 3N, M)``, tiled over the energy columns."""
+    m, dim_d = X.shape
+    dim_i = 3 * n_atoms
+    key = _perms_key(desc_perms)
+    n_perms = key[1][0]
+    s_perm = _tile_constants(key, n_atoms, X.device, X.dtype)[1]
+    Xp, Jcp = perm_tables(X, Jc, desc_perms)
+    Jit = expand_perm_jacobian(Jcp, s_perm).reshape(m * n_perms, dim_d, dim_i)
+    Xit = Xp.reshape(m * n_perms, dim_d)
+    out = torch.empty((m * dim_i, m), dtype=X.dtype, device=X.device)
+    for j0 in range(0, m, tile):
+        j1 = min(m, j0 + tile)
+        ef = _grad_row_tile(X[j0:j1], Xit, Jit, sig).view(j1 - j0, m, n_perms, dim_i).sum(2)
+        torch.neg(ef.permute(1, 2, 0).reshape(m * dim_i, j1 - j0), out=out[:, j0:j1])
+    return out
+
+
+def _border_M_apply(M_ff, G, Ls, n_f):
+    """Exact bordered (Schur-complement) preconditioner apply:
+
+        M = [[P_ff, A_fe], [A_ef, Aee + lam']],
+        G = P_ff^{-1} A_fe,   S = Aee + lam' - A_ef G,   Ls = chol(S)
+
+        M^{-1} v = [P_ff^{-1} v_f - G z_e;  z_e],
+        z_e = S^{-1} (v_e - G^T v_f)
+
+    ``G`` in the dtype of ``v``. Symmetric PSD by construction, and exact for
+    the lam'-shifted bordered matrix up to the factor's precision, so the
+    preconditioned condition number keeps the lam'/lam bound (a
+    block-diagonal variant that dropped the coupling stalled at ~1e-5
+    relative residual, as the JAX package records)."""
+
+    def M_apply(v):
+        vf, ve = v[:n_f], v[n_f:]
+        zf0 = M_ff(vf)
+        ze = torch.cholesky_solve((ve - G.mT @ vf)[:, None], Ls)[:, 0]
+        return torch.cat([zf0 - G @ ze, ze])
+
+    return M_apply
+
+
+def _border_pieces_grid(L32, A_fe, Aee):
+    """Bordered-preconditioner pieces for the f32 grid factor:
+    ``G = P_ff^{-1} A_fe`` (f32, multi-RHS block-triangular solves) and
+    ``Ls = chol(Aee + lam' - A_ef G)`` (f64)."""
+    n_f, m = A_fe.shape
+    n_pad = len(L32) * L32[0][0].shape[0]
+    B = torch.zeros((n_pad, m), dtype=_F32, device=A_fe.device)
+    B[:n_f] = A_fe
+    G = blockchol.solve_grid(L32, B)[:n_f]
+    S = Aee - A_fe.mT @ G.to(Aee.dtype)
+    Ls, info = torch.linalg.cholesky_ex(S)
+    if int(info) != 0:
+        raise RuntimeError(
+            'the energy-constraint Schur complement is not positive definite at this lam\'; '
+            'try a different sigma or a larger regularization')
+    return G, Ls
+
+
+def _grid_operators(L32, G, Ls, tab, sig, lam, *, n_atoms, n, use_E_cstr):
+    """``(A_apply, M_apply)`` of the refinement CG: the matrix-free f64
+    matvec, and the preconditioner, which pads to the grid's side, solves
+    in f32 through ``L32`` and casts back (through the exact border with
+    ``G``, ``Ls`` when ``use_E_cstr``)."""
+    from .iterative import _matvec_A
+
+    m = tab.X.shape[0]
+    n_f = n - (m if use_E_cstr else 0)
+    n_pad = len(L32) * L32[0][0].shape[0]
+
+    def A_apply(v):
+        return _matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+
+    def M_ff(v):
+        vp = torch.zeros(n_pad, dtype=_F32, device=v.device)
+        vp[:n_f] = v
+        return blockchol.solve_grid(L32, vp)[:n_f].to(v.dtype)
+
+    return A_apply, (_border_M_apply(M_ff, G.to(_F64), Ls, n_f) if use_E_cstr else M_ff)
+
+
+def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters):
+    """One chunk of at most ``max_iters`` conjugate-gradient iterations on
+    the f64 system, preconditioned by ``M_apply``.
+
+    state: ``(x, r, z, p, rz, it)`` on the device (``it`` is ignored and
+    restarts at 0). Iteration ``i`` commits only while ``active``: the
+    residual norm above ``rtol * b_norm`` and finite, as the JAX package's
+    ``while_loop`` tests it, so ``it`` counts the iterations that loop
+    takes (a step that makes the residual non-finite is committed and
+    ends the chunk, as there). The host reads ``active`` every
+    ``CG_ACTIVE_READ_ITERS`` iterations and ends an inactive chunk there.
+    Returns ``(state, |r|)``.
+    """
+    from .iterative import CG_ACTIVE_READ_ITERS
+
+    x, r, z, p, rz, _ = state
+    thresh = rtol * b_norm
+    it = torch.zeros((), dtype=torch.int64, device=x.device)
+    rn = torch.linalg.vector_norm(r)
+    active = (rn > thresh) & torch.isfinite(rn)
+    for i in range(max_iters):
+        if i % CG_ACTIVE_READ_ITERS == 0 and not bool(active):
+            break
+        Ap = A_apply(p)
+        alpha = rz / (p @ Ap)
+        r_new = r - alpha * Ap
+        z_new = M_apply(r_new)
+        rz_new = r_new @ z_new
+        p_new = z_new + (rz_new / rz) * p
+        x = torch.where(active, x + alpha * p, x)
+        r = torch.where(active, r_new, r)
+        z = torch.where(active, z_new, z)
+        p = torch.where(active, p_new, p)
+        rz = torch.where(active, rz_new, rz)
+        it += active
+        rn = torch.linalg.vector_norm(r_new)
+        active = active & (rn > thresh) & torch.isfinite(rn)
+    return (x, r, z, p, rz, it), torch.linalg.vector_norm(r)
+
+
 class Analytic:
     """Closed-form training on the device of its inputs.
 
     Parameters
     ----------
     gdml_train: the calling trainer (kept for API parity).
-    callback: optional progress callback (unused by the dense route).
+    callback: optional progress callback (unused by both routes).
     mesh: multi-device solves are not ported; must be None.
-    max_memory: budget in GB; None takes :func:`memory_budget` of the
-        inputs' device.
+    max_memory: budget in GB for the route choice; None takes
+        :func:`memory_budget` of the inputs' device.
+
+    After :meth:`solve`, ``timer.durations`` holds the seconds of the
+    route's phases, each ended by a device synchronization: ``'assembly'``
+    and ``'cholesky'`` on the dense route; ``'lmax'``, ``'assembly'`` and
+    ``'factor'`` (summed over the lam' ladder's rungs), ``'border'`` (with
+    energy constraints) and ``'cg'`` on the grid route. ``t_assemble`` is
+    everything before the solve proper and ``t_solve`` the rest. The grid
+    route also sets ``lmax``, ``rungs`` (``(lam', info)`` of each rung
+    tried; ``info`` 0 where the factor held), ``lam_p_used`` and
+    ``pcg_iters``.
     """
 
     def __init__(self, gdml_train=None, callback=None, mesh=None,
@@ -89,10 +304,12 @@ class Analytic:
         self.callback = callback
         self._max_memory = max_memory
         self.t_assemble = self.t_solve = None
+        self.timer = PhaseTimer()
 
     def solve(self, task, R_desc, R_d_desc, desc_perms, y):
-        """Assemble ``K``, solve ``(-K + lam I) x = y`` and return
-        ``alphas = -x`` as a tensor on the inputs' device.
+        """Solve ``(-K + lam I) x = y`` and return ``alphas = -x`` as a
+        tensor on the inputs' device: densely when the system's ``24 n^2``
+        bytes fit the budget, else by the f32 grid route.
 
         R_desc: ``(M, D)``, R_d_desc: ``(M, D, 3)`` tensors on the device.
         desc_perms: ``(P, D)`` host ints. y: ``(n,)`` labels.
@@ -101,6 +318,7 @@ class Analytic:
         lam = float(np.squeeze(task['lam']))
         use_E_cstr = bool(task.get('use_E_cstr', False))
         device = R_desc.device
+        self.timer = timer = PhaseTimer(device)
 
         n_train, dim_d = R_d_desc.shape[:2]
         n_atoms = int((1 + np.sqrt(8 * dim_d + 1)) / 2)
@@ -108,35 +326,145 @@ class Analytic:
                   else self._max_memory * 1024**3)
         need = Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr)
         if need > budget:
-            raise NotImplementedError(
-                'the dense analytic system of %d training points (%.1f GB) does not fit the '
-                "budget of %.1f GB; solver='cg' (the iterative solver) trains it, and the large-M "
-                'analytic paths are ROADMAP queue 1 item 12' % (n_train, need / 1e9, budget / 1e9))
+            return self._solve_grid_pcg(task, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, budget=budget)
 
-        def sync():
-            if device.type == 'cuda':
-                torch.cuda.synchronize(device)
-
-        t0 = timeit.default_timer()
-        K = assemble_kernel(R_desc, R_d_desc, desc_perms, sig, n_atoms, use_E_cstr=use_E_cstr)
-        sync()
-        self.t_assemble = timeit.default_timer() - t0
+        with timer.phase('assembly'):
+            K = assemble_kernel(R_desc, R_d_desc, desc_perms, sig, n_atoms, use_E_cstr=use_E_cstr)
+        self.t_assemble = timer.durations['assembly']
         log.info('Assembled %dx%d kernel in %.2f s', K.shape[0], K.shape[1], self.t_assemble)
 
         y = torch.as_tensor(y, dtype=K.dtype, device=device)
-        t0 = timeit.default_timer()
-        if K.shape[0] == K.shape[1]:
-            A = _neg_shift_(K, lam)
-            alphas, ok = _cho_solve_neg(A, y)
-            if not ok:
-                log.warning('Cholesky factorization failed (not PSD at lam=%g); falling back to LU.', lam)
-                alphas = _lu_solve_neg(A, y)
-        else:
-            alphas = -torch.linalg.lstsq(-K, y[:, None]).solution[:, 0]
-        sync()
-        self.t_solve = timeit.default_timer() - t0
+        with timer.phase('cholesky'):
+            if K.shape[0] == K.shape[1]:
+                A = _neg_shift_(K, lam)
+                alphas, ok = _cho_solve_neg(A, y)
+                if not ok:
+                    log.warning('Cholesky factorization failed (not PSD at lam=%g); falling back to LU.', lam)
+                    alphas = _lu_solve_neg(A, y)
+            else:
+                alphas = -torch.linalg.lstsq(-K, y[:, None]).solution[:, 0]
+        self.t_solve = timer.durations['cholesky']
         log.info('Solved %d-dim linear system in %.2f s', K.shape[0], self.t_solve)
         return alphas
+
+    def _solve_grid_pcg(self, task, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, lmax=None, budget=None):
+        """Large-system closed-form solve: f32 block-grid Cholesky
+        preconditioner + f64 matrix-free refinement CG (module docstring).
+        ``lmax`` is found by power iteration unless given. With ``budget``
+        (bytes), where the JAX package would take its pair route (``lam <
+        1e-7 lmax`` and :meth:`est_memory_pair` within the budget), one
+        line names ROADMAP item 12b. Returns ``alphas = -x`` as a float64
+        tensor on the inputs' device."""
+        from .iterative import matvec_tables
+
+        use_E_cstr = bool(task.get('use_E_cstr', False))
+        timer = self.timer
+        dim_i = 3 * n_atoms
+        m = R_desc.shape[0]
+        m_pad = -(-m // 8) * 8
+        spec = blockchol.grid_spec(m_pad * dim_i, target_block=GRID_TARGET_BLOCK, align=dim_i)
+        X, Jc = R_desc.to(_F64), R_d_desc.to(_F64)
+        y = torch.as_tensor(y, dtype=_F64, device=X.device)
+        tab = matvec_tables(X, Jc, desc_perms)
+        if lmax is None:
+            with timer.phase('lmax'):
+                lmax = _lmax_power(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+        if budget is not None and lam < 1e-7 * lmax and Analytic.est_memory_pair(m, n_atoms) <= budget:
+            log.info(
+                "lam=%g < 1e-7 lmax (lmax=%.3e): the JAX package takes its pair-precision route here, "
+                "ROADMAP queue 1 item 12b (not ported); taking the f32 grid route.", lam, lmax)
+
+        # lam' ladder: raise the preconditioner shift until the f32
+        # factorization holds. The preconditioned condition number is
+        # bounded by lam'/lam, so CG always converges; when lam' == lam it
+        # converges in a handful of iterations.
+        shifts = LAM_P_SHIFTS[1:] if lam < 1e-7 * lmax else LAM_P_SHIFTS
+        L32, lam_p_used, self.rungs = None, None, []
+        for shift in shifts:
+            lam_p = max(lam, shift * lmax)
+            with timer.phase('assembly'):
+                A32 = blockchol.grid_diag_add(
+                    assemble_kernel_grid(X, Jc, desc_perms, sig, n_atoms, spec, dtype=_F32), lam_p)
+            with timer.phase('factor'):
+                L, info = blockchol.chol_grid(A32)  # in place: L is A32
+            self.rungs.append((lam_p, info))
+            if info == 0:
+                L32, lam_p_used = L, lam_p
+                break
+            log.debug("grid rung lam'=%g: the f32 factorization failed at order %d.", lam_p, info)
+            del A32, L  # free the failed factor before the next assembly
+        if L32 is None:
+            raise RuntimeError(
+                'f32 block Cholesky failed even with a strong diagonal '
+                'shift; the kernel matrix is numerically degenerate. '
+                'Try a different sigma.'
+            )
+        # Energy-constraint border: exact bordered preconditioner at the
+        # same lam' (Schur complement through the factor, _border_M_apply;
+        # reference coverage: sgdml/train.py:235-300).
+        G = Ls = None
+        if use_E_cstr:
+            with timer.phase('border'):
+                G, Ls = _border_pieces_grid(
+                    L32, _assemble_fe_A(X, Jc, sig, desc_perms, n_atoms),
+                    _assemble_ee_A(X, sig, lam_p_used, desc_perms))
+        self.lmax, self.lam_p_used = lmax, lam_p_used
+        self.t_assemble = sum(timer.durations.get(k, 0.0) for k in ('lmax', 'assembly', 'factor', 'border'))
+        log.info(
+            "Assembled+factorized %dx%d f32 packed triangle (%d x %d blocks) in %.2f s (lmax=%.3e, lam'=%g%s%s).",
+            spec.n, spec.n, spec.k, spec.k, self.t_assemble, lmax, lam_p_used,
+            '' if lam_p_used == lam else ' [shifted for f32 stability]',
+            ' [+%d-row E border]' % m if use_E_cstr else '',
+        )
+
+        A_apply, M_apply = _grid_operators(L32, G, Ls, tab, sig, lam, n_atoms=n_atoms, n=y.shape[0],
+                                           use_E_cstr=use_E_cstr)
+        b_norm = max(float(torch.linalg.vector_norm(y)), 1e-300)
+        iters, rel = 0, 1.0
+        # Best finite iterate across chunk boundaries: a numerical breakdown
+        # poisons the in-flight state with NaNs, and NaN comparisons being
+        # False would otherwise let the poisoned x through silently.
+        best_x, best_rel = None, np.inf
+        with timer.phase('cg'):
+            t0 = timeit.default_timer()
+            z0 = M_apply(y)
+            state = (torch.zeros_like(y), y, z0, z0, y @ z0, None)
+            for _ in range(-(-PCG_MAX_ITERS // PCG_CHUNK_ITERS)):
+                state, resid = _pcg_chol(state, A_apply, M_apply, b_norm, PCG_RTOL, max_iters=PCG_CHUNK_ITERS)
+                head = torch.stack([state[5].to(_F64), resid]).cpu()  # the chunk's one host read
+                it_done, rel = int(head[0]), float(head[1]) / b_norm
+                iters += it_done
+                if np.isfinite(rel) and rel < best_rel:
+                    best_x, best_rel = state[0], rel
+                log.info('Refinement CG: %d iterations, relative residual %.2e (%.1f s).',
+                         iters, rel, timeit.default_timer() - t0)
+                if not np.isfinite(rel) or rel <= PCG_RTOL or it_done < PCG_CHUNK_ITERS:
+                    break
+        if not np.isfinite(rel):
+            if best_x is None:
+                raise RuntimeError(
+                    'Refinement CG broke down numerically before producing '
+                    'a finite iterate (the f32 factor is unusable as a '
+                    'preconditioner). Try a different sigma or a larger '
+                    'regularization.'
+                )
+            log.warning(
+                'Refinement CG broke down numerically at iteration %d; '
+                'returning the best finite iterate (relative residual '
+                '%.2e).', iters, best_rel,
+            )
+            x, rel = best_x, best_rel
+        else:
+            x = state[0]
+        self.t_solve = timer.durations['cg']
+        if not (rel <= 1e-6):
+            log.warning(
+                'Refinement CG stopped at relative residual %.2e (target '
+                '%.0e); the solution may be slightly less accurate than a '
+                'direct f64 factorization.', rel, PCG_RTOL,
+            )
+        self.pcg_iters = iters
+        return -x
 
     @staticmethod
     def est_memory_requirement(n_train, n_atoms, use_E_cstr=False):
@@ -148,8 +476,19 @@ class Analytic:
 
     @staticmethod
     def est_memory_grid(n_train, n_atoms):
-        """Bytes the JAX package's f32 packed-triangle grid route needs
-        (``sgdml_tpu.solvers.analytic``; ROADMAP queue 1 item 12, not
-        ported): the trainer's solver choice follows that package's rule."""
+        """Bytes needed on the device for the f32 packed-triangle path:
+        packed triangle (n^2/2 f32) + top-level rectangle transients
+        (~n^2/4)."""
         n = (-(-n_train // 8) * 8) * 3 * n_atoms
-        return 3 * n**2
+        return 3 * n**2  # (2 + 1) * n^2 bytes
+
+    @staticmethod
+    def est_memory_pair(n_train, n_atoms):
+        """Bytes the JAX package's pair-precision path needs (7-slice int8
+        strips, 8-slice int8 leaf inverses and transients); the route
+        itself is ROADMAP queue 1 item 12b, and this estimate places the log
+        line that :meth:`solve` writes where that package would take it."""
+        dim_i = 3 * n_atoms
+        n = (-(-n_train // 8) * 8) * dim_i
+        spec = blockchol.grid_spec(n, target_block=4096, align=dim_i)
+        return int(3.5 * n**2 + 8 * n * spec.b + 3e8)

@@ -5,13 +5,15 @@ API and artifact layout mirror ``sgdml_tpu.train`` and the reference's
 with MD5 provenance and stratified train/validation splits; model dicts hold
 everything inference needs, in the file layout both packages read. Training
 runs in float64 on the trainer's device (the GPU unless the caller asks for
-the CPU): descriptors, then either the dense kernel assembly and its Cholesky
-solve or the Nystrom-preconditioned CG solver, the alpha-contracted Jacobians
-and the integration constant. On a GPU the prediction passes (every CG
-matvec, the integration constant) launch the fused (E, F) kernel.
+the CPU): descriptors, then the analytic solver (the dense kernel assembly
+and its Cholesky solve, or past the dense bound the f32 block-grid Cholesky
+and an f64 refinement CG) or the Nystrom-preconditioned CG solver, the
+alpha-contracted Jacobians and the integration constant. On a GPU the
+prediction passes (every CG matvec, the integration constant) launch the
+fused (E, F) kernel.
 
-The large-M analytic paths are ROADMAP queue 1 item 12 and multi-GPU item
-13; those routes raise ``NotImplementedError``.
+Multi-GPU training is ROADMAP queue 1 item 13 and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ class GDMLTrain:
         (``device='cpu'``); without a card the default raises.
 
     After :meth:`train`, ``times`` holds its seconds by phase and
-    ``'total'``; the dense solve is split into ``'assembly'`` and
-    ``'cholesky'``, the CG solve into ``'leverage scores'``, ``'factor'`` and
+    ``'total'``; the analytic solve is split as ``Analytic.timer`` splits it
+    (dense: ``'assembly'`` and ``'cholesky'``; grid: ``'lmax'``,
+    ``'assembly'``, ``'factor'``, ``'border'`` with energy constraints, and
+    ``'cg'``), the CG solve into ``'leverage scores'``, ``'factor'`` and
     ``'cg'``.
     """
 
@@ -265,13 +269,11 @@ class GDMLTrain:
         """Train a model from a task dict.
 
         Solver selection follows the JAX package's (itself the reference's
-        memory heuristic, sgdml/train.py:949-971): the dense analytic solve
-        when its ``24 n^2`` bytes fit the budget, Nystrom-preconditioned CG
-        when not even the JAX package's f32 grid route would fit. Between the
-        two that package takes the grid route, which is not ported (ROADMAP
-        queue 1 item 12): ``solver=None`` raises there, and ``solver='cg'``
-        trains such a system. Pass ``solver='analytic'`` or ``'cg'`` to
-        override. ``solver_max_seconds`` bounds the CG wall clock (an
+        memory heuristic, sgdml/train.py:949-971): the analytic solver when
+        the dense system's ``24 n^2`` bytes or the f32 grid route's ``3 n^2``
+        fit the budget (it takes the dense route where that fits),
+        Nystrom-preconditioned CG otherwise. Pass ``solver='analytic'`` or
+        ``'cg'`` to override. ``solver_max_seconds`` bounds the CG wall clock (an
         unconverged model is returned, and flagged); ``save_progr_callback``
         receives CG checkpoints; ``factor_slices`` is validated as in the JAX
         package and used only by its int8 factor (item 11).
@@ -285,15 +287,9 @@ class GDMLTrain:
         if solver is None:
             budget = (memory_budget(self.device) if self._max_memory is None
                       else self._max_memory * 1024**3)
-            if Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr) < budget:
-                solver = 'analytic'
-            elif Analytic.est_memory_grid(n_train, n_atoms) < budget:
-                raise NotImplementedError(
-                    'the dense system of %d training points does not fit the budget of %.1f GB, where the '
-                    "JAX package takes its f32 grid route (ROADMAP queue 1 item 12, not ported); "
-                    "solver='cg' trains this system" % (n_train, budget / 1e9))
-            else:
-                solver = 'cg'
+            use_analytic = (Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr) < budget
+                            or Analytic.est_memory_grid(n_train, n_atoms) < budget)
+            solver = 'analytic' if use_analytic else 'cg'
         if solver not in ('analytic', 'cg'):
             raise ValueError("solver must be None, 'analytic' or 'cg', got %r" % (solver,))
 
@@ -325,7 +321,7 @@ class GDMLTrain:
             analytic = Analytic(self, callback=callback, max_memory=self._max_memory)
             with timer.phase('solve (analytic: assembly + Cholesky)'):
                 alphas = analytic.solve(task, R_desc, R_d_desc, dperms, y)
-            solve_times = {'assembly': analytic.t_assemble, 'cholesky': analytic.t_solve}
+            solve_times = dict(analytic.timer.durations)
         else:
             log.info('Using iterative solver (Nystrom-preconditioned CG).')
             iterative = Iterative(self, callback=callback, max_memory=self._max_memory,

@@ -1,7 +1,8 @@
 """The port's dense analytic solve (solvers/analytic.py) on the CPU against
 the JAX package: the Cholesky rung, the LU rung on a system that is not
-positive definite, the whole solve, and the routes that are not ported
-(the large-M analytic paths, multi-GPU)."""
+positive definite, the whole solve, the grid route past the dense bound
+(tests/test_torch_analytic_grid.py holds it to the JAX package) and the
+route that is not ported (multi-GPU)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,20 +79,23 @@ def test_routes_that_are_not_ported_raise():
     ds = generate_md_dataset(n_atoms=4, n_frames=30, seed=0)
     X, Jc = desc_ops.descriptor_batch(torch.as_tensor(ds['R'][:5]), 4)
     dperms = desc_perm_table(np.arange(4)[None])
-    with pytest.raises(NotImplementedError, match="solver='cg'.*ROADMAP queue 1 item 12"):
-        analytic.Analytic(max_memory=1e-6).solve({'sig': 2.0, 'lam': 1e-8}, X, Jc, dperms, np.zeros(60))
+    # Past the dense bound the solve takes the f32 grid route (item 12a).
+    y = np.random.default_rng(2).normal(size=60)
+    grid = analytic.Analytic(max_memory=1e-6)
+    alphas = grid.solve({'sig': 2.0, 'lam': 1e-8}, X, Jc, dperms, y)
+    assert grid.pcg_iters > 0 and torch.isfinite(alphas).all() and alphas.shape == (60,)
     with pytest.raises(NotImplementedError, match='item 13'):
         analytic.Analytic(mesh=object())
 
     trainer = GDMLTrain(device='cpu')
     np.random.seed(0)
     task = trainer.create_task(ds, 5, ds, 5, sig=2.0, use_sym=False)
-    # The JAX package's f32 grid route (item 12) fits 5e-5 GB here, the
-    # dense route does not; solver='cg' trains the system.
-    with pytest.raises(NotImplementedError, match="item 12.*solver='cg'"):
-        GDMLTrain(max_memory=5e-5, device='cpu').train(task)
-    with pytest.raises(NotImplementedError, match="solver='cg'.*item 12"):
-        GDMLTrain(max_memory=1e-6, device='cpu').train(task, solver='analytic')
+    # The f32 grid route fits 5e-5 GB here, the dense route does not:
+    # solver=None takes it, as the JAX package does; solver='analytic' takes
+    # it even below its bound, and solver='cg' is CG.
+    for max_memory, solver in ((5e-5, None), (1e-6, 'analytic')):
+        model = GDMLTrain(max_memory=max_memory, device='cpu').train(task, solver=solver)
+        assert model['solver_name'] == 'analytic' and 'solver_iters' not in model
     assert GDMLTrain(max_memory=1e-6, device='cpu').train(task, solver='cg')['solver_name'] == 'cg'
     with pytest.raises(ValueError):
         trainer.train(task, solver='lu')

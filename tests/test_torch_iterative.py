@@ -495,22 +495,19 @@ def _jax_choice(n_train, n_atoms, budget, use_E_cstr):
 
 @pytest.mark.parametrize('max_memory,expect', [(None, 'analytic'), (1e-3, 'grid'), (1e-4, 'cg')])
 def test_solver_none_follows_the_jax_rule(ds, max_memory, expect):
-    """solver=None: dense fits -> analytic; where the JAX package would take
-    its f32 grid route (item 12) -> NotImplementedError that points to
-    solver='cg'; else CG. The budget is memory_budget(device) by default."""
+    """solver=None: dense fits -> analytic, dense route; where only the f32
+    grid route fits -> analytic, grid route (item 12a), as the JAX package
+    chooses; else CG. The budget is memory_budget(device) by default."""
     task = _task(ds, 24, 41)
     budget = 12 * 1024**3 if max_memory is None else max_memory * 1024**3
     dense = Analytic.est_memory_requirement(24, N_ATOMS) < budget
     assert _jax_choice(24, N_ATOMS, budget, False) == ('cg' if expect == 'cg' else 'analytic')
     assert dense == (expect == 'analytic')
     trainer = GDMLTrain(max_memory=max_memory, device='cpu')
-    if expect == 'grid':
-        with pytest.raises(NotImplementedError, match=r"item 12.*solver='cg'"):
-            trainer.train(task)
-        return
     model = trainer.train(task)
-    assert model['solver_name'] == expect
+    assert model['solver_name'] == ('cg' if expect == 'cg' else 'analytic')
     assert ('solver_iters' in model) == (expect == 'cg')
+    assert ('lmax' in trainer.times) == (expect == 'grid')
 
 
 def test_memory_model_matches_jax():

@@ -50,7 +50,7 @@ def test_importing_the_port_loads_no_jax():
         'import sys, sgdml_tpu_torch, sgdml_tpu_torch.predict, sgdml_tpu_torch.md, '
         'sgdml_tpu_torch.models, sgdml_tpu_torch.datasets.synthetic, '
         'sgdml_tpu_torch.ops.fused_predict, sgdml_tpu_torch.ops._build, sgdml_tpu_torch.train, '
-        'sgdml_tpu_torch.perm, sgdml_tpu_torch.solvers.analytic, sgdml_tpu_torch.ops.kernel, '
+        'sgdml_tpu_torch.perm, sgdml_tpu_torch.solvers.analytic, sgdml_tpu_torch.ops.kernel, sgdml_tpu_torch.ops.blockchol, '
         'sgdml_tpu_torch.utils.profiling, sgdml_tpu_torch.utils.io, sgdml_tpu_torch.utils.ui, '
         'sgdml_tpu_torch.cli, sgdml_tpu_torch.tune, sgdml_tpu_torch.intf.ase_calc, sgdml_tpu_torch.download, '
         'sgdml_tpu_torch.scripts.dataset_from_aims, sgdml_tpu_torch.scripts.dataset_from_extxyz, '
