@@ -6,7 +6,10 @@ Run from the repository root, with one card and no arguments:
 
 ``python3 chip_smoke.py --grid-precision`` runs phases 1-2 and then only
 the comparison of the grid route's preconditioner built five ways on phase
-10a's system (``phase_grid_precision``).
+10a's system (``phase_grid_precision``); ``--stack-apply`` phases 1-2 and
+then the slice-stack apply's int8 products in each layout they could take
+(``phase_stack_apply``); ``--atat-factors`` phases 1-2 and then phase 8d's
+task by CG with each factor and first matvec rung (``phase_atat_factors``).
 
 It imports only the port (``sgdml_tpu_torch``), builds its CUDA kernels from
 ``sgdml_tpu_torch/csrc/`` into ``build/kernels/``, and runs these phases,
@@ -90,10 +93,31 @@ each a plain assertion that ends the run with a traceback when it fails:
    against its plain version on the solve's tables, the grid solve and its
    leaf triangular solves); (b) phase 8c's aspirin task by the grid route, against 8c's CG
    model; (c) energy constraints on a small ethanol task forced onto the
-   grid route by ``max_memory``, against the dense model.
+   grid route by ``max_memory``, against the dense model;
+11. the int8 Ozaki routes (``ops/ozaki.py``; ``Iterative(factor_mode=
+   'ozaki')``): (a) ``ozaki._int8_mm`` bit for bit against the float64
+   product of the same int8 values at the route's shapes (the slice-stack
+   apply both ways, one Gram chunk, the prediction products at the AT-AT
+   width, a ragged shape that needs every padding), each timed beside
+   ``torch.matmul`` on the float64 operands; the splits on the card against
+   the CPU bit for bit; ``ozaki_gemm_nt``, ``matvec_sliced`` and
+   ``matvec_sliced_long`` (and ``_t``) on the card against the CPU (1e-14);
+   (b) the CG matvec's rungs ``ozaki``, ``ozaki8`` and ``ozaki10`` against
+   ``native`` (K1) at the AT-AT and aspirin CG widths, errors beside 2^-6N
+   and times beside K1's; (c) phase 8c's aspirin task and (d) phase 8d's
+   AT-AT task trained again through ``train()`` with the slice-stack factor
+   at the card's free memory (automatic slices; 11d also at 8 slices): k,
+   the slices, the stack, the build's sweeps, iterations, the peak and the
+   re-measured residual beside 8c's and 8d's; 11c must converge to 8c's MAE
+   bound and agree with 8c's model; both 11d runs must take a larger k than
+   8d, and the 8-slice run's residual must fall (at lam 1e-10 the 6-slice
+   stack that automatic slices pick keeps it above its start in 60 s).
+   Each times an iteration's parts alone (the matvec at its rung, K1 at the
+   same shape, held against its plain version on the solve's tables, and
+   the slice-stack apply).
 
-Phases 4-10 are the main path: each sets the launch counts to 0 before it
-drives the path (phases 8-10 before each training run, solve or command)
+Phases 4-11 are the main path: each sets the launch counts to 0 before it
+drives the path (phases 8-11 before each training run, solve or command)
 and reads them right after. The last two lines are the kernels' JSON record
 and ``{"ok": true, ...}``.
 """
@@ -101,6 +125,7 @@ and ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import logging
@@ -119,7 +144,8 @@ from sgdml_tpu_torch import cli, perm, tune
 from sgdml_tpu_torch.datasets.synthetic import generate_md_dataset, generate_symmetric_md_dataset
 from sgdml_tpu_torch.intf import ase_calc
 from sgdml_tpu_torch.md import MDEngine
-from sgdml_tpu_torch.ops import _build, blockchol, fused_predict
+from sgdml_tpu_torch import train as train_mod
+from sgdml_tpu_torch.ops import _build, blockchol, fused_predict, ozaki
 from sgdml_tpu_torch.ops import kernel as kernel_ops
 from sgdml_tpu_torch.ops import descriptor as desc_ops
 from sgdml_tpu_torch.ops._precision import _true_f32
@@ -244,9 +270,27 @@ GRID_FACTOR_SHIFT_TOL = 0.075
 GRID_EIG_STEPS = 30
 GRID_ECSTR = (400, 1.0, 1e-8, 1e-7)
 
-# H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s) and
-# HBM3 bandwidth, for K1's bound.
+# Phase 11: the AT-AT and aspirin widths of 11b's matvec rungs (B = T = M,
+# D, N), the rungs, and 11a's bound on the card's Ozaki products against the
+# CPU's (max |delta| over max |value|: the same int32 sums, float64 sums of
+# them in another order).
+OZAKI_WIDTHS = {'AT-AT': (3000, 1770, 60), 'aspirin': (1000, 210, 21)}
+OZAKI_RUNGS = ('ozaki', 'ozaki8', 'ozaki10')
+OZAKI_DEVICE_TOL = 1e-14
+# 11d's 8-slice run must take the re-measured residual below this share of
+# its start within 8d's wall budget (on the H100: 0.85 after 600 iterations
+# at k=54 and 68.5 GB; the 6-slice stack, k=70, stayed at 1.0).
+OZAKI_ATAT_FALL = 0.95
+# ``--atat-factors``: the CG seconds of each of its five solves and the
+# budget in GB they share (what 11d had free when an earlier 11a-11c run
+# still held memory).
+ATAT_FACTOR_SECONDS, ATAT_FACTOR_GB = 40.0, 68.5
+
+# H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s),
+# dense int8 tensor-core peak (1,979 TOP/s) and HBM3 bandwidth, for the
+# bounds of K1 and of the int8 products.
 H100_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
+H100_INT8_OPS = 1979e12
 
 
 def rel_err(ours, ref):
@@ -973,7 +1017,7 @@ def phase_cg_atat(device, card):
         print('    AT-AT column assembly (%d x %d, %.1f GB) at the %s tile budget: %d rows a tile (%d tiles), '
               '%.3f and %.3f s in turns (%s)' % (r['n'], len(idxs), r['n'] * len(idxs) * 8 / 1e9, name, ti,
                                                 -(-m // ti), *secs[name], card))
-    return r['during'], split, None
+    return r['during'], split, r
 
 
 def phase_cg(device, ethanol, card):
@@ -991,7 +1035,7 @@ def phase_cg(device, ethanol, card):
     print('[8 cg] anchor within %d%% of the JAX CPU f64 counts; ethanol CG agrees with the dense model; aspirin '
           '(63,000 unknowns) converged; AT-AT (540,000 unknowns) ran at the memory cap; launches %s; %.1f s' % (
               100 * CG_ANCHOR_TOL[0], counts, time.perf_counter() - t0))
-    return counts, splits, recipes[2]
+    return counts, splits, recipes[2], recipes[3]
 
 
 @contextlib.contextmanager
@@ -1560,10 +1604,11 @@ def cli_cg_resume(device, ds_path, ethanol, cold_iters, card):
 class Records(logging.Handler):
     def __init__(self):
         super().__init__(logging.INFO)
-        self.messages = []
+        self.messages, self.records = [], []
 
     def emit(self, record):
         self.messages.append(record.getMessage())
+        self.records.append(record)
 
 
 def cli_tuner(device, model, card):
@@ -1667,6 +1712,378 @@ def phase_cli(device, ethanol, atat_model, cold_iters, card):
     return counts
 
 
+def int8_bound(m, k, n):
+    """(ms, 'bytes' or 'operations'): the least time of an (m, k) x (k, n)
+    int8 product with an int32 result on an H100 SXM."""
+    t_ops = 2.0 * m * k * n / H100_INT8_OPS * 1e3
+    t_bytes = (m * k + k * n + 4 * m * n) / H100_BYTES_PER_S * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def int8_operands(m, k, n, device, seed, b_layout='rows'):
+    """Random int8 operands of the slices' range; ``b_layout`` 'cols' gives a
+    column-major ``b`` (the route's vector slices and Gram operands),
+    'chunk^T' also ``a`` as the transpose of a column chunk of a wider
+    matrix (a slice of the stack, read in place)."""
+    g = torch.Generator(device='cpu').manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randint(-96, 97, shape, generator=g, dtype=torch.int8).to(device)
+
+    if b_layout == 'chunk^T':  # a column chunk of a wider slice, read as A^T; b column-major
+        return draw(k, 3 * m)[:, m:2 * m].T, draw(n, k).T
+    a = draw(m, k)
+    if b_layout == 'cols':
+        return a, draw(n, k).T
+    return a, draw(k, n)
+
+
+def phase_ozaki_products(device, card):
+    """11a: the int8 product, the splits and the Ozaki functions on the card.
+    Returns the AT-AT plan (slices, k) at the card's free memory."""
+    budget = memory_budget(device)
+    ns, k = it_mod.Iterative(max_memory=budget / 1024**3, device=device).resolve_factor_slices(3000, 60)
+    kcols, stride = -(-k * 180 // 16) * 16, -(-45 * 180 // 16) * 16  # the AT-AT stack's rows and chunk
+    n_ch = -(-3000 // 45)  # the stack's chunks; the last column is how many products of the kind a CG
+    # iteration launches at the 'ozaki' rung (the Gram chunk's are the build's; the transposed apply's take
+    # a slice's whole width)
+    cases = [
+        ('stack apply F v: %d slices x %d rows, one chunk, against the 8 vector slices and 8 zero columns' % (
+            ns, kcols), (ns * kcols, stride, 16, 'cols'), n_ch),
+        ('stack apply F^T w: a slice\'s chunk, column-major, against the 8 vector slices (the route takes a '
+         'slice\'s whole width at once)', (stride, kcols, 8, 'chunk^T'), ns),
+        ('Gram chunk: one slice of Y (k x 8,100) against another, transposed', (kcols, stride, kcols, 'cols'), 0),
+        ('predict Xq Xt^T and Xq JA^T (D 1,770 -> 1,776): one slice against 6', (3000, 1776, 6 * 3000, 'cols'), 12),
+        ('predict w1 Xt and w2 JA (T 3,000 -> 3,008): one slice against 6', (3000, 3008, 6 * 1776, 'cols'), 12),
+        ('ragged: 5 rows, inner 1,770, 3 columns (every padding)', (5, 1770, 3, 'rows'), 0),
+    ]
+    for i, (label, (m, kk, n, layout), per_use) in enumerate(cases):
+        a, b = int8_operands(m, kk, n, device, seed=i, b_layout=layout)
+        out = ozaki._int8_mm(a, b)
+        a64, b64 = a.double(), b.double()
+        exact = torch.equal(out.double(), a64 @ b64)
+        ms, mm_ms = time_pair(lambda: ozaki._int8_mm(a, b), lambda: a64 @ b64)
+        b_ms, b_by = int8_bound(m, kk, n)
+        print('    _int8_mm %-74s (%d, %d) x (%d, %d): exact %s; %.3f ms (%.1f TOP/s; bound %.4f ms by %s, %.1f%%) vs '
+              'torch.matmul f64 %.3f ms (%.1f TFLOP/s); %d of the kind a CG iteration (%s)' % (
+                  label, m, kk, kk, n, exact, ms, 2e-9 * m * kk * n / ms, b_ms, b_by, 100 * b_ms / ms, mm_ms,
+                  2e-9 * m * kk * n / mm_ms, per_use, card))
+        assert exact and out.shape == (m, n) and out.dtype == torch.int32, label
+        del a, b, a64, b64, out
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3000, 1770)) * np.exp(3.0 * rng.standard_normal((3000, 1)))
+    xs = {d: torch.as_tensor(x, device=d) for d in (device, 'cpu')}
+    pairs = {d: (v.float(), (v - v.float().double()).float()) for d, v in xs.items()}
+    for name, fn in (('split_pair_int8 (6 slices)', lambda d: ozaki.split_pair_int8(*pairs[d], 6)),
+                     ('split_global_int8 (8 slices)', lambda d: ozaki.split_global_int8(xs[d], 8))):
+        (s_d, sig_d), (s_c, sig_c) = fn(device), fn('cpu')
+        assert torch.equal(s_d.cpu(), s_c) and torch.equal(sig_d.cpu(), sig_c), name
+    errs = {}
+    A = torch.as_tensor(rng.standard_normal((2000, 4 * stride)))
+    parts = [ozaki.split_global_int8(A[:, c * stride:(c + 1) * stride], ns) for c in range(4)]
+    stack, sig = torch.cat([p[0] for p in parts], 2), torch.stack([p[1] for p in parts])
+    v, w = torch.as_tensor(rng.standard_normal(4 * stride)), torch.as_tensor(rng.standard_normal(2000))
+    sa, sga = ozaki.split_global_int8(A[:, :800])
+    funcs = {
+        'ozaki_gemm_nt': lambda d: ozaki.ozaki_gemm_nt(pairs[d][0][:500], pairs[d][0][500:1100],
+                                                        lo_a=pairs[d][1][:500], lo_b=pairs[d][1][500:1100]),
+        'matvec_sliced': lambda d: ozaki.matvec_sliced(sa.to(d), sga.to(d), v[:800].to(d)),
+        'matvec_sliced transposed': lambda d: ozaki.matvec_sliced(sa.to(d), sga.to(d), w[:, None].to(d),
+                                                                  transpose=True),
+        'matvec_sliced_long': lambda d: ozaki.matvec_sliced_long(stack.to(d), sig.to(d), v.to(d), chunk=stride),
+        'matvec_sliced_long_t': lambda d: ozaki.matvec_sliced_long_t(stack.to(d), sig.to(d), w.to(d), chunk=stride),
+    }
+    for name, fn in funcs.items():
+        errs[name] = rel_err(fn(device).cpu(), fn('cpu'))
+    print('    splits of a (3000, 1770) f64 matrix on the card equal the CPU\'s bit for bit; against the CPU: %s '
+          '(bound %.0e)' % (', '.join('%s %.1e' % kv for kv in errs.items()), OZAKI_DEVICE_TOL))
+    assert max(errs.values()) <= OZAKI_DEVICE_TOL, errs
+    return ns, k
+
+
+def phase_ozaki_ladder(device, card):
+    """11b: the CG matvec at each Ozaki rung against 'native' (K1) at the
+    AT-AT and aspirin CG widths, on descriptors drawn as bench.py draws
+    them; these launches are not counted."""
+    for label, (m, D, n_atoms) in OZAKI_WIDTHS.items():
+        rng = np.random.default_rng(m)
+        X = torch.as_tensor(0.3 + rng.random((m, D)), device=device)
+        Jc = torch.as_tensor(rng.normal(size=(m, D, 3)) * 1e-2, device=device)
+        tab = it_mod.matvec_tables(X, Jc, np.arange(D)[None])
+        v = torch.as_tensor(rng.normal(size=m * 3 * n_atoms), device=device)
+        sig = math.sqrt(5.0 * D / 6.0) / 2.0
+
+        def mv(mm):
+            return it_mod._matvec_A(v, tab, sig, 0.0, n_atoms=n_atoms, use_E_cstr=False, mm=mm)
+
+        ref = mv('native')
+        line = []
+        for rung in OZAKI_RUNGS:
+            ns = int(rung[5:] or 6)
+            err = rel_err(mv(rung), ref)
+            ms, native_ms = time_pair(lambda: mv(rung), lambda: mv('native'))
+            line.append('%s %.2e (2^-6N %.1e) %.3f ms vs native %.3f ms' % (rung, err, 2.0 ** (-6 * ns), ms,
+                                                                          native_ms))
+            # Far below f32 (the products cancel in F_d, so not 2^-6N itself).
+            assert err <= 1e-6, (label, rung, err)
+        print('    matvec rungs at the %s CG width B=T=%d D=%d: %s (%s)' % (label, m, D, '; '.join(line), card))
+
+
+@contextlib.contextmanager
+def ozaki_factor():
+    """``train()`` builds its solver with ``factor_mode='ozaki'``; yields the
+    solvers made, each keeping the last slice stack it built (``factor``)
+    and the solver's log records."""
+    made, records = [], Records()
+
+    class OzakiIterative(it_mod.Iterative):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, factor_mode='ozaki', **kw)
+            self.factor = None
+            made.append(self)
+
+        def _build_factor_streamed(self, *args, **kw):
+            self.factor = None
+            self.factor, lev = super()._build_factor_streamed(*args, **kw)
+            return self.factor, lev
+
+    logger = logging.getLogger(it_mod.__name__)
+    level = logger.level
+    logger.addHandler(records)
+    logger.setLevel(logging.INFO)
+    saved, train_mod.Iterative = train_mod.Iterative, OzakiIterative
+    try:
+        yield made, records
+    finally:
+        train_mod.Iterative = saved
+        logger.removeHandler(records)
+        logger.setLevel(level)
+
+
+def ozaki_recipe(device, r, max_seconds, slices=None):
+    """Phase 8's task ``r`` trained again through ``train()`` with the slice-
+    stack factor (``slices``: None reads the default, automatic), at the
+    budget the card has free now; the run's counts, peak, re-measured
+    residual and what the solver logged."""
+    gc.collect()  # an earlier run's solvers and stack sit in a reference cycle (their class closes over `made`)
+    budget = memory_budget(device)
+    trainer = GDMLTrain(max_memory=budget / 1024**3, device=device)
+    n_atoms = r['task']['R_train'].shape[1]
+    with ozaki_factor() as (made, records):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_predict.reset_launches()
+        model = trainer.train(r['task'], solver='cg', solver_max_seconds=max_seconds, factor_slices=slices)
+        during, per_it = cg_launches(model['solver_iters'])
+        peak = torch.cuda.max_memory_allocated()
+    solver = made[-1]
+    build = [rec.args for rec in records.records if rec.msg.startswith('Streamed slice-stack factor')][-1]
+    rungs = [rec.args[2] for rec in records.records if 'escalating' in rec.msg]
+    return dict(model=model, times=trainer.times, peak=peak, during=during, per_it=per_it, budget=budget,
+                k=len(model['inducing_pts_idxs']) // (3 * n_atoms), ns=solver._ns(), factor=solver.factor,
+                resid=true_resid(model, r['X'], r['Jc'], r['dperms'], r['y'], n_atoms),
+                capped=[m for m in records.messages if 'capped at' in m], rung=(rungs or ['ozaki'])[-1],
+                sweeps=dict(zip(('W', 'Gram', 'F', 'renorm'), build[-4:])), stack_gb=build[3])
+
+
+def ozaki_split(label, r, o, card):
+    """Device ms of one iteration's parts at an ``ozaki_recipe`` run's shapes,
+    each alone: the matvec at the rung it reached, K1 at the same shape
+    (held against its plain version on one matvec's inputs, then timed in
+    turns with it), and the slice-stack apply. Returns K1's entry for the
+    kernels line."""
+    X, Jc, dperms = r['X'], r['Jc'], r['dperms']
+    sig, lam = float(r['task']['sig']), float(r['task']['lam'])
+    n_atoms = r['task']['R_train'].shape[1]
+    tab = it_mod.matvec_tables(X, Jc, dperms)
+    v = torch.as_tensor(np.random.default_rng(0).normal(size=r['n']), device=X.device)
+    JA = desc_ops.jac_dot_vec(Jc, v.reshape(-1, 3 * n_atoms), n_atoms)[:, tab.dp].reshape(-1, X.shape[1])
+    JA = JA.contiguous()
+    args = (X - tab.mu, tab.Xt, JA, tab.xt_sq, torch.sum(tab.Xt * JA, dim=1), None, sig)
+    B, D, T = X.shape[0], X.shape[1], tab.Xt.shape[0]
+    kernel = lambda: fused_predict.fused_predict_tables(*args)  # noqa: E731
+    plain = lambda: fused_predict.fused_predict_tables_reference(*args)  # noqa: E731
+    max_abs = check('CG matvec %s (slice stack) B=%d T=%d D=%d f64' % (label, B, T, D), kernel, plain,
+                    TOL[torch.float64])
+    k1_ms, plain_ms = time_pair(kernel, plain)
+    F = o['factor']
+    mv_ms, apply_ms = time_pair(
+        lambda: it_mod._matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=False, mm=o['rung']),
+        lambda: it_mod._precond(F, v, lam))
+    b_ms, b_by = bound(B, T, D, 8)
+    s_bytes = F.s.numel()
+    print('    %s slice-stack iteration parts (k=%d, %d slices, stack %.2f GB): matvec at %r %.3f ms; K1 at B=%d T=%d '
+          'D=%d f64 %.3f ms vs plain %.3f ms, bound %.4f ms by %s (%.1f%%); slice-stack apply %.3f ms (reads the '
+          'stack twice, %.0f GB/s) (%s)' % (
+              label, o['k'], o['ns'], s_bytes / 1e9, o['rung'], mv_ms, B, T, D, k1_ms, plain_ms, b_ms, b_by,
+              100 * b_ms / k1_ms, apply_ms, 2 * s_bytes / apply_ms * 1e-6, card))
+    return {'label': label + ' (slice stack)', 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms,
+            'bound_ms': b_ms, 'bound_by': b_by, 'max_abs_err': max_abs, 'k': o['k'], 'slices': o['ns'],
+            'matvec_rung': o['rung'], 'matvec_ms': mv_ms, 'apply_ms': apply_ms}
+
+
+def ozaki_line(label, o):
+    t = o['times']
+    return ('%s by the slice stack: budget %.1f GB, %d slices, k=%d%s, stack %.2f GB, factor %.2f s (sweeps of the '
+            'factor\'s build: W %.2f, Gram %.2f, F %.2f, renormalization %.2f s), leverage scores %.2f s, %d iterations '
+            'in %.2f s of CG (%.2f iterations/s), rung reached %r, train() %.2f s, peak allocated %.2f GB' % (
+                label, o['budget'] / 1e9, o['ns'], o['k'], ' (%s)' % '; '.join(o['capped']) if o['capped'] else '',
+                o['stack_gb'], t['factor'], *(o['sweeps'][key] for key in ('W', 'Gram', 'F', 'renorm')),
+                t['leverage scores'], o['model']['solver_iters'], t['cg'], o['model']['solver_iters'] / t['cg'],
+                o['rung'], t['total'], o['peak'] / 1e9))
+
+
+def phase_ozaki_aspirin(device, aspirin_cg, card):
+    """11c: phase 8c's aspirin task with the slice-stack factor: it must
+    converge, to 8c's MAE bound and to 8c's model."""
+    r = aspirin_cg
+    o = ozaki_recipe(device, r, CG_ASPIRIN_SECONDS)
+    model, c8 = o['model'], r['model']
+    tol_b = model['solver_tol'] * model['norm_y_train']
+    conv = model['solver_resid'] <= tol_b
+    drift = abs(o['resid'] - model['solver_resid']) / o['resid']
+    R, F_ref, _ = held_out(r['ds'], r['task'], 500)
+    _, F = GDMLPredict(model, device=device).predict(R)
+    _, F8 = GDMLPredict(c8, device=device).predict(R)
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    f_rel = float(np.abs(F - F8).mean() / np.abs(F8).mean())
+    print('    %s; converged %s, recorded resid %.3e, re-measured by the plain matvec %.3e (drift %.2e; target %.3e); '
+          'held-out force MAE %.5f (bound %.4f) on %d frames, mean |dF| / mean |F| against 8c\'s model %.2e (bound '
+          '%.0e); 8c (f64 factor): k=%d, %d iterations, train() %.2f s, peak %.2f GB; K1 %.2f launches an iteration %s '
+          '(%s)' % (
+              ozaki_line('aspirin M=%d' % len(r['task']['idxs_train']), o), conv, model['solver_resid'], o['resid'],
+              drift, tol_b, mae, CG_MAE_SHARE * scale, len(R), f_rel, CG_DENSE_BOUNDS[0], r['k'], c8['solver_iters'],
+              r['times']['total'], r['peak'] / 1e9, o['per_it'], o['during'], card))
+    assert conv and o['resid'] <= tol_b and drift <= it_mod.RESID_REPLACE_DRIFT, (conv, o['resid'], tol_b, drift)
+    assert mae < CG_MAE_SHARE * scale and f_rel < CG_DENSE_BOUNDS[0], (mae, scale, f_rel)
+    split = ozaki_split('aspirin', r, o, card)
+    split['solver_iters'] = int(model['solver_iters'])
+    return o['during'], split
+
+
+def phase_ozaki_atat(device, atat_cg, card, slices):
+    """11d: phase 8d's AT-AT task with the slice-stack factor under 8d's wall
+    budget, at ``slices`` (None: automatic): a larger k than 8d's, and with
+    ``fall`` a residual re-measured below its start (``OZAKI_ATAT_FALL``)."""
+    r = atat_cg
+    o = ozaki_recipe(device, r, CG_ATAT_SECONDS, slices)
+    model, c8 = o['model'], r['model']
+    drift = abs(o['resid'] - model['solver_resid']) / o['resid']
+    print('    %s; residual %.4e -> %.4e (target %.3e), re-measured by the plain matvec %.4e (drift %.2e, bound %.0e); '
+          '8d (f64 factor) after its %.0f s: k=%d, %d iterations (%.2f iterations/s), residual %.4e; K1 %.2f launches '
+          'an iteration %s (%s)' % (
+              ozaki_line('AT-AT M=%d' % len(r['task']['idxs_train']), o), model['norm_y_train'],
+              model['solver_resid'], model['solver_tol'] * model['norm_y_train'], o['resid'], drift,
+              it_mod.RESID_REPLACE_DRIFT, CG_ATAT_SECONDS, r['k'], c8['solver_iters'],
+              c8['solver_iters'] / r['times']['cg'], c8['solver_resid'], o['per_it'], o['during'], card))
+    assert o['k'] > r['k'] and drift <= it_mod.RESID_REPLACE_DRIFT, (o['k'], r['k'], drift)
+    if slices == 8:
+        assert o['resid'] < OZAKI_ATAT_FALL * model['norm_y_train'], (o['resid'], model['norm_y_train'])
+    split = ozaki_split('AT-AT %d slices' % o['ns'], r, o, card)
+    split['solver_iters'] = int(model['solver_iters'])
+    return o['during'], split
+
+
+def phase_ozaki(device, aspirin_cg, atat_cg, card):
+    """11: the int8 Ozaki routes; K1 runs in every residual replacement, the
+    first residual, the integration constant and the 'native' rung."""
+    t0 = time.perf_counter()
+    ns, k = phase_ozaki_products(device, card)
+    phase_ozaki_ladder(device, card)
+    counts = dict.fromkeys(launch_counts(), 0)
+    splits = []
+    for run in (lambda: phase_ozaki_aspirin(device, aspirin_cg, card),
+                lambda: phase_ozaki_atat(device, atat_cg, card, None),
+                lambda: phase_ozaki_atat(device, atat_cg, card, 8)):
+        during, split = run()
+        counts = {key: counts[key] + during[key] for key in counts}
+        splits.append(split)
+    assert counts['total'] > 0, counts
+    print('[11 ozaki] int8 products exact at the route\'s shapes; splits and products on the card = the CPU\'s; the '
+          'slice stack trained aspirin to 8c\'s model and AT-AT at k=%d (%d slices) and k=%d (8 slices, its residual '
+          'fell) > 8d\'s (11a\'s plan at its budget: %d slices, k=%d); launches %s; %.1f s' % (
+              splits[1]['k'], splits[1]['slices'], splits[2]['k'], ns, k, counts, time.perf_counter() - t0))
+    return counts, splits
+
+
+def phase_stack_apply(device, card):
+    """``--stack-apply``: the slice-stack apply's int8 products in the
+    layouts ``ozaki.matvec_sliced_long`` and ``_t`` could take, at the AT-AT
+    stack that 11a's plan gives the card's free memory (random slices), each
+    over one pass of the stack, with its GB/s against the bytes bound; then
+    ``_gram_apply`` on that stack, which reads it twice."""
+    ns, k = it_mod.Iterative(max_memory=memory_budget(device) / 1024**3, device=device).resolve_factor_slices(3000, 60)
+    rows, ch, n_ch = -(-k * 180 // 16) * 16, -(-45 * 180 // 16) * 16, -(-3000 // 45)
+    g = torch.Generator(device=device).manual_seed(0)
+    stack = torch.randint(-96, 97, (ns, rows, n_ch * ch), dtype=torch.int8, device=device, generator=g)
+    sv = torch.randint(-96, 97, (16, n_ch * ch), dtype=torch.int8, device=device, generator=g)
+    w = torch.zeros((24, rows), dtype=torch.int8, device=device)
+    w[:8] = torch.randint(-96, 97, (8, rows), dtype=torch.int8, device=device, generator=g)
+    wc = w[:8].contiguous().T  # a column-major (rows, 8)
+    flat = stack.view(ns * rows, -1)
+    one_pass = stack.numel() / H100_BYTES_PER_S * 1e3
+    print('    stack-apply layouts: %d slices x %d rows x %d columns (k=%d), %.2f GB, one pass at least %.3f ms (%s)' % (
+        ns, rows, stack.shape[2], k, stack.numel() / 1e9, one_pass, card))
+    variants = (
+        ('F v, per chunk: (S rows, chunk) x column-major (chunk, 8)',
+         lambda: [torch._int_mm(flat[:, c * ch:(c + 1) * ch], sv[:8, c * ch:(c + 1) * ch].T) for c in range(n_ch)]),
+        ('F v, per chunk: (S rows, chunk) x column-major (chunk, 16), 8 zero columns [the route]',
+         lambda: [torch._int_mm(flat[:, c * ch:(c + 1) * ch], sv[:, c * ch:(c + 1) * ch].T) for c in range(n_ch)]),
+        ('F^T w, per slice and chunk: (24, rows) x (rows, chunk) [the JAX layout]',
+         lambda: [torch._int_mm(w, stack[i, :, c * ch:(c + 1) * ch]) for i in range(ns) for c in range(n_ch)]),
+        ('F^T w, per slice: (24, rows) x (rows, width)', lambda: [torch._int_mm(w, stack[i]) for i in range(ns)]),
+        ('F^T w, per slice: column-major (width, rows) x column-major (rows, 8) [the route]',
+         lambda: [torch._int_mm(stack[i].T, wc) for i in range(ns)]),
+    )
+    for label, fn in variants:
+        fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 3)
+        print('      %-88s %9.3f ms, %5.0f GB/s, %4.1f%% of the bytes bound' % (
+            label, ms, stack.numel() / ms * 1e-6, 100 * one_pass / ms))
+    del sv, w, wc
+    F = it_mod.SliceFactor(stack, torch.ones(n_ch, device=device), ch, rows)
+    v = torch.as_tensor(np.random.default_rng(0).normal(size=n_ch * ch), device=device)
+    it_mod._gram_apply(F, v)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: it_mod._gram_apply(F, v), 3)
+    print('      %-88s %9.3f ms, %5.0f GB/s, %4.1f%% of the bytes bound (%s)' % (
+        'the apply F^T (F v) (it_mod._gram_apply; reads the stack twice)', ms, 2 * stack.numel() / ms * 1e-6,
+        200 * one_pass / ms, card))
+
+
+def phase_atat_factors(device, card):
+    """``--atat-factors``: phase 8d's AT-AT task solved by CG for
+    ``ATAT_FACTOR_SECONDS`` each with the 6-slice stack (automatic slices),
+    the 8-slice stack and the f64 factor, the stacks' matvec started on the
+    ``'ozaki'`` rung (the default) and on ``'native'`` (K1), at one budget
+    (``ATAT_FACTOR_GB``); the CG log, one line a chunk."""
+    n_atoms, n_frames, seed, split, n_valid, m, sig, lam = CG_ATAT
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
+    gb = ATAT_FACTOR_GB * 1e9 / 1024**3
+    trainer = GDMLTrain(max_memory=gb, device=device)
+    task = trainer.create_task(ds, m, ds, n_valid, sig=sig, lam=lam, use_sym=False, rng=np.random.RandomState(split))
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    logger = logging.getLogger(it_mod.__name__)
+    handler = logging.StreamHandler(sys.stdout)
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    for mode, slices, rung in (('ozaki', 'auto', 'ozaki'), ('ozaki', 'auto', 'native'), ('ozaki', 8, 'ozaki'),
+                               ('ozaki', 8, 'native'), ('f64', 'auto', 'native')):
+        solver = it_mod.Iterative(trainer, max_memory=gb, factor_mode=mode, factor_slices=slices, device=device)
+        t0 = time.perf_counter()
+        _, _, iters, resid, _, idxs, _ = solver.solve(dict(task, solver_mv_mm=rung), X, Jc, dperms, y, 1.0,
+                                                      max_seconds=ATAT_FACTOR_SECONDS)
+        print('    AT-AT factor %s, %s slices (%d), first matvec rung %r: k=%d, %d iterations in %.0f s of CG, '
+              'residual %.4e -> %.4e; %.1f s (%s)' % (
+                  mode, slices, solver._ns(), rung, len(idxs) // (3 * n_atoms), iters, ATAT_FACTOR_SECONDS,
+                  np.linalg.norm(y), resid, time.perf_counter() - t0, card), flush=True)
+        del solver
+        gc.collect()
+    logger.removeHandler(handler)
+
+
 def bound(B, T, D, itemsize):
     """(ms, 'bytes' or 'operations'): the least time of one contraction on
     an H100 SXM: 8 B T D operations at 67 TFLOP/s (FP64 tensor core and FP32
@@ -1686,15 +2103,25 @@ def main():
         phase_grid_precision(device, smi)
         print(smi)
         return
+    if sys.argv[1:] == ['--atat-factors']:
+        phase_atat_factors(device, smi)
+        print(smi)
+        return
+    if sys.argv[1:] == ['--stack-apply']:
+        phase_stack_apply(device, smi)
+        print(smi)
+        return
     max_abs, times = phase_kernel_vs_plain(device)
     serving_counts, atat = phase_serving(device, smi)
     main_path = [phase_golden(device), serving_counts, phase_md(device)]
     train_counts, ethanol = phase_train(device, smi)
-    cg_counts, splits, aspirin_cg = phase_cg(device, ethanol, smi)
+    cg_counts, splits, aspirin_cg, atat_cg = phase_cg(device, ethanol, smi)
     cli_counts = phase_cli(device, ethanol, atat, splits[1]['solver_iters'], smi)
     grid_counts, grid_split_ = phase_grid(device, ethanol, aspirin_cg, smi)
     splits.append(grid_split_)
-    main_path += [train_counts, cg_counts, cli_counts, grid_counts]
+    ozaki_counts, ozaki_splits = phase_ozaki(device, aspirin_cg, atat_cg, smi)
+    splits += ozaki_splits
+    main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]

@@ -130,19 +130,21 @@ def _device_args(x):
     return index, torch.cuda.current_stream(x.device).cuda_stream
 
 
-def fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, with_forces=True):
+def fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, with_forces=True, matmul=torch.matmul):
     """Plain PyTorch version of the kernel, line for line with
     ``sgdml_tpu/predict.py:158-186`` after the centering.
 
     Xq ``(B, D)`` and Xt ``(T, D)`` are centered on the table mean; JA
     ``(T, D)``; ``xt_sq = |Xt|^2`` and ``tja = <Xt, JA>`` per table row
     ``(T,)``; alphas_E_lin ``(T,)`` or None. Returns ``E_raw (B,)`` and
-    ``F_d (B, D)`` (None without forces).
+    ``F_d (B, D)`` (None without forces). ``matmul`` computes the five
+    ``(B, T)``-sized products (``torch.matmul`` by default; the Ozaki rungs
+    of ``predict_from_tables`` pass their int8 product).
     """
     sig = torch.as_tensor(sig, dtype=Xq.dtype, device=Xq.device)
 
     xq_sq = torch.sum(Xq * Xq, dim=1)  # (B,)
-    gram = Xq @ Xt.T  # (B, T)
+    gram = matmul(Xq, Xt.T)  # (B, T)
     u2 = torch.clamp_min(xq_sq[:, None] - 2.0 * gram + xt_sq[None, :], 0.0)
     u5 = _SQRT5 * torch.sqrt(u2)
 
@@ -150,7 +152,7 @@ def fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, wi
     b1 = (5.0 / (3.0 * sig**3)) * e  # gradient-kernel base
     w2 = b1 * (u5 + sig)
 
-    a = Xq @ JA.T - tja[None, :]  # (B, T): d.(J alpha), centering-invariant
+    a = matmul(Xq, JA.T) - tja[None, :]  # (B, T): d.(J alpha), centering-invariant
 
     E = torch.sum(a * w2, dim=1)
 
@@ -162,12 +164,12 @@ def fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, wi
         return E, None
 
     w1 = a * b1 * (5.0 / sig)
-    F_d = torch.sum(w1, dim=1)[:, None] * Xq - w1 @ Xt  # (B, D)
-    F_d = F_d - w2 @ JA
+    F_d = torch.sum(w1, dim=1)[:, None] * Xq - matmul(w1, Xt)  # (B, D)
+    F_d = F_d - matmul(w2, JA)
 
     if alphas_E_lin is not None:
         w3 = w2 * alphas_E_lin[None, :]
-        F_d = F_d + torch.sum(w3, dim=1)[:, None] * Xq - w3 @ Xt
+        F_d = F_d + torch.sum(w3, dim=1)[:, None] * Xq - matmul(w3, Xt)
 
     return E, F_d
 

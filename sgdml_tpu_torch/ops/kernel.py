@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ._precision import _true_f32
+from . import ozaki
 from .descriptor import incidence
 
 __all__ = [
@@ -53,7 +54,9 @@ __all__ = [
     'Mat52Coeffs',
     'TILE_BUDGET_BYTES',
     'assemble_kernel',
+    'assemble_kernel_E_rows',
     'assemble_kernel_columns',
+    'assemble_kernel_columns_range',
     'assemble_kernel_grid',
     'column_force_tile',
     'column_tables',
@@ -229,18 +232,18 @@ def _tile_constants(desc_perms_key, n_atoms: int, device: torch.device, dtype: t
             ints(g_idx), floats(sgn), floats(a_diag), ints(diag_col))
 
 
-def _check_mm(mm: str):
-    if mm != 'native':
-        raise NotImplementedError(
-            "mm=%r: the int8 Ozaki products are ROADMAP queue 1 item 11 "
-            "(ops/ozaki.py and the int8 routes); only mm='native' is ported" % mm
-        )
+def _check_mm(mm: str, dtype):
+    if mm not in ('native', 'ozaki'):
+        raise ValueError("mm must be 'native' or 'ozaki', got %r" % (mm,))
+    if mm == 'ozaki' and dtype != torch.float64:
+        raise ValueError("mm='ozaki' takes float64 tiles (its products come out in float64), got %s" % dtype)
 
 
-def _perm_summed_tile(Xi, Jci, Xtp, Jctp, sig, s, s_perm, g_idx, sgn, a_diag, diag_col):
-    """Perm-summed Hessian blocks in the layout ``(I, T, N, 3, N, 3)``."""
+def _perm_summed_tile(Xi, Jci, Xtp, Jctp, sig, s, s_perm, g_idx, sgn, a_diag, diag_col, mm='native'):
+    """Perm-summed Hessian blocks in the layout ``(I, T, N, 3, N, 3)``;
+    ``mm='ozaki'`` takes the three D-contractions as Ozaki products."""
     dim_i, dim_t = Xi.shape[0], Xtp.shape[0]
-    n_atoms = s.shape[1]
+    dim_d, n_atoms = s.shape
     atom_ids = torch.arange(n_atoms, device=Xi.device)
     jci_t = Jci.transpose(1, 2)  # (I, 3, D)
     acc = None
@@ -250,12 +253,21 @@ def _perm_summed_tile(Xi, Jci, Xtp, Jctp, sig, s, s_perm, g_idx, sgn, a_diag, di
         b, cc = Mat52Coeffs.hess(_u5(d), sig)  # (I, T)
 
         # Gradient contractions through the incidence factorization.
-        a = torch.einsum('dm,itdc->itmc', s, Jci[:, None] * d[..., None])  # (I, T, N, 3)
-        c = torch.einsum('dn,itdc->itnc', s_perm[p], jct[None] * d[..., None])
-
+        wa = Jci[:, None] * d[..., None]  # (I, T, D, 3)
+        wc = jct[None] * d[..., None]
         # Diagonal-slot blocks: row reduction over the descriptors through m.
         t1 = a_diag[p][None, :, None, :] * jci_t[:, None, :, :]  # (I, N, 3, D)
-        t2 = torch.einsum('imad,tdb->itmab', t1, jct)  # (I, T, N, 3, 3)
+        if mm == 'ozaki':  # 7 slices, as sgdml_tpu/ops/kernel.py:256-263
+            oz = ozaki.ozaki_gemm_nt_f64
+            a = oz(wa.transpose(2, 3).reshape(-1, dim_d), s.T, 7).view(dim_i, dim_t, 3, n_atoms).transpose(2, 3)
+            c = oz(wc.transpose(2, 3).reshape(-1, dim_d), s_perm[p].T, 7).view(
+                dim_i, dim_t, 3, n_atoms).transpose(2, 3)
+            t2 = oz(t1.reshape(-1, dim_d), jct.transpose(1, 2).reshape(-1, dim_d), 7).view(
+                dim_i, n_atoms, 3, dim_t, 3).permute(0, 3, 1, 2, 4)
+        else:
+            a = torch.einsum('dm,itdc->itmc', s, wa)  # (I, T, N, 3)
+            c = torch.einsum('dn,itdc->itnc', s_perm[p], wc)
+            t2 = torch.einsum('imad,tdb->itmab', t1, jct)  # (I, T, N, 3, 3)
 
         # Off-diagonal blocks: one descriptor each -- gather, then outer
         # product; the diagonal slots are overwritten with t2.
@@ -285,13 +297,15 @@ def hessian_tile_compressed(
     Jacobians. Xtp: ``(T, P, D)`` permuted column descriptors. Jctp: ``(T, P,
     D, 3)`` permuted compressed column Jacobians. s: ``(D, N)`` incidence.
     s_perm: ``(P, D, N)`` permuted incidences. g_idx/sgn/a_diag/diag_col:
-    :func:`gram_maps` as tensors (index tables int64). Only ``mm='native'``
-    is ported.
+    :func:`gram_maps` as tensors (index tables int64). ``mm='ozaki'`` runs
+    the three D-contractions (the gradient contractions ``a``, ``c`` and the
+    diagonal-slot Gram ``t2``) as 7-slice Ozaki int8 products over (f32, f32)
+    pairs, on float64 tiles (``sgdml_tpu/ops/kernel.py:253-287``).
 
     Returns ``(I, 3N, T, 3N)``, summed over the permutations.
     """
-    _check_mm(mm)
-    acc = _perm_summed_tile(Xi, Jci, Xtp, Jctp, sig, s, s_perm, g_idx, sgn, a_diag, diag_col)
+    _check_mm(mm, Xi.dtype)
+    acc = _perm_summed_tile(Xi, Jci, Xtp, Jctp, sig, s, s_perm, g_idx, sgn, a_diag, diag_col, mm=mm)
     dim_i, dim_t, n_atoms = acc.shape[0], acc.shape[1], acc.shape[2]
     return acc.permute(0, 2, 3, 1, 4, 5).reshape(dim_i, 3 * n_atoms, dim_t, 3 * n_atoms)
 
@@ -412,11 +426,11 @@ def assemble_kernel_grid(
     stays SPD. Each ``(b, b)`` block is written tile by tile (``tile_i`` x
     ``tile_j`` points, default :func:`default_tile_sizes` in ``dtype``,
     capped at the block's points; edge tiles are smaller). float32 blocks
-    are computed from float32 descriptors with TF32 off. Same layout and
-    values as ``sgdml_tpu.ops.kernel.assemble_kernel_grid``; only
-    ``mm='native'`` is ported.
+    are computed from float32 descriptors with TF32 off. ``mm`` goes to
+    :func:`hessian_tile_compressed` (``'ozaki'`` takes float64). Same
+    layout and values as ``sgdml_tpu.ops.kernel.assemble_kernel_grid``.
     """
-    _check_mm(mm)
+    _check_mm(mm, dtype)
     dim_i = 3 * n_atoms
     if spec.b % dim_i != 0:
         raise ValueError('grid blocks must be aligned to 3*n_atoms')
@@ -438,7 +452,7 @@ def assemble_kernel_grid(
             i1 = min(m, p0 + b_pts, i0 + tile_i)
             for j0 in range(q0, min(m, q0 + b_pts), tile_j):
                 j1 = min(m, q0 + b_pts, j0 + tile_j)
-                blk = _perm_summed_tile(X[i0:i1], Jc[i0:i1], Xp[j0:j1], Jcp[j0:j1], sig, *consts)
+                blk = _perm_summed_tile(X[i0:i1], Jc[i0:i1], Xp[j0:j1], Jcp[j0:j1], sig, *consts, mm=mm)
                 out[(i0 - p0) * dim_i:(i1 - p0) * dim_i, (j0 - q0) * dim_i:(j1 - q0) * dim_i].view(
                     i1 - i0, n_atoms, 3, j1 - j0, n_atoms, 3).copy_(blk.permute(0, 2, 3, 1, 4, 5)).neg_()
         if bi == bj and p0 + b_pts > m:
@@ -562,3 +576,61 @@ def assemble_kernel_columns(
             # K[E_off + i, (j, q)] = -sum_p w(u) (d^T J_t[:, q]).
             K[n_f + i0:n_f + i1] = -torch.sum(Mat52Coeffs.grad(u5, sig) * cj, dim=2)
     return K
+
+
+def assemble_kernel_columns_range(
+    X, Jc, desc_perms, sig, n_atoms, col_3n_idxs, row_p0: int, row_cnt: int, m_real: int,
+    tile_i: int | None = None,
+):
+    """Force rows ``K[row_p0 3N : (row_p0 + row_cnt) 3N, cols]`` of the
+    kernel: one chunk of the streamed Nystrom build, whose full ``(n, k)``
+    column block never exists (``sgdml_tpu/ops/kernel.py:1047-1124``).
+
+    ``X``/``Jc`` hold at least the ``m_real`` real points; rows of points at
+    or past ``m_real`` (a sweep's padded tail) are zero and never read.
+    Returns ``(row_cnt 3N, len(cols))``, in row tiles of ``tile_i`` points
+    (default :func:`column_tile_rows`).
+    """
+    dim_i = 3 * n_atoms
+    n_cols = int(np.asarray(col_3n_idxs).shape[0])
+    key = _perms_key(desc_perms)
+    if tile_i is None:
+        tile_i = column_tile_rows(row_cnt, n_cols, n_atoms, key[1][0], X.element_size())
+    s_id, s_perm = _tile_constants(key, n_atoms, X.device, X.dtype)[:2]
+    Xjp, Jt_col = column_tables(X, Jc, desc_perms, col_3n_idxs, n_atoms, s_perm)
+    K = torch.zeros((row_cnt * dim_i, n_cols), dtype=X.dtype, device=X.device)
+    for i0 in range(row_p0, min(m_real, row_p0 + row_cnt), tile_i):
+        i1 = min(m_real, row_p0 + row_cnt, i0 + tile_i)
+        K[(i0 - row_p0) * dim_i:(i1 - row_p0) * dim_i] = column_force_tile(
+            X[i0:i1], Jc[i0:i1], Xjp, Jt_col, s_id, sig)[0]
+    return K
+
+
+def assemble_kernel_E_rows(R_desc, R_d_desc, desc_perms, sig, n_atoms, col_3n_idxs, tile_i: int = 64):
+    """The ``(M, k)`` energy-constraint rows of ``K[:, cols]`` for force
+    columns, ``K[E_off + i, (j, q)] = -sum_p w(u) (d^T J_t[:, q])``
+    (reference: sgdml/train.py:235-248), alone: the streamed build borders
+    its slice stack with them (``sgdml_tpu/ops/kernel.py:975-1044``).
+
+    In matmul form (``|x_i - x_c^p|^2`` and ``d^T J_t`` by norm expansion),
+    so no ``(I, C, P, D)`` difference tensor exists; row tiles of
+    ``tile_i`` points.
+    """
+    X = R_desc
+    m = X.shape[0]
+    s_perm = _tile_constants(_perms_key(desc_perms), n_atoms, X.device, X.dtype)[1]
+    Xjp, Jt_col = column_tables(X, R_d_desc, desc_perms, col_3n_idxs, n_atoms, s_perm)
+    n_cols, n_perms, dim_d = Xjp.shape
+    Xj_flat = Xjp.reshape(n_cols * n_perms, dim_d)
+    Jt_flat = Jt_col.reshape(n_cols * n_perms, dim_d)
+    Xj2 = torch.sum(Xjp * Xjp, dim=-1)  # (C, P)
+    jdot = torch.sum(Xjp * Jt_col, dim=-1)  # (C, P): x_c^p . J_t[:, q]
+    out = torch.empty((m, n_cols), dtype=X.dtype, device=X.device)
+    for i0 in range(0, m, tile_i):
+        Xi = X[i0:i0 + tile_i]
+        cross = (Xi @ Xj_flat.T).view(-1, n_cols, n_perms)
+        d2 = torch.sum(Xi * Xi, dim=-1)[:, None, None] + Xj2[None] - 2 * cross
+        w = Mat52Coeffs.grad(_SQRT5 * torch.sqrt(torch.clamp(d2, min=0.0)), sig)  # (I, C, P)
+        cj = (Xi @ Jt_flat.T).view(-1, n_cols, n_perms) - jdot[None]
+        out[i0:i0 + tile_i] = -torch.sum(w * cj, dim=-1)
+    return out

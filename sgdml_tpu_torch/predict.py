@@ -28,7 +28,7 @@ import torch
 from . import resolve_device
 from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
-from .ops import fused_predict
+from .ops import fused_predict, ozaki
 from .ops._precision import _true_f32
 from .utils import io
 
@@ -93,12 +93,14 @@ def center_tables(Xt, JA) -> Tables:
     return Tables(mu, Xt, JA, torch.sum(Xt * Xt, dim=1), torch.sum(Xt * JA, dim=1))
 
 
-def _check_mm(mm: str):
-    if mm != 'native':
-        raise NotImplementedError(
-            "mm=%r: the int8 Ozaki products are ROADMAP queue 1 item 11 "
-            "(ops/ozaki.py and the int8 routes); only mm='native' is ported" % mm
-        )
+def _ozaki_slices(mm: str):
+    """The slice count of an ``'ozaki<N>'`` rung (N defaults to 6), or None
+    for ``'native'``."""
+    if mm == 'native':
+        return None
+    if not (mm.startswith('ozaki') and (mm[5:] == '' or mm[5:].isdigit())):
+        raise ValueError("mm must be 'native' or 'ozaki<N>', got %r" % (mm,))
+    return int(mm[5:] or 6)
 
 
 def _scale(E, F_d, Jcq, std, c, n_atoms):
@@ -116,9 +118,21 @@ def predict_from_tables(
     Jacobians. alphas_E_lin: ``(T,)`` permuted energy coefficients or None.
     Returns ``E (B,)`` and ``F (B, 3N)`` (None without forces).
 
-    CUDA tensors run the fused kernel; CPU tensors its plain version.
+    ``mm='native'``: CUDA tensors run the fused kernel; CPU tensors its
+    plain version. ``mm='ozaki<N>'`` (``'ozaki'``: N = 6) on float64 inputs
+    runs the plain contraction with its five ``(B, T)``-sized products as
+    Ozaki int8 products of N slices (``sgdml_tpu/predict.py:113-189``): the
+    CG matvec's lower precision rungs. float32 inputs ignore ``mm``, and a
+    table or descriptor width past the exact-int32 bound
+    (``ozaki.max_contraction_dim(N)``) takes ``'native'``.
     """
-    _check_mm(mm)
+    ns = _ozaki_slices(mm)
+    if ns is not None and Xq.dtype == torch.float64 and max(tables.Xt.shape) <= ozaki.max_contraction_dim(ns):
+        E, F_d = fused_predict.fused_predict_tables_reference(
+            Xq - tables.mu, tables.Xt, tables.JA, tables.xt_sq, tables.tja,
+            alphas_E_lin, sig, with_forces=with_forces, matmul=lambda a, b: ozaki.ozaki_gemm_nt_f64(a, b.T, ns),
+        )
+        return _scale(E, F_d, Jcq, std, c, n_atoms)
     with _true_f32(Xq.dtype):
         E, F_d = fused_predict.fused_predict_tables(
             Xq - tables.mu, tables.Xt, tables.JA, tables.xt_sq, tables.tja,

@@ -32,13 +32,21 @@ an ``active`` flag through ``torch.where``; the host reads the flag every
 Between chunks the host loop re-measures the true residual, reports
 progress, checkpoints every ~2 minutes, monitors CG effectiveness and
 restarts with a stronger preconditioner (reference: iterative.py:729-804).
-The int8 slice-stack factor and the Ozaki matvec rungs are ROADMAP queue 1
-item 11; the mesh branches item 13.
+
+``factor_mode='ozaki'`` keeps the factor as an int8 slice stack instead
+(:class:`SliceFactor`, ``ops/ozaki.py``): a streamed build in which the
+``(n, k)`` f64 column block never exists (:meth:`Iterative.
+_build_factor_streamed`), ``factor_slices + 1`` bytes an element instead of
+16, so the same memory holds a larger ``k``; its CG matvec starts on the
+lowest Ozaki rung of :data:`MV_MM_LADDER` and climbs when the best residual
+stagnates. ``'auto'`` keeps the f64 factor on every device, as the JAX
+package does off a TPU. The mesh branches are ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import timeit
 import zlib
 from typing import NamedTuple
@@ -48,12 +56,13 @@ import torch
 
 from .. import resolve_device
 from ..ops import descriptor as desc_ops
-from ..ops.kernel import assemble_kernel_columns
+from ..ops import ozaki
+from ..ops.kernel import assemble_kernel_columns, assemble_kernel_columns_range, assemble_kernel_E_rows
 from ..predict import Tables, predict_from_tables
 from ..utils.profiling import PhaseTimer
 from .analytic import memory_budget
 
-__all__ = ['Iterative', 'MatvecTables', 'matvec_tables']
+__all__ = ['Iterative', 'MV_MM_LADDER', 'MatvecTables', 'SliceFactor', 'matvec_tables']
 
 log = logging.getLogger(__name__)
 
@@ -86,8 +95,19 @@ DEEP_STAGNATION_ITERS_FRAC = 0.25
 # A converged chunk stops at the next multiple of this many iterations: one
 # host read of the ``active`` flag each time, in place of one an iteration.
 CG_ACTIVE_READ_ITERS = 10
+# CG matvec precision ladder of the slice-stack route. An inexact matvec
+# stalls CG at a residual floor ~ ||b|| eps_mv kappa (inexact-Krylov
+# stagnation); when a re-seed cycle at the cap goes barren the solver climbs
+# one rung (+2 slices, 4096x lower truncation) instead of giving up;
+# 'native' (K1 on a card) is the last rung.
+MV_MM_LADDER = ('ozaki', 'ozaki8', 'ozaki10', 'native')
 
 _SOLVE_CHUNK = 8192  # columns per triangular-solve / Gram chunk
+# The streamed slice-stack build's plan (Iterative.max_n_inducing_pts) gives
+# the stack 72% of the budget. Beside the stack the build holds its two
+# (kcols, kcols) f64 Cholesky factors at once (L_W and L, through the F
+# sweep): k keeps them within the rest.
+_BLOCK_SHARE, _BLOCKS_BESIDE_STACK = 0.28, 2
 
 
 # ---------------------------------------------------------------------------
@@ -119,10 +139,10 @@ def matvec_tables(X, Jc, desc_perms) -> MatvecTables:
     return MatvecTables(X, Jc, dp, mu, Xt, torch.sum(Xt * Xt, dim=1))
 
 
-def _matvec_A(v, tab: MatvecTables, sig, lam, *, n_atoms, use_E_cstr):
+def _matvec_A(v, tab: MatvecTables, sig, lam, *, n_atoms, use_E_cstr, mm='native'):
     """``A v = -predict_train(v) + lam v`` on ``v``'s device: the table side
     from ``v`` (``JA`` and ``<xt, ja>``), then one ``predict_from_tables``
-    over all training points."""
+    over all training points at the matvec rung ``mm``."""
     m, dim_d = tab.X.shape
     if use_E_cstr:
         v_F, v_E = v[:-m], v[-m:]
@@ -132,7 +152,7 @@ def _matvec_A(v, tab: MatvecTables, sig, lam, *, n_atoms, use_E_cstr):
     JA = JA[:, tab.dp].reshape(-1, dim_d).contiguous()
     aE = None if v_E is None else torch.repeat_interleave(v_E, tab.dp.shape[0])
     tables = Tables(tab.mu, tab.Xt, JA, tab.xt_sq, torch.sum(tab.Xt * JA, dim=1))
-    E, F = predict_from_tables(tab.X, tab.Jc, tables, aE, sig, 1.0, 0.0, n_atoms=n_atoms)
+    E, F = predict_from_tables(tab.X, tab.Jc, tables, aE, sig, 1.0, 0.0, n_atoms=n_atoms, mm=mm)
     pred = torch.cat([F.reshape(-1), -E]) if use_E_cstr else F.reshape(-1)
     return -pred + lam * v
 
@@ -143,7 +163,58 @@ def _factor_apply(F, v):
     return v - torch.mv(F.T, torch.mv(F, v))
 
 
-def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, chunk_iters):
+class SliceFactor(NamedTuple):
+    """The Woodbury factor ``F (k, n)`` as an int8 slice stack.
+
+    Column chunk ``c`` of ``width`` columns was sliced with its own global
+    scale ``sig[c]`` (``ozaki.split_global_int8``) and sits at columns
+    ``[c * stride, c * stride + width)`` of ``s``, with ``stride`` the width
+    rounded up to 16 and zero columns after it, and its ``rows`` real rows
+    are padded with zero rows to a multiple of 16: so every product of the
+    apply reads the stack in place (``ozaki._int8_mm``). Zeros add nothing.
+    """
+
+    s: torch.Tensor  # (S, rows padded, n_chunks * stride) int8
+    sig: torch.Tensor  # (n_chunks,) float32
+    width: int
+    rows: int
+
+
+def _factor_ncols(F):
+    """Column count of a factor in either representation (the dense ``(k,
+    n)`` f64 factor, or the slice stack, whose last chunk may run past
+    ``n``): the width a vector is padded to."""
+    return F.sig.shape[0] * F.width if isinstance(F, SliceFactor) else F.shape[1]
+
+
+def _gram_apply(F: SliceFactor, v):
+    """``F^T (F v)`` from the slice stack for ``v`` of :func:`_factor_ncols`
+    entries: both directions are exact int8 level sums recombined in f64
+    (``ozaki.matvec_sliced_long`` and ``_t``)."""
+    n_ch = F.sig.shape[0]
+    stride = F.s.shape[2] // n_ch
+    vs = v.new_zeros((n_ch, stride))
+    vs[:, :F.width] = v.view(n_ch, F.width)
+    w = ozaki.matvec_sliced_long(F.s, F.sig, vs.view(-1), chunk=stride)
+    u = ozaki.matvec_sliced_long_t(F.s, F.sig, w, chunk=stride)
+    return u.view(n_ch, stride)[:, :F.width].reshape(-1)
+
+
+def _factor_apply_ozaki(F: SliceFactor, v):
+    """``v - F^T (F v)`` from the slice stack (see :func:`_gram_apply`)."""
+    return v - _gram_apply(F, v)
+
+
+def _precond(F, v, lam):
+    """``M v = (v - F^T (F v)) / lam`` for either factor; a slice stack pads
+    ``v`` to its width and cuts the result back."""
+    if isinstance(F, SliceFactor):
+        vp = torch.nn.functional.pad(v, (0, _factor_ncols(F) - v.shape[0]))
+        return _factor_apply_ozaki(F, vp)[:v.shape[0]] / lam
+    return _factor_apply(F, v) / lam
+
+
+def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, chunk_iters, mm='native'):
     """``chunk_iters`` PCG iterations on the device, with no host read.
 
     state: ``(x, r, z, p, rz, it, hist, n_bad)``. ``hist`` records the
@@ -153,7 +224,8 @@ def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, ch
     ``chunk_iters`` steps), so ``it`` counts exactly the steps a loop that
     exits on convergence would take. Every :data:`CG_ACTIVE_READ_ITERS`
     iterations the host reads ``active`` and ends an inactive chunk, so a
-    converged solve runs at most that many idle iterations.
+    converged solve runs at most that many idle iterations. ``F`` is either
+    factor; ``mm`` is the matvec rung.
     """
     x, r, z, p, rz, _, hist, _ = state
     hist = torch.zeros_like(hist)
@@ -164,11 +236,11 @@ def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, ch
     for i in range(chunk_iters):
         if i % CG_ACTIVE_READ_ITERS == 0 and not bool(active):
             break
-        Ap = _matvec_A(p, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+        Ap = _matvec_A(p, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr, mm=mm)
         alpha = rz / (p @ Ap)
         x_new = x + alpha * p
         r_new = r - alpha * Ap
-        z_new = _factor_apply(F, r_new) / lam
+        z_new = _precond(F, r_new, lam)
         rz_new = r_new @ z_new
         # PSD guard: at large k the Woodbury correction cancels to ~lam ||v||
         # and f64 rounding can push r.z slightly negative. Fall back to an
@@ -254,6 +326,66 @@ def _nystrom_factor_from_cols(C_psd, cols, lam, reg_w, reg_i):
     return F, lev_scores, True
 
 
+# -- the streamed slice-stack build (sgdml_tpu/solvers/iterative.py:556-803) --
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    for d in range(min(cap, n), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def _gram_accum_y(gram, Lw, C):
+    """``gram += Y Y^T`` for one assembly chunk, ``Y = L_W^{-1} C^T``, the
+    Gram as an 8-slice Ozaki product. The triangular solve whitens the chunk
+    BEFORE the int8 truncation, so the 48-bit error stays relative to the
+    factor's own scale instead of being amplified by cond(W)."""
+    Y = torch.linalg.solve_triangular(Lw, C.T, upper=False)
+    hi = Y.to(torch.float32)
+    lo = (Y - hi.to(torch.float64)).to(torch.float32)
+    del Y
+    gram.add_(ozaki.ozaki_gemm_nt(hi, hi, lo_a=lo, lo_b=lo, n_slices=8))
+
+
+def _f_chunk_streamed(Lw, L, C, ns):
+    """One factor chunk ``F_c = L^{-1} L_W^{-1} C_c^T`` by two triangular
+    solves, its leverage scores and its int8 slices: ``(lev, slices,
+    scale)``; the f64 chunk dies here."""
+    F = torch.linalg.solve_triangular(L, torch.linalg.solve_triangular(Lw, C.T, upper=False), upper=False)
+    return (torch.sum(F * F, dim=0),) + ozaki.split_global_int8(F, n_slices=ns)
+
+
+def _renorm_sliced_factor(F: SliceFactor, n_slices: int, iters: int = 40):
+    """Scale the slice stack so the represented factor has spectral norm
+    strictly below 1, keeping the Woodbury apply ``v - F^T (F v)`` PSD.
+
+    The exact factor has ``||F||_2^2 = d_max / (d_max + lam) < 1``, but at
+    small lam the margin (~lam / d_max) is far below the truncation noise of
+    fewer than 8 slices, so the represented ``I - F^T F`` can go indefinite.
+    The represented norm is measured by power iteration on the same sliced
+    products CG uses (seeded start, as the JAX package's), and the chunk
+    scales shrink so it lands at ``1 - eps`` with ``eps`` at the
+    truncation-noise floor.
+    """
+    ncols = _factor_ncols(F)
+    v = torch.as_tensor(np.random.default_rng(12345).standard_normal(ncols), device=F.s.device)
+    v = v / torch.linalg.vector_norm(v)
+    nrm = None
+    for _ in range(iters):
+        u = _gram_apply(F, v)
+        nrm = torch.linalg.vector_norm(u)
+        v = u / torch.clamp_min(nrm, 1e-300)
+    sigma_sq = float(nrm)  # ~ lambda_max(F^T F) from the Rayleigh limit
+    eps = min(max(1e-9, 8.0 * np.sqrt(float(F.rows) * ncols) * 2.0 ** (-ozaki.Q_BITS * n_slices)), 1e-3)
+    if sigma_sq <= (1.0 - eps) ** 2:
+        return F
+    scale = (1.0 - eps) / np.sqrt(sigma_sq)
+    log.debug('Renormalizing slice-stack factor: represented ||F||=%.3e -> %.3e (%d slices).',
+              np.sqrt(sigma_sq), 1.0 - eps, n_slices)
+    return F._replace(sig=F.sig * torch.tensor(scale, dtype=F.sig.dtype, device=F.sig.device))
+
+
 # ---------------------------------------------------------------------------
 # Solver
 # ---------------------------------------------------------------------------
@@ -271,11 +403,14 @@ class Iterative:
     max_memory: budget in GB for the inducing-point count; None takes
         ``memory_budget`` of the device at solve time (12 GB on the CPU).
     mesh: multi-device solves are ROADMAP queue 1 item 13; must be None.
-    factor_mode: ``'auto'`` or ``'f64'`` (the dense f64 factor);
-        ``'ozaki'`` (the int8 slice stack) is item 11.
-    factor_slices: int8 slice count of the slice-stack factor (item 11):
-        validated as in the JAX package (3-10 or ``'auto'``) and otherwise
-        unused by the f64 factor.
+    factor_mode: ``'f64'`` (the dense f64 factor), ``'ozaki'`` (the int8
+        slice stack of the streamed build, its matvec on the Ozaki rungs of
+        :data:`MV_MM_LADDER`) or ``'auto'``, which is ``'f64'`` on every
+        device (the JAX package picks the stack on a TPU only).
+    factor_slices: int8 slices an element of the slice stack (3-10), or
+        ``'auto'``: the count whose budget affords the largest ``k``
+        (:meth:`resolve_factor_slices`). None reads ``SGDML_FACTOR_SLICES``,
+        else ``'auto'``.
     seed: explicit solver seed; None derives one from the task's training
         split, so identical tasks give identical inducing sets.
     device: where the solve runs; None takes the trainer's device, else the GPU.
@@ -290,12 +425,12 @@ class Iterative:
                  seed: int | None = None, *, device=None):
         if mesh is not None:
             raise NotImplementedError('mesh= (the sharded CG solve) is ROADMAP queue 1 item 13, multi-GPU')
-        if factor_mode == 'ozaki':
-            raise NotImplementedError(
-                "factor_mode='ozaki' (the int8 slice-stack factor) is ROADMAP queue 1 item 11")
-        if factor_mode not in ('auto', 'f64'):
+        if factor_mode not in ('auto', 'f64', 'ozaki'):
             raise ValueError("factor_mode must be 'auto', 'f64' or 'ozaki', got %r" % (factor_mode,))
-        if factor_slices not in (None, 'auto') and not 3 <= factor_slices <= 10:
+        if factor_slices is None:
+            env = os.environ.get('SGDML_FACTOR_SLICES')
+            factor_slices = int(env) if env else 'auto'
+        if factor_slices != 'auto' and not 3 <= factor_slices <= 10:
             raise ValueError("factor_slices must be in [3, 10] or 'auto'")
         if device is None:
             device = getattr(gdml_train, 'device', 'cuda')
@@ -303,17 +438,34 @@ class Iterative:
         self.callback = callback
         self._max_memory = max_memory
         self.factor_mode = factor_mode
+        self.factor_slices = factor_slices
+        # The resolution of 'auto' for the current solve (set by the plan;
+        # the 8-slice default covers a direct _build_factor call).
+        self._auto_ns = 8
         self.seed = seed
         self.device = resolve_device(device)
         self.timer = PhaseTimer(self.device)
+
+    def _ns(self) -> int:
+        """Slice count of the current solve's stack."""
+        return self._auto_ns if self.factor_slices == 'auto' else self.factor_slices
+
+    def _use_ozaki_factor(self) -> bool:
+        return self.factor_mode == 'ozaki'
+
+    def _budget(self) -> float:
+        return memory_budget(self.device) if self._max_memory is None else self._max_memory * 1024**3
 
     # -- preconditioner ----------------------------------------------------
 
     def _build_factor(self, X, Jc, dperms, sig, lam, col_idxs, n_atoms, use_E_cstr):
         """Assemble PSD columns on the device and build the Woodbury factor,
         with an escalating regularization ladder (reference behavior:
-        iterative.py:414-471). Returns ``(F, host leverage scores)``."""
+        iterative.py:414-471): the slice stack by the streamed build in
+        ``'ozaki'`` mode. Returns ``(F, host leverage scores)``."""
         col_idxs = np.asarray(col_idxs, dtype=np.int64)
+        if self._use_ozaki_factor():
+            return self._build_factor_streamed(X, Jc, dperms, sig, lam, col_idxs, n_atoms, use_E_cstr)
         for reg in [0.0] + list(10.0 ** np.arange(-16, 2)):
             # The columns are made and negated in place inside the call
             # expression, so the factor build holds their only reference; on
@@ -330,6 +482,111 @@ class Iterative:
             'Failed to factorize the Nystrom preconditioner despite strong '
             'regularization. Try a larger sigma.'
         )
+
+    def _build_factor_streamed(self, X, Jc, dperms, sig, lam, cols, n_atoms, use_E_cstr=False):
+        """The int8 slice-stack factor by three assembly sweeps over row
+        chunks; the ``(n, k)`` f64 column block never exists
+        (``sgdml_tpu/solvers/iterative.py:1008-1183``).
+
+        1. W sweep: the inducing rows ``W = C[cols]``.
+        2. Gram sweep: per chunk ``Y = L_W^{-1} C^T`` and the 8-slice Ozaki
+           Gram ``Y Y^T`` (:func:`_gram_accum_y`).
+        3. F sweep: ``F_c = L^{-1} L_W^{-1} C_c^T`` per chunk, sliced into
+           the stack, which is allocated once (zeros) and written in place.
+
+        ``chol(W)`` and ``chol(gram + lam I)`` are ``cholesky_ex`` on the
+        device (the JAX package takes them to the host; at ``kcols`` ~ 15,000
+        and more the host copies and the host factorization are what a card
+        avoids), in the regularization ladder of the f64 build; a failed
+        Gram stage re-sweeps with the stronger ``L_W``. The Ozaki Gram is
+        exactly symmetric and ``cholesky_ex`` reads its lower triangle, so
+        the JAX package's symmetrization changes nothing and is left out.
+
+        With ``use_E_cstr`` the force sweeps take a chunk that divides M
+        exactly and the ``(M, k)`` energy rows (``assemble_kernel_E_rows``)
+        join the Gram and fill the stack's tail chunks, so the ``[F | E]``
+        vector stays aligned with the stack's columns. Returns
+        ``(SliceFactor, host leverage scores)``; the seconds of each sweep
+        are logged.
+        """
+        m = X.shape[0]
+        dim_i = 3 * n_atoms
+        n = m * dim_i + (m if use_E_cstr else 0)
+        kcols = len(cols)
+        pt_ch = max(1, _SOLVE_CHUNK // dim_i)
+        if use_E_cstr:
+            pt_ch = _largest_divisor(m, pt_ch)
+        n_ch = -(-m // pt_ch)
+        rows_ch = pt_ch * dim_i
+        tail = []  # the energy rows' chunks
+        if use_E_cstr:
+            C_E = assemble_kernel_E_rows(X, Jc, dperms, sig, n_atoms, cols).neg_()
+            C_E = torch.nn.functional.pad(C_E, (0, 0, 0, -(-m // rows_ch) * rows_ch - m))
+            tail = list(C_E.split(rows_ch))
+
+        def chunk(c):
+            if c >= n_ch:
+                return tail[c - n_ch]
+            return assemble_kernel_columns_range(X, Jc, dperms, sig, n_atoms, cols, c * pt_ch, pt_ch, m).neg_()
+
+        timer = PhaseTimer(self.device)
+
+        def w_sweep():
+            W = torch.empty((kcols, kcols), dtype=X.dtype, device=X.device)
+            for c in range(n_ch):
+                sel = np.nonzero((cols >= c * rows_ch) & (cols < (c + 1) * rows_ch))[0]
+                if sel.size:
+                    rows = torch.as_tensor(cols[sel] - c * rows_ch, device=X.device)
+                    W[torch.as_tensor(sel, device=X.device)] = chunk(c)[rows]
+            return W
+
+        W = None
+        for reg in [0.0] + list(10.0 ** np.arange(-16, 2)):
+            if W is None:
+                with timer.phase('W sweep'):
+                    W = w_sweep()
+            Lw, ok = _chol_reg(W.clone(), reg)
+            if not ok:
+                continue
+            with timer.phase('Gram sweep'):
+                gram = torch.zeros((kcols, kcols), dtype=X.dtype, device=X.device)
+                for c in range(n_ch + len(tail)):
+                    _gram_accum_y(gram, Lw, chunk(c))
+            L, ok = _chol_reg(gram, lam + reg)
+            del gram
+            if ok:
+                if reg > 0:
+                    log.debug('Nystrom factor needed regularization %g.', reg)
+                break
+            log.debug('Nystrom gram stage failed at reg=%g; re-sweeping with stronger regularization.', reg)
+        else:
+            raise RuntimeError(
+                'Failed to factorize the Nystrom preconditioner despite strong '
+                'regularization. Try a larger sigma.'
+            )
+        del W
+
+        ns = self._ns()
+        n_chunks, stride = n_ch + len(tail), -(-rows_ch // 16) * 16
+        with timer.phase('F sweep'):
+            sF = torch.zeros((ns, -(-kcols // 16) * 16, n_chunks * stride), dtype=torch.int8, device=X.device)
+            sigs, levs = [], []
+            for c in range(n_chunks):
+                lev_c, s_c, sig_c = _f_chunk_streamed(Lw, L, chunk(c), ns)
+                sF[:, :kcols, c * stride:c * stride + rows_ch] = s_c
+                sigs.append(sig_c)
+                levs.append(lev_c)
+            del Lw, L, tail
+            F = SliceFactor(sF, torch.stack(sigs), rows_ch, kcols)
+            lev_scores = torch.cat(levs)[:n].cpu().numpy()
+        if ns < 8:
+            with timer.phase('renormalization'):
+                F = _renorm_sliced_factor(F, ns)
+        log.info('Streamed slice-stack factor (%d slices, k=%d columns, n=%d, stack %.3f GB): W sweep %.3f s, '
+                 'Gram sweep %.3f s, F sweep %.3f s, renormalization %.3f s.', ns, kcols, n, sF.numel() / 1e9,
+                 timer.durations['W sweep'], timer.durations['Gram sweep'], timer.durations['F sweep'],
+                 timer.durations.get('renormalization', 0.0))
+        return F, lev_scores
 
     def _lev_scores(self, X, Jc, dperms, sig, lam, n_inducing_pts, n_atoms, use_E_cstr, rng=None):
         """Approximate ridge leverage scores from a random column subset
@@ -352,13 +609,67 @@ class Iterative:
         idxs = rng.choice(lev_scores.size, n, replace=False, p=p)
         return np.sort(idxs)
 
+    @staticmethod
+    def _streamed_caps(n_train, n_atoms, budget, ns):
+        """The caps on k of the streamed ``ns``-slice stack: ``'plan'``, the
+        JAX package's (:meth:`max_n_inducing_pts` with ``streamed=True``);
+        then two bounds on ``kcols = 3 N k`` that a 16 GB TPU never met:
+        ``'blocks'``, the build's two ``(kcols, kcols)`` f64 factors within
+        the 28% of the budget beside the stack, and ``'int32'``, the
+        transposed apply's exact-int32 sum over the stack's rows
+        (``ozaki.matvec_sliced_long_t`` raises past
+        ``ozaki.max_contraction_dim(8)``)."""
+        dim_i = 3 * n_atoms
+        return {
+            'plan': min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget, factor_bytes=ns + 1.0,
+                                                              streamed=True)),
+            'blocks': max(1, int(np.sqrt(_BLOCK_SHARE * budget / (_BLOCKS_BESIDE_STACK * 8.0))) // dim_i),
+            'int32': max(1, ozaki.max_contraction_dim(8) // dim_i),
+        }
+
+    def resolve_factor_slices(self, n_train, n_atoms, budget=None):
+        """The slice count whose budget affords the LARGEST inducing-point
+        count k; ties go to 8 slices (cleaner spectrum, no renormalization).
+        Returns ``(n_slices, k_cap)``. ``budget`` in bytes defaults to the
+        solver's (``max_memory``, else ``memory_budget`` of its device).
+
+        On a 16 GB TPU the fresh 8-slice k=11 AT-AT solve extrapolated to
+        ~76k CG iterations while the 6-slice k=15 one converged in 14k: fresh
+        solves want the largest k the budget affords."""
+        budget = self._budget() if budget is None else budget
+        best_ns, best_k = 8, -1
+        for ns in (8, 6):
+            k = min(Iterative._streamed_caps(n_train, n_atoms, budget, ns).values())
+            if k > best_k:
+                best_ns, best_k = ns, k
+        return best_ns, best_k
+
     def _factor_plan(self, n_train, n_atoms):
-        """The inducing-point cap of the dense f64 factor, at 16 bytes per
-        factor element (the one-pass build's columns and ``Y`` chunks, or the
-        factor and the ``Y`` chunks of pass 2). With ``max_memory=None`` the
-        budget is what the device has free now, so a solve reads it once."""
-        budget = memory_budget(self.device) if self._max_memory is None else self._max_memory * 1024**3
-        return min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget))
+        """The inducing-point cap of the solve's factor. The dense f64
+        factor: 16 bytes per factor element (the one-pass build's columns and
+        ``Y`` chunks, or the factor and the ``Y`` chunks of pass 2). The slice
+        stack: :meth:`_streamed_caps` at the resolved slice count, with a log
+        line when a bound beyond the JAX package's plan sets k. With
+        ``max_memory=None`` the budget is what the device has free now, so a
+        solve reads it once."""
+        budget = self._budget()
+        if not self._use_ozaki_factor():
+            return min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget))
+        if self.factor_slices == 'auto':
+            self._auto_ns, k = self.resolve_factor_slices(n_train, n_atoms, budget)
+            if self._auto_ns != 8:
+                log.info('Auto-selected the %d-slice preconditioner factor (k cap %d vs %d at 8 slices).',
+                         self._auto_ns, k, min(Iterative._streamed_caps(n_train, n_atoms, budget, 8).values()))
+        caps = Iterative._streamed_caps(n_train, n_atoms, budget, self._ns())
+        k = min(caps.values())
+        if k < caps['plan']:
+            why = {'blocks': 'its two (kcols, kcols) f64 factors within %.0f%% of the %.2f GB budget' % (
+                       100 * _BLOCK_SHARE, budget / 1e9),
+                   'int32': 'kcols <= %d rows for the exact int32 sums of the transposed apply' % (
+                       ozaki.max_contraction_dim(8))}
+            log.info('Slice-stack factor capped at k=%d inducing points (the plan affords %d): %s.', k,
+                     caps['plan'], '; '.join(why[w] for w in ('blocks', 'int32') if caps[w] == k))
+        return k
 
     # -- main solve ----------------------------------------------------------
 
@@ -443,16 +754,15 @@ class Iterative:
 
         b = tensor(y)
         b_norm = float(np.linalg.norm(y))
-        # The JAX package's matvec precision ladder has int8 rungs below
-        # 'native' (item 11); a checkpoint stored at one resumes at 'native'.
-        mv_mm = 'native'
-        stored = str(task.get('solver_mv_mm', mv_mm))
-        if stored != mv_mm:
-            log.info("Resuming at the matvec rung %r: only the top rung of the JAX package's ladder "
-                     "is ported (the checkpoint stored %r).", mv_mm, stored)
+        # The slice-stack route starts its matvec on the lowest rung; a
+        # checkpoint resumes at the rung it stored (the climbs are driven by
+        # stagnation, so re-climbing on every warm start would replay them).
+        mv_mm = 'ozaki' if self._use_ozaki_factor() else 'native'
+        if str(task.get('solver_mv_mm', '')) in MV_MM_LADDER:
+            mv_mm = str(task['solver_mv_mm'])
 
         def precond_z(r, F):
-            return _factor_apply(F, r) / lam
+            return _precond(F, r, lam)
 
         def init_state(x_init, F):
             x = tensor(x_init) if x_init is not None else torch.zeros(n, dtype=torch.float64, device=self.device)
@@ -487,7 +797,7 @@ class Iterative:
 
         while True:
             state = _pcg_chunk(state, Fp, tab, sig, lam, b_norm, tol, n_atoms=n_atoms,
-                               use_E_cstr=use_E_cstr, chunk_iters=CG_CHUNK_ITERS)
+                               use_E_cstr=use_E_cstr, chunk_iters=CG_CHUNK_ITERS, mm=mv_mm)
             x, r, z, p, rz, it_done, hist, n_bad = state
             # The chunk's one host read: its step count, guard trips and history.
             head = torch.cat([it_done.to(hist.dtype)[None], n_bad.to(hist.dtype)[None], hist]).cpu().numpy()
@@ -598,8 +908,19 @@ class Iterative:
                         resid = best_resid
                         iters_since_best = 0
                         continue
-                    # Already re-seeded from this best, at the top (only)
-                    # matvec rung: grind uninterrupted, within a bound.
+                    if mv_mm != MV_MM_LADDER[-1]:
+                        # Already re-seeded from this best (a second re-seed
+                        # would replay the same trajectory): climb the
+                        # matvec ladder, a different operator, and re-seed.
+                        mv_mm = MV_MM_LADDER[MV_MM_LADDER.index(mv_mm) + 1]
+                        log.info('CG best residual stagnant at %.3e for %d iterations: escalating the matvec '
+                                 'precision to %r.', best_resid, iters_since_best, mv_mm)
+                        state = init_state(best_x, Fp)
+                        resid = best_resid
+                        iters_since_best = 0
+                        continue
+                    # Top rung, already re-seeded: grind uninterrupted,
+                    # within a bound.
                     if max_seconds is not None:
                         rate_now = max((num_iters - num_iters0)
                                        / max(timeit.default_timer() - t_start, 1e-9), 1e-9)
@@ -691,20 +1012,26 @@ class Iterative:
     # -- memory models (reference: iterative.py:827-866) --------------------
 
     @staticmethod
-    def max_n_inducing_pts(n_train, n_atoms, max_memory_bytes):
+    def max_n_inducing_pts(n_train, n_atoms, max_memory_bytes, factor_bytes=16.0, streamed=False):
         """Inducing-point budget: the reference formula (iterative.py:827-844),
-        capped so that the ``(k, n)`` factor's 16 bytes per element (the
-        one-pass f64 build's peak: columns and ``Y`` chunks together) stay
-        within 40% of the budget. The JAX package's function at its defaults,
-        so that k agrees at the same budget; its ``n_dev`` and ``streamed``
-        terms serve items 13 and 11."""
+        capped so that the ``(k, n)`` factor's ``factor_bytes`` per element
+        (16 for the one-pass f64 build's peak: columns and ``Y`` chunks
+        together) stay within 40% of the budget. ``streamed``: the streamed
+        slice-stack build's plan, its ``factor_bytes`` (slices + 1) per
+        element within 72% of the budget less a 1.5 GB reserve. The JAX
+        package's function (its ``n_dev`` term is item 13), so that k agrees
+        at the same budget."""
         sq, lin = 5, 4
         dim_i = 3 * n_atoms
+        if streamed:
+            avail = max(0.0, 0.72 * max_memory_bytes - 1.5e9)
+            cap = avail / (min(float(factor_bytes), 16.0) * n_train * dim_i * dim_i)
+            return max(1, min(int(cap), n_train))
         to_dof = dim_i**2 * 8
         sq_factor = float(lin * n_train * to_dof)
         ny_factor = sq * to_dof
         n_ind = (np.sqrt(sq_factor**2 + 4.0 * ny_factor * max_memory_bytes) - sq_factor) / (2 * ny_factor)
-        n_ind_split_cap = 0.4 * max_memory_bytes / 16.0 / (n_train * dim_i * dim_i)
+        n_ind_split_cap = 0.4 * max_memory_bytes / float(factor_bytes) / (n_train * dim_i * dim_i)
         return max(1, min(int(n_ind), int(n_ind_split_cap), n_train))
 
     @staticmethod

@@ -275,8 +275,9 @@ class GDMLTrain:
         Nystrom-preconditioned CG otherwise. Pass ``solver='analytic'`` or
         ``'cg'`` to override. ``solver_max_seconds`` bounds the CG wall clock (an
         unconverged model is returned, and flagged); ``save_progr_callback``
-        receives CG checkpoints; ``factor_slices`` is validated as in the JAX
-        package and used only by its int8 factor (item 11).
+        receives CG checkpoints; ``factor_slices`` goes to the CG solver, where
+        it sets the slices of the int8 slice-stack factor
+        (``Iterative(factor_mode='ozaki')``; the default factor is f64).
         """
         t_start = timeit.default_timer()
         timer = PhaseTimer(self.device)

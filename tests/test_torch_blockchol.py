@@ -170,7 +170,7 @@ def test_assemble_grid_matches_jax(n_perms):
 def test_assemble_grid_f32_and_default_tiles():
     """float32 blocks from float32 descriptors at the default tiles (capped
     at a block's points) against the JAX package's f32 grid, 1e-5 of max
-    |K|; a non-native ``mm`` is item 11."""
+    |K|; with ``mm='ozaki'`` in float64 against the JAX package's, 1e-12."""
     n_atoms, m, sig = 5, 14, 4.0
     X, Jc, jX, jJc = _setup(m, n_atoms)
     dperms = desc_perm_table(np.arange(n_atoms)[None])
@@ -180,7 +180,13 @@ def test_assemble_grid_f32_and_default_tiles():
     A = bc.grid_to_dense(G, spec, full=True)
     ref = jbc.grid_to_dense(jax_assemble_kernel_grid(jX, jJc, dperms, sig, n_atoms, spec), spec, full=True)
     assert np.abs(A - ref).max() <= 1e-5 * np.abs(ref).max()
-    with pytest.raises(NotImplementedError, match='item 11'):
+    # mm='ozaki' (the pair route's assembly) takes float64 blocks, as the
+    # JAX package's does (its float32 scan fails on the float64 products).
+    with pytest.raises(ValueError, match='float64'):
         assemble_kernel_grid(X, Jc, dperms, sig, n_atoms, spec, mm='ozaki')
+    G64 = assemble_kernel_grid(X, Jc, dperms, sig, n_atoms, spec, dtype=torch.float64, mm='ozaki')
+    ref64 = jbc.grid_to_dense(jax_assemble_kernel_grid(jX, jJc, dperms, sig, n_atoms, spec, dtype=jnp.float64,
+                                                       mm='ozaki'), spec, full=True)
+    assert np.abs(bc.grid_to_dense(G64, spec, full=True) - ref64).max() <= 1e-12 * np.abs(ref64).max()
     with pytest.raises(ValueError, match='aligned'):
         assemble_kernel_grid(X, Jc, dperms, sig, n_atoms, bc.GridSpec(16 * 3 * n_atoms, 5))

@@ -311,27 +311,27 @@ def test_cg_with_energy_constraints(ds):
 
 
 @pytest.mark.parametrize('through_npz', [False, True])
-def test_resume_warm_start(ds, models, tmp_path, caplog, through_npz):
+def test_resume_warm_start(ds, models, tmp_path, monkeypatch, through_npz):
     """A converged model resumes and converges at once (:57-68); an
     unconverged checkpoint written with np.savez_compressed round-trips
-    (:521), and the rung 'ozaki' that a JAX checkpoint taken on a TPU stores
-    resumes at 'native' with a log line."""
+    (:521), and the rung 'ozaki' that a checkpoint stores resumes at
+    'ozaki', as the JAX package's does (iterative.py:1459-1460)."""
     model = dict(models['cg', None])
     if through_npz:
         model.update(solver_iters=7, solver_resid=123.0, solver_mv_mm='ozaki')
         np.savez_compressed(tmp_path / 'ckpt.npz', **model)
         model = dict(np.load(tmp_path / 'ckpt.npz', allow_pickle=True))
+    chunk, rungs = it_mod._pcg_chunk, []
+    monkeypatch.setattr(it_mod, '_pcg_chunk', lambda *a, **k: rungs.append(k['mm']) or chunk(*a, **k))
     trainer = GDMLTrain(device='cpu')
     resumed = trainer.create_task_from_model(model, ds)
     assert 'alphas0_F' in resumed
-    with caplog.at_level(logging.INFO, logger=LOGGER):
-        m2 = trainer.train(resumed, solver='cg')
+    m2 = trainer.train(resumed, solver='cg')
     assert m2['solver_iters'] - int(model['solver_iters']) <= 5
     assert m2['solver_resid'] <= m2['solver_tol'] * m2['norm_y_train']
     np.testing.assert_array_equal(m2['inducing_pts_idxs'], model['inducing_pts_idxs'])
     assert 'leverage scores' not in trainer.times  # the stored set was reused
-    resumed_native = any("rung 'native'" in r.message and "'ozaki'" in r.message for r in caplog.records)
-    assert resumed_native == through_npz
+    assert rungs and set(rungs) == {'ozaki' if through_npz else 'native'}
 
 
 def test_cg_warm_start_size_mismatch_falls_back(ds, caplog):
@@ -523,9 +523,19 @@ def test_memory_model_matches_jax():
             __import__('sgdml_tpu.solvers.analytic', fromlist=['Analytic']).Analytic.est_memory_grid(*args)
 
 
-def test_routes_that_are_not_ported_raise():
-    with pytest.raises(NotImplementedError, match='item 11'):
-        it_mod.Iterative(factor_mode='ozaki', device='cpu')
+def test_routes_that_are_not_ported_raise(monkeypatch):
+    """The mesh (item 13) raises; the factor modes and slice counts are the
+    JAX package's: 'ozaki' takes the slice stack, 'auto' the f64 factor (as
+    the JAX package off a TPU), the slice count from the argument, else
+    SGDML_FACTOR_SLICES, else 'auto'."""
+    monkeypatch.delenv('SGDML_FACTOR_SLICES', raising=False)
+    for mode in ('auto', 'f64', 'ozaki'):
+        ours, ref = it_mod.Iterative(factor_mode=mode, device='cpu'), jax_it.Iterative(factor_mode=mode)
+        assert ours._use_ozaki_factor() == ref._use_ozaki_factor() == (mode == 'ozaki')
+        assert ours.factor_slices == ref.factor_slices == 'auto' and ours._ns() == ref._ns() == 8
+    monkeypatch.setenv('SGDML_FACTOR_SLICES', '6')
+    assert it_mod.Iterative(device='cpu').factor_slices == jax_it.Iterative().factor_slices == 6
+    assert it_mod.Iterative(factor_slices=8, device='cpu')._ns() == 8
     with pytest.raises(NotImplementedError, match='item 13'):
         it_mod.Iterative(mesh=object(), device='cpu')
     with pytest.raises(ValueError):
@@ -535,3 +545,68 @@ def test_routes_that_are_not_ported_raise():
     for slices in (None, 'auto', 3, 10):
         assert it_mod.Iterative(factor_mode='f64', factor_slices=slices, device='cpu').factor_mode == 'f64'
     assert it_mod.Iterative(GDMLTrain(device='cpu')).device == torch.device('cpu')
+    monkeypatch.setenv('SGDML_FACTOR_SLICES', '11')
+    with pytest.raises(ValueError, match='factor_slices'):
+        it_mod.Iterative(device='cpu')
+
+
+# -- the int8 slice-stack route (tests/test_iterative.py:292-340, 620-713) ----
+
+
+def _ozaki_budget_gb(m, k):
+    """The budget in GB at which the streamed 8-slice plan affords k points
+    of an M-point, 6-atom system: 72% of it less 1.5 GB holds 9 bytes per
+    element of the (k 18, M 18) stack."""
+    return (1.5e9 + k * 9.0 * m * 18 * 18 + 1) / 0.72 / 1024**3
+
+
+@pytest.mark.parametrize('slices', [8, 'auto'])
+def test_ozaki_solve_matches_jax(ds, slices):
+    """factor_mode='ozaki' against the JAX package's at a budget that affords
+    5 points at 8 slices and 6 at 6 ('auto' picks 6, so the stack is
+    renormalized): the same inducing set, iteration counts within 2,
+    coefficients within 1e-5 of max |alpha|, and the true residual converged.
+    lam 1e-6: at 1e-10 both packages' counts move by tens of percent with
+    the last bits of the matvec (the 6-slice rung's drift sets off residual
+    replacements at other iterations)."""
+    task = _task(ds, 40, 61, lam=1e-6)
+    X, Jc, dperms, y, _ = _system(task)
+    mem = _ozaki_budget_gb(40, 5)
+    solver = it_mod.Iterative(GDMLTrain(device='cpu'), max_memory=mem, factor_mode='ozaki', factor_slices=slices,
+                              device='cpu')
+    alphas, tol, iters, resid, _, idxs, conv = solver.solve(task, X, Jc, dperms, y, 1.0)
+    ref = jax_it.Iterative(JaxTrain(), max_memory=mem, factor_mode='ozaki', factor_slices=slices).solve(
+        task, X.numpy(), Jc.numpy(), dperms, y, 1.0)
+    assert solver._ns() == (8 if slices == 8 else 6)
+    np.testing.assert_array_equal(idxs, ref[5])
+    assert len(idxs) // 18 == (5 if slices == 8 else 6)
+    assert conv and ref[6] and abs(iters - ref[2]) <= 2
+    assert np.abs(alphas.numpy() - ref[0]).max() <= 1e-5 * np.abs(ref[0]).max()
+    assert _true_resid(alphas, X, Jc, dperms, task, y) <= 1.05 * tol * np.linalg.norm(y)
+
+
+def test_cg_matvec_precision_ladder_escapes_floor(ds, monkeypatch, caplog):
+    """tests/test_iterative.py:292-340: a matvec rung that floors the
+    residual (simulated by corrupting the iterate 2% per chunk on the first
+    rung only) must climb MV_MM_LADDER after a barren re-seed, and the solve
+    must then truly converge."""
+    chunk, rungs = it_mod._pcg_chunk, []
+
+    def rung_limited(*a, **k):
+        rungs.append(k['mm'])
+        x, *rest = chunk(*a, **k)
+        return (x * 1.02 if k['mm'] == 'ozaki' else x, *rest)
+
+    monkeypatch.setattr(it_mod, '_pcg_chunk', rung_limited)
+    monkeypatch.setattr(it_mod, 'CG_CHUNK_ITERS', 10)
+    monkeypatch.setattr(it_mod, 'CG_STEPS_HIST_LEN', 10)
+    monkeypatch.setattr(it_mod, 'RESEED_STAGNATION_ITERS', 0)
+    task = _task(ds, 30, 47)
+    X, Jc, dperms, y, _ = _system(task)
+    solver = it_mod.Iterative(GDMLTrain(device='cpu'), max_memory=_ozaki_budget_gb(30, 6), factor_mode='ozaki',
+                              device='cpu')
+    with caplog.at_level(logging.INFO, logger=LOGGER):
+        alphas, tol, _, _, _, _, conv = solver.solve(task, X, Jc, dperms, y, 1.0, max_seconds=300.0)
+    assert any('escalating' in r.message for r in caplog.records)
+    assert rungs[0] == 'ozaki' and rungs[-1] != 'ozaki' and conv
+    assert _true_resid(alphas, X, Jc, dperms, task, y) <= 1.05 * tol * np.linalg.norm(y)

@@ -66,8 +66,19 @@ def test_hessian_tile_compressed_matches_jax(n_perms):
         jnp.asarray(jax_kernel.perm_incidence(dperms, n_atoms)), jnp.asarray(g_idx),
         jnp.asarray(sgn), jnp.asarray(a_diag), jnp.asarray(diag_col))
     _close(ours, ref)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        kernel.hessian_tile_compressed(X[:3], Jc[:3], Xp[3:], Jcp[3:], 4.0, *consts, mm='ozaki')
+    # mm='ozaki': the three D-contractions as 7-slice int8 products, against
+    # the JAX package's (its slices are equal bit for bit; the f64 sums
+    # around them differ in order) and within the slices' truncation of the
+    # f64 tile.
+    oz = kernel.hessian_tile_compressed(X[:3], Jc[:3], Xp[3:], Jcp[3:], 4.0, *consts, mm='ozaki')
+    oz_j = jax_kernel.hessian_tile_compressed(
+        Xj[:3], Jcj[:3], Xpj[3:], Jcpj[3:], 4.0, jnp.asarray(jax_desc.incidence(n_atoms)),
+        jnp.asarray(jax_kernel.perm_incidence(dperms, n_atoms)), jnp.asarray(g_idx),
+        jnp.asarray(sgn), jnp.asarray(a_diag), jnp.asarray(diag_col), mm='ozaki')
+    _close(oz, oz_j)
+    _close(oz, ref, 1e-9)
+    with pytest.raises(ValueError, match='float64'):
+        kernel.hessian_tile_compressed(X[:3].float(), Jc[:3], Xp[3:], Jcp[3:], 4.0, *consts, mm='ozaki')
 
 
 @pytest.mark.parametrize('case', ['plain', 'ecstr', 'sym', 'sym+ecstr', 'pbc+sym+ecstr'])

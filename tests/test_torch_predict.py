@@ -5,12 +5,15 @@ carry-over and model files moving between the packages."""
 
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sgdml_tpu import predict as jax_predict
 from sgdml_tpu import train as jax_train
+from sgdml_tpu.ops import ozaki as jax_ozaki
 from sgdml_tpu.predict import GDMLPredict as JaxPredict
 from sgdml_tpu.utils import io as jax_io
 from sgdml_tpu_torch import predict
@@ -200,12 +203,80 @@ def test_unported_options_and_device_are_explicit(golden):
     # The tuner is ported (tune.py): it installs a measured batch size.
     assert pred.prepare_parallel(n_bulk=64, n_reps=1, use_cache=False) > 0
     assert pred.batch_size in (64, 128)
-    x = torch.zeros(1, 10, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        predict.predict_from_tables(
-            x, None, pred.tables, None, 1.0, 1.0, 0.0, n_atoms=5, mm='ozaki'
-        )
+    # The Ozaki rungs of the CG matvec run (tests/test_torch_predict.py's
+    # test_mm_rungs_match_jax holds them to the JAX package's); an unknown
+    # rung raises.
+    x = torch.as_tensor(model['R_desc'].T[:3])
+    jc = torch.zeros(3, x.shape[1], 3, dtype=torch.float64)
+    E_oz, _ = predict.predict_from_tables(x, jc, pred.tables, None, pred.sig, 1.0, 0.0, n_atoms=5, mm='ozaki')
+    E_nat, _ = predict.predict_from_tables(x, jc, pred.tables, None, pred.sig, 1.0, 0.0, n_atoms=5)
+    _assert_close(E_oz, E_nat, 1e-8)
+    with pytest.raises(ValueError, match='ozaki<N>'):
+        predict.predict_from_tables(x, jc, pred.tables, None, 1.0, 1.0, 0.0, n_atoms=5, mm='int8')
     assert GDMLModel(model).predictor(device='cpu').batch_size == 64
+
+
+def _exact_jax_row_scale(hi):
+    """``sgdml_tpu.ops.ozaki._row_scale`` with ``2^e`` from the exponent bits."""
+    rowmax = jnp.max(jnp.abs(hi), axis=1, keepdims=True)
+    _, e = jnp.frexp(jnp.maximum(rowmax, jnp.finfo(jnp.float32).tiny))
+    return jax.lax.bitcast_convert_type((e.astype(jnp.int32) + 127) << 23, jnp.float32)
+
+
+@pytest.mark.parametrize('kind', ['plain', 'sym+ecstr'])
+@pytest.mark.parametrize('mm', ['ozaki', 'ozaki8', 'ozaki10'])
+def test_mm_rungs_match_jax(golden, kind, mm, monkeypatch):
+    """predict_from_tables at the matvec rungs on the golden model's training
+    tables (with P=3 and energy-constraint weights: all five products)
+    against the JAX package's at the same rung (1e-12 of max |value|), and
+    within the rung's truncation of 'native'; float32 ignores ``mm``, and a
+    width past the exact-int32 bound takes 'native'.
+
+    The JAX package's row scales come from ``jnp.exp2``, which XLA:CPU does
+    not compute exactly for exponents past about 12 (the golden ``JA`` rows
+    reach 2.4e4): its scales are then no powers of two and its rungs land
+    2.8e-7 from 'native'. The JAX side here takes exact powers of two, as
+    its ``_row_scale`` promises and the port computes them."""
+    monkeypatch.setattr(jax_ozaki, '_row_scale', _exact_jax_row_scale)
+    data, model = golden
+    model = _variant(model, kind)
+    n_atoms = model['z'].shape[0]
+    R = data['R'][data['idxs_train']].reshape(len(data['idxs_train']), -1)
+    X, Jc = desc_ops.descriptor_batch(torch.as_tensor(R), n_atoms)
+    w = model_to_torch(model, torch.device('cpu'), torch.float64)
+    Xt, JA = predict.build_tables(w['R_desc'], w['R_d_desc_alpha'], w['desc_perms'])
+    tables = predict.center_tables(Xt, JA)
+    aE = w.get('alphas_E_lin')
+    sig = float(model['sig'])
+
+    def ours(mm_, dtype=torch.float64):
+        t = predict.Tables(*(x.to(dtype) for x in tables))
+        return predict.predict_from_tables(X.to(dtype), Jc.to(dtype), t, None if aE is None else aE.to(dtype), sig,
+                                           2.0, 0.5, n_atoms=n_atoms, mm=mm_)
+
+    E, F = ours(mm)
+    Xtj, JAj = (jnp.asarray(x.numpy()) for x in (Xt, JA))
+    E_j, F_j = jax_predict.predict_from_tables(
+        jnp.asarray(X.numpy()), jnp.asarray(Jc.numpy()), Xtj, JAj, None if aE is None else jnp.asarray(aE.numpy()),
+        sig, 2.0, 0.5, n_atoms=n_atoms, mm=mm)
+    _assert_close(E, E_j, 1e-12)
+    # The planes w1 and w2 that the rungs slice differ in their last bits
+    # between the packages' exp and sqrt, and a different last bit moves
+    # that entry's truncation: F, where the products cancel against the
+    # row-sum term, agrees to 1.5e-12 of max |F| at 8 slices (measured).
+    _assert_close(F, F_j, 2e-12)
+    E_n, F_n = ours('native')
+    # The rung's own truncation: 1.8e-8, 5.5e-12 and 1.3e-12 of max |F| at
+    # 6, 8 and 10 slices on this model (the last at the f64 floor).
+    ns = int(mm[5:] or 6)
+    assert np.abs((F - F_n).numpy()).max() <= max(2.0 ** (14 - 6 * ns), 1e-11) * np.abs(F_n.numpy()).max()
+    assert all(torch.equal(a, b) for a, b in zip(ours(mm, torch.float32), ours('native', torch.float32)))
+    guard = predict.ozaki.max_contraction_dim
+    try:
+        predict.ozaki.max_contraction_dim = lambda n: 1
+        assert all(torch.equal(a, b) for a, b in zip(ours(mm), (E_n, F_n)))
+    finally:
+        predict.ozaki.max_contraction_dim = guard
 
 
 def test_float32_products_are_true_float32():
