@@ -9,7 +9,9 @@ the comparison of the grid route's preconditioner built five ways on phase
 10a's system (``phase_grid_precision``); ``--stack-apply`` phases 1-2 and
 then the slice-stack apply's int8 products in each layout they could take
 (``phase_stack_apply``); ``--atat-factors`` phases 1-2 and then phase 8d's
-task by CG with each factor and first matvec rung (``phase_atat_factors``).
+task by CG with each factor and first matvec rung (``phase_atat_factors``);
+``--strip-apply`` phases 1-2 and then the int8 products of the pair route's
+strip solve in each layout they could take (``phase_strip_apply``).
 
 It imports only the port (``sgdml_tpu_torch``), builds its CUDA kernels from
 ``sgdml_tpu_torch/csrc/`` into ``build/kernels/``, and runs these phases,
@@ -81,19 +83,22 @@ each a plain assertion that ends the run with a traceback when it fails:
    calls and the calculator's calls, not over the library runs they are
    compared with;
 10. the analytic solver's f32 block-grid route on the card (``GDMLTrain(
-   device='cuda').train(task)`` past the dense bound): (a) the aspirin recipe
-   of ``bench_large.py`` ``bench_aspirin_analytic`` (63,000 unknowns) with
-   ``solver=None``: the route taken (and the log line of the pair region,
-   ROADMAP item 12b), the residual re-measured through the plain
-   contraction, the held-out force MAE, lmax, the lam' rungs, the
-   refinement iterations, seconds by phase, the packed Cholesky's TFLOP/s,
-   the peak memory against ``est_memory_grid``, the kept f32 factor
-   against the f64 system on a probe vector, and one refinement iteration
-   and its parts, each timed alone (the matvec, K1 inside it, checked
-   against its plain version on the solve's tables, the grid solve and its
-   leaf triangular solves); (b) phase 8c's aspirin task by the grid route, against 8c's CG
-   model; (c) energy constraints on a small ethanol task forced onto the
-   grid route by ``max_memory``, against the dense model;
+   device='cuda').train(task)`` past the dense bound), each run held on the
+   grid route by ``grid_probe`` (``Analytic.est_memory_pair`` reads as
+   infinite: their lam is below 1e-7 lmax, where ``solve`` takes the pair
+   route of phase 12), which asserts the route: (a) the aspirin recipe of
+   ``bench_large.py`` ``bench_aspirin_analytic`` (63,000 unknowns) with
+   ``solver=None`` (and that it is in the pair region), the residual
+   re-measured through the plain contraction, the held-out force MAE, lmax,
+   the lam' rungs, the refinement iterations, seconds by phase, the packed
+   Cholesky's TFLOP/s, the peak memory against ``est_memory_grid``, the kept
+   f32 factor against the f64 system on a probe vector, and one refinement
+   iteration and its parts, each timed alone (the matvec, K1 inside it,
+   checked against its plain version on the solve's tables, the grid solve
+   and its leaf triangular solves); (b) phase 8c's aspirin task by the grid
+   route, against 8c's CG model; (c) energy constraints on a small ethanol
+   task forced past the dense route by ``max_memory``, against the dense
+   model;
 11. the int8 Ozaki routes (``ops/ozaki.py``; ``Iterative(factor_mode=
    'ozaki')``): (a) ``ozaki._int8_mm`` bit for bit against the float64
    product of the same int8 values at the route's shapes (the slice-stack
@@ -114,12 +119,29 @@ each a plain assertion that ends the run with a traceback when it fails:
    stack that automatic slices pick keeps it above its start in 60 s).
    Each times an iteration's parts alone (the matvec at its rung, K1 at the
    same shape, held against its plain version on the solve's tables, and
-   the slice-stack apply).
+   the slice-stack apply);
+12. the analytic solver's pair-precision route (``ops/pairchol.py``,
+   ``Analytic._solve_pair_pcg``), not held: (a) phase 10a's task through
+   ``train()`` with ``solver=None`` must take the pair route without falling
+   back (``pair_probe`` asserts it): lmax, the rungs and lam', the
+   refinement iterations, the residual re-measured through the plain
+   contraction, the held-out force MAE, seconds by phase with the factor's
+   trailing updates, panel refinements and leaf Cholesky timed by CUDA
+   events, the peak against ``est_memory_pair``; its lam' and its
+   iterations must be below 10a's grid route's in the same run; the kept
+   pair factor against the f64 system on a probe vector; an iteration's
+   parts (the matvec, K1 held against its plain version on the solve's
+   tables, the strip solve, its forward and transposed strip sweeps and leaf
+   applies, with GB/s); the route's library products against what could
+   replace them (an Ozaki trailing update against ``torch.matmul`` in f64;
+   the int8 strip solve against the pair-form one); (b) phase 10c's
+   energy-constrained task on the pair route against the dense model.
 
-Phases 4-11 are the main path: each sets the launch counts to 0 before it
-drives the path (phases 8-11 before each training run, solve or command)
-and reads them right after. The last two lines are the kernels' JSON record
-and ``{"ok": true, ...}``.
+Phases 4-12 are the main path: each sets the launch counts to 0 before it
+drives the path (phases 8-12 before each training run, solve or command)
+and reads them right after. The last lines are the command's wall, the
+kernels' JSON record, the card's name and power limit, and ``{"ok": true,
+...}``.
 """
 
 from __future__ import annotations
@@ -145,7 +167,7 @@ from sgdml_tpu_torch.datasets.synthetic import generate_md_dataset, generate_sym
 from sgdml_tpu_torch.intf import ase_calc
 from sgdml_tpu_torch.md import MDEngine
 from sgdml_tpu_torch import train as train_mod
-from sgdml_tpu_torch.ops import _build, blockchol, fused_predict, ozaki
+from sgdml_tpu_torch.ops import _build, blockchol, fused_predict, ozaki, pairchol
 from sgdml_tpu_torch.ops import kernel as kernel_ops
 from sgdml_tpu_torch.ops import descriptor as desc_ops
 from sgdml_tpu_torch.ops._precision import _true_f32
@@ -269,6 +291,16 @@ GRID_SPLIT_ITERS = 20
 GRID_FACTOR_SHIFT_TOL = 0.075
 GRID_EIG_STEPS = 30
 GRID_ECSTR = (400, 1.0, 1e-8, 1e-7)
+
+# Phase 12: the pair route on 10a's task and 10c's. The bound on the kept
+# pair factor's error on 10a's probe vector, as a share of lam' |v|: the
+# shift must absorb the factor's error for the refinement CG to keep the
+# lam'/lam bound.
+PAIR_FACTOR_SHIFT_TOL = 0.5
+# The int8 strip solve against the pair-form one on strips rebuilt from it
+# (rounded to pair precision, ~2^-33): tests/test_pairchol.py's bound
+# between the int8 and the pair solves.
+PAIR_SOLVE_TOL = 1e-5
 
 # Phase 11: the AT-AT and aspirin widths of 11b's matvec rungs (B = T = M,
 # D, N), the rungs, and 11a's bound on the card's Ozaki products against the
@@ -1040,12 +1072,14 @@ def phase_cg(device, ethanol, card):
 
 @contextlib.contextmanager
 def grid_probe():
-    """Watch the grid route inside ``train()``: each ``chol_grid`` call's
-    side, ``info`` and device seconds (synchronized before and after), the
-    last factor that held, the ``Analytic`` instance that solved, and the
-    solver's log lines at INFO."""
+    """Hold ``train()`` on the grid route and watch it: ``Analytic.
+    est_memory_pair`` reads as infinite inside the block, so the solver's
+    pair region (lam < 1e-7 lmax, phase 12) takes the grid route; each
+    ``chol_grid`` call's side, ``info`` and device seconds (synchronized
+    before and after), the last factor that held, the ``Analytic`` instance
+    that solved, and the solver's log lines at INFO."""
     probe = {'chol': [], 'factor': None, 'solver': None, 'log': Records()}
-    chol, solve = blockchol.chol_grid, Analytic._solve_grid_pcg
+    chol, solve, pair_need = blockchol.chol_grid, Analytic._solve_grid_pcg, Analytic.est_memory_pair
 
     def timed_chol(G):
         torch.cuda.synchronize()
@@ -1066,18 +1100,20 @@ def grid_probe():
     logger.addHandler(probe['log'])
     logger.setLevel(logging.INFO)
     blockchol.chol_grid, Analytic._solve_grid_pcg = timed_chol, watched
+    Analytic.est_memory_pair = staticmethod(lambda n_train, n_atoms: math.inf)
     try:
         yield probe
     finally:
         blockchol.chol_grid, Analytic._solve_grid_pcg = chol, solve
+        Analytic.est_memory_pair = staticmethod(pair_need)
         logger.removeHandler(probe['log'])
         logger.setLevel(level)
 
 
 def grid_train(trainer, task, solver=None):
-    """``trainer.train(task, solver)`` on the grid route, with its peak
-    memory above what was allocated before it, its K1 launches (from 0) and
-    the probe."""
+    """``trainer.train(task, solver)`` held on the grid route
+    (``grid_probe``), with its peak memory above what was allocated before
+    it, its K1 launches (from 0) and the probe."""
     with grid_probe() as probe:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1086,17 +1122,22 @@ def grid_train(trainer, task, solver=None):
         model = trainer.train(task, solver=solver)
         during = launch_counts()
     assert model['solver_name'] == 'analytic' and probe['solver'] is not None and probe['factor'] is not None
+    assert probe['solver'].route == 'grid', probe['solver'].route
     return model, during, torch.cuda.max_memory_allocated() - base, probe
 
 
-def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
-    """Device ms of one refinement-CG iteration at a grid solve's shapes
-    and factor (a chunk of GRID_SPLIT_ITERS), and of its parts, each timed
-    alone, so they need not add up to the iteration: the matvec, K1 inside
-    it (checked against its plain version on one matvec's inputs, then
-    timed in turns with it), the grid solve (the preconditioner) and its 2k
-    single-vector leaf triangular solves. Returns K1's shape, times, bound
-    and error against the plain version, and the parts' times."""
+def in_pair_region(lam, lmax, m, n_atoms, budget):
+    """Whether ``Analytic.solve`` takes the pair route past the dense bound
+    at this lam and lmax and ``budget`` bytes (lam < 1e-7 lmax and
+    ``est_memory_pair`` within the budget)."""
+    return lam < an_mod.PAIR_REGION * lmax and Analytic.est_memory_pair(m, n_atoms) <= budget
+
+
+def k1_on_tables(what, X, Jc, dperms, sig, n_atoms):
+    """K1 at a solve's shapes: held against its plain version on one
+    matvec's inputs (the solve's tables and a random vector), then timed in
+    turns with it. Returns the tables, the vector and K1's entry (shape,
+    times, bound, error against the plain version)."""
     tab = it_mod.matvec_tables(X, Jc, dperms)
     n = X.shape[0] * 3 * n_atoms
     v = torch.as_tensor(np.random.default_rng(0).normal(size=n), device=X.device)
@@ -1106,8 +1147,22 @@ def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
     B, D, T = X.shape[0], X.shape[1], tab.Xt.shape[0]
     kernel = lambda: fused_predict.fused_predict_tables(*args)  # noqa: E731
     plain = lambda: fused_predict.fused_predict_tables_reference(*args)  # noqa: E731
-    max_abs = check('grid CG matvec %s B=%d T=%d D=%d f64' % (label, B, T, D), kernel, plain, TOL[torch.float64])
+    max_abs = check('%s B=%d T=%d D=%d f64' % (what, B, T, D), kernel, plain, TOL[torch.float64])
     k1_ms, plain_ms = time_pair(kernel, plain)
+    b_ms, b_by = bound(B, T, D, 8)
+    return tab, v, {'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+                    'max_abs_err': max_abs}
+
+
+def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
+    """Device ms of one refinement-CG iteration at a grid solve's shapes
+    and factor (a chunk of GRID_SPLIT_ITERS), and of its parts, each timed
+    alone, so they need not add up to the iteration: the matvec, K1 inside
+    it (``k1_on_tables``), the grid solve (the preconditioner) and its 2k
+    single-vector leaf triangular solves. Returns K1's shape, times, bound
+    and error against the plain version, and the parts' times."""
+    tab, v, k1 = k1_on_tables('grid CG matvec %s' % label, X, Jc, dperms, sig, n_atoms)
+    n = v.shape[0]
     A_apply, M_apply = an_mod._grid_operators(L32, None, None, tab, sig, lam, n_atoms=n_atoms, n=n,
                                               use_E_cstr=False)
     mv_ms, solve_ms = time_pair(lambda: A_apply(v), lambda: M_apply(v))
@@ -1127,45 +1182,56 @@ def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
     chunk()
     it_ms = cuda_ms(chunk, 1) / GRID_SPLIT_ITERS
     f_bytes = sum(blk.numel() * blk.element_size() for row in L32 for blk in row)
-    b_ms, b_by = bound(B, T, D, 8)
     print('    %s refinement iteration (grid %d x %d blocks of %d, factor %.2f GB f32): %.3f ms in a chunk of %d; '
           'its parts timed alone: matvec %.3f (K1 %.3f), grid solve %.3f (two sweeps read the factor: %.0f GB/s; '
           'bytes floor %.3f) and its %d single-vector leaf triangular solves %.3f; K1 at B=%d T=%d D=%d f64 %.3f ms '
           'vs plain %.3f ms, bound %.4f ms by %s (%.1f%%), route %s (%s)' % (
-              label, k, k, b, f_bytes / 1e9, it_ms, GRID_SPLIT_ITERS, mv_ms, k1_ms, solve_ms,
-              2 * f_bytes / solve_ms * 1e-6, 2 * f_bytes / H100_BYTES_PER_S * 1e3, 2 * k, leaf_ms, B, T, D, k1_ms,
-              plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(T, D), card))
-    return {'label': label, 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
-            'bound_by': b_by, 'max_abs_err': max_abs, 'iteration_ms': it_ms, 'matvec_ms': mv_ms,
-            'apply_ms': solve_ms, 'leaf_solves_ms': leaf_ms, 'solver_iters': int(iters)}
+              label, k, k, b, f_bytes / 1e9, it_ms, GRID_SPLIT_ITERS, mv_ms, k1['ms'], solve_ms,
+              2 * f_bytes / solve_ms * 1e-6, 2 * f_bytes / H100_BYTES_PER_S * 1e3, 2 * k, leaf_ms, k1['B'], k1['T'],
+              k1['D'], k1['ms'], k1['plain_ms'], k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'],
+              fused_predict.route(k1['T'], k1['D']), card))
+    return dict(k1, label=label, iteration_ms=it_ms, matvec_ms=mv_ms, apply_ms=solve_ms, leaf_solves_ms=leaf_ms,
+                solver_iters=int(iters))
+
+
+def factor_llt(block, k, b, v):
+    """``L L^T v`` in f64 from a lower-triangle grid factor given as
+    ``block(r, c)`` (each block in f64, made when it is used)."""
+    vb = v.split(b)
+    u = [sum(block(r, c).mT @ vb[r] for r in range(c, k)) for c in range(k)]
+    return torch.cat([sum(block(r, c) @ u[c] for c in range(r + 1)) for r in range(k)])
 
 
 def grid_llt(L, v):
-    """``L L^T v`` from a lower-triangle grid factor, in f64 (each block
-    cast on its own)."""
-    k, b = len(L), L[0][0].shape[0]
-    vb = v.split(b)
-
-    def blk(r, c):
-        return (torch.tril(L[r][c]) if r == c else L[r][c]).to(torch.float64)
-
-    u = [sum(blk(r, c).mT @ vb[r] for r in range(c, k)) for c in range(k)]
-    return torch.cat([sum(blk(r, c) @ u[c] for c in range(r + 1)) for r in range(k)])
+    """``L L^T v`` from a lower-triangle grid factor of any dtype."""
+    return factor_llt(lambda r, c: (torch.tril(L[r][c]) if r == c else L[r][c]).to(torch.float64),
+                      len(L), L[0][0].shape[0], v)
 
 
-def grid_factor_error(L, X, Jc, dperms, sig, lam_p, n_atoms):
-    """How far a grid factor is from the f64 system it factors, on a
-    random probe vector ``v`` (zero on the padding): ``|L L^T v - A v|``
-    over ``|A v|`` and over ``lam' |v|``, with ``A = -K + lam' I`` applied
-    through the plain contraction, apart from K1."""
+def probe_vector(n, n_pad, device):
+    """The factor checks' random probe vector, zero on the padding."""
+    v = torch.zeros(n_pad, dtype=torch.float64, device=device)
+    v[:n] = torch.as_tensor(np.random.default_rng(2).normal(size=n), device=device)
+    return v
+
+
+def factor_error(LLt_v, v, X, Jc, dperms, sig, lam_p, n_atoms):
+    """How far a factor is from the f64 system it factors, on the probe
+    vector ``v``: ``|L L^T v - A v|`` over ``|A v|`` and over ``lam' |v|``,
+    with ``A = -K + lam' I`` applied through the plain contraction, apart
+    from K1."""
     n = X.shape[0] * 3 * n_atoms
-    v = torch.zeros(len(L) * L[0][0].shape[0], dtype=torch.float64, device=X.device)
-    v[:n] = torch.as_tensor(np.random.default_rng(2).normal(size=n), device=X.device)
     Av = plain_matvec(v[:n], X, Jc, dperms, sig, lam_p, n_atoms)
-    E = grid_llt(L, v)
+    E = LLt_v.clone()
     E[:n] -= Av
     e = float(torch.linalg.vector_norm(E))
     return e / float(torch.linalg.vector_norm(Av)), e / (lam_p * float(torch.linalg.vector_norm(v)))
+
+
+def grid_factor_error(L, X, Jc, dperms, sig, lam_p, n_atoms):
+    """``factor_error`` of a grid factor (any dtype)."""
+    v = probe_vector(X.shape[0] * 3 * n_atoms, len(L) * L[0][0].shape[0], X.device)
+    return factor_error(grid_llt(L, v), v, X, Jc, dperms, sig, lam_p, n_atoms)
 
 
 def grid_M(L, n):
@@ -1210,33 +1276,36 @@ def grid_aspirin_train(device):
 
 
 def phase_grid_aspirin(device, card):
-    """10a: the bench_large.py analytic aspirin recipe with solver=None."""
+    """10a: the bench_large.py analytic aspirin recipe with solver=None, held
+    on the grid route (its pair region: phase 12 trains it there)."""
     n_atoms, _, _, _, _, m, sig, lam = GRID_ASPIRIN
     need, grid_need = Analytic.est_memory_requirement(m, n_atoms), Analytic.est_memory_grid(m, n_atoms)
+    budget = memory_budget(device)
     ds, task, trainer, model, during, peak, probe, t_data = grid_aspirin_train(device)
     solver, t = probe['solver'], trainer.times
-    pair_line = any('item 12b' in msg for msg in probe['log'].messages)
+    pair_region = in_pair_region(lam, solver.lmax, m, n_atoms, budget)
     X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
     rel = true_resid(model, X, Jc, dperms, y, n_atoms) / float(np.linalg.norm(y))
     R, F_ref, _ = held_out(ds, task, GRID_HELD_OUT)
     _, F = GDMLPredict(model, device=device).predict(R)
     mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
     n_pad, _, t_fac = probe['chol'][-1]
-    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.1f GB, the grid %.1f GB): solver=None took '
-          'the analytic grid route%s; lmax %.6e, rungs lam\'/info %s, lam\' %.6e; %d refinement iterations; relative '
+    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.1f GB, the grid %.1f GB, the pair route %.1f '
+          'GB): solver=None took the analytic grid route (held there by grid_probe; its pair region: %s); lmax %.6e, '
+          'rungs lam\'/info %s, lam\' %.6e; %d refinement iterations; relative '
           'residual re-measured by the plain matvec %.3e (bound %.0e); train() %.2f s = descriptors %.3f + lmax %.3f + '
           'assembly %.2f + factor %.2f (%d rung(s); the one that held %.3f s, %.1f TFLOP/s on n^3/3 at n=%d) + '
           'refinement CG %.2f (%.1f iterations/s) + model %.3f + integration constant %.3f; data %.1f s; peak '
           'allocated by train() %.2f GB (est_memory_grid %.2f GB); held-out force MAE %.5f on %d frames (force '
           'scale %.4f, bound %.4f); K1 %.2f launches an iteration %s (%s)' % (
               n_atoms, m, sig, lam, m * 3 * n_atoms, need / 1e9, grid_need / 1e9,
-              ' and logged the pair region (item 12b)' if pair_line else '', solver.lmax,
+              Analytic.est_memory_pair(m, n_atoms) / 1e9, pair_region, solver.lmax,
               [(float('%.6g' % lp), info) for lp, info in solver.rungs], solver.lam_p_used, solver.pcg_iters, rel,
               GRID_RESID, t['total'], t['descriptors'], t['lmax'], t['assembly'], t['factor'], len(solver.rungs),
               t_fac, n_pad**3 / 3 / t_fac * 1e-12, n_pad, t['cg'], solver.pcg_iters / t['cg'], t['model creation'],
               t['integration constant'], t_data, peak / 1e9, grid_need / 1e9, mae, len(R), scale,
               CG_MAE_SHARE * scale, during['total'] / max(solver.pcg_iters, 1), during, card))
-    assert pair_line and 'lmax' in t and rel <= GRID_RESID and mae < CG_MAE_SHARE * scale, (pair_line, rel, mae)
+    assert pair_region and 'lmax' in t and rel <= GRID_RESID and mae < CG_MAE_SHARE * scale, (pair_region, rel, mae)
     L32, lam_p = probe['factor'], solver.lam_p_used
     err, err_shift = grid_factor_error(L32, X, Jc, dperms, sig, lam_p, n_atoms)
     tol = math.sqrt(n_pad) * float(torch.finfo(torch.float32).eps)
@@ -1245,7 +1314,9 @@ def phase_grid_aspirin(device, card):
                                                                          card))
     assert err <= tol and err_shift <= GRID_FACTOR_SHIFT_TOL, (err, tol, err_shift)
     split = grid_split('aspirin grid', L32, X, Jc, dperms, sig, lam, n_atoms, solver.pcg_iters, card)
-    return during, split
+    grid = dict(ds=ds, task=task, lam_p=lam_p, iters=solver.pcg_iters, lmax=solver.lmax, times=dict(t), peak=peak,
+                mae=mae, iteration_ms=split['iteration_ms'], err_shift=err_shift)
+    return during, split, grid
 
 
 def refine(A_apply, M_apply, y):
@@ -1361,8 +1432,9 @@ def phase_grid_precision(device, card):
 
 
 def phase_grid_vs_cg(device, aspirin_cg, card):
-    """10b: phase 8c's aspirin task by the grid route, against 8c's CG model
-    on held-out frames."""
+    """10b: phase 8c's aspirin task by the grid route (held there: at its
+    lam, 1e-8, below 1e-7 lmax, ``solve`` takes the pair route), against
+    8c's CG model on held-out frames."""
     task, cg_model = aspirin_cg['task'], aspirin_cg['model']
     trainer = GDMLTrain(device=device)
     model, during, peak, probe = grid_train(trainer, task, solver='analytic')
@@ -1371,12 +1443,14 @@ def phase_grid_vs_cg(device, aspirin_cg, card):
     _, Fc = GDMLPredict(cg_model, device=device).predict(R)
     f_rel = float(np.abs(Fg - Fc).mean() / np.abs(Fc).mean())
     t, tc, solver = trainer.times, aspirin_cg['times'], probe['solver']
-    print('    aspirin M=%d sig=%g lam=%g by the grid route: train() %.2f s (lmax %.2f, assembly %.2f, factor %.2f, '
+    print('    aspirin M=%d sig=%g lam=%g by the grid route (held; pair region %s): train() %.2f s (lmax %.2f, assembly %.2f, factor %.2f, '
           'refinement CG %.2f), lam\' %.6e after %d rung(s), %d refinement iterations, peak %.2f GB, held-out force '
           'MAE %.5f; by CG (phase 8c): train() %.2f s (leverage scores %.2f, factor %.2f, cg %.2f), %d iterations, '
           'peak %.2f GB, held-out force MAE %.5f; mean |dF| / mean |F| between the two %.2e (bound %.0e) on %d '
           'frames; K1 launches %s (%s)' % (
-              len(task['idxs_train']), float(task['sig']), float(task['lam']), t['total'], t['lmax'], t['assembly'],
+              len(task['idxs_train']), float(task['sig']), float(task['lam']),
+              in_pair_region(float(task['lam']), solver.lmax, len(task['idxs_train']), task['R_train'].shape[1],
+                             memory_budget(device)), t['total'], t['lmax'], t['assembly'],
               t['factor'], t['cg'], solver.lam_p_used, len(solver.rungs), solver.pcg_iters, peak / 1e9,
               np.abs(Fg - F_ref).mean(), tc['total'], tc['leverage scores'], tc['factor'], tc['cg'],
               cg_model['solver_iters'], aspirin_cg['peak'] / 1e9, np.abs(Fc - F_ref).mean(), f_rel,
@@ -1386,8 +1460,9 @@ def phase_grid_vs_cg(device, aspirin_cg, card):
 
 
 def phase_grid_ecstr(device, ethanol, card):
-    """10c: energy constraints on the grid route (forced by max_memory)
-    against the dense model on the card, on the training geometries."""
+    """10c: energy constraints on the grid route (forced by max_memory; held
+    there, off the pair route that phase 12 takes) against the dense model on
+    the card, on the training geometries."""
     ds = ethanol[0]
     m, gb, lam, bound_rel = GRID_ECSTR
     n_atoms = ds['R'].shape[1]
@@ -1402,7 +1477,7 @@ def phase_grid_ecstr(device, ethanol, card):
     Ed, Fd = GDMLPredict(dense, device=device).predict(R)
     f_rel = float(np.linalg.norm(Fg - Fd) / np.linalg.norm(Fd))
     solver = probe['solver']
-    print('    ethanol M=%d lam=%g with energy constraints (%d unknowns) at %g GB: the grid route (%d rung(s), '
+    print('    ethanol M=%d lam=%g with energy constraints (%d unknowns) at %g GB: the grid route (held; %d rung(s), '
           'lam\' %.4e, %d refinement iterations, train() %.3f s, border %.3f s) against the dense model: training '
           'forces %.2e relative (bound %.0e), energies %.2e; K1 launches %s (%s)' % (
               m, lam, m * (3 * n_atoms + 1), gb, len(solver.rungs), solver.lam_p_used, solver.pcg_iters,
@@ -1417,16 +1492,16 @@ def phase_grid(device, ethanol, aspirin_cg, card):
     lmax's power iteration, every refinement matvec and the integration
     constant."""
     t0 = time.perf_counter()
-    during, split = phase_grid_aspirin(device, card)
+    during, split, grid = phase_grid_aspirin(device, card)
     counts = during
     for run in (lambda: phase_grid_vs_cg(device, aspirin_cg, card), lambda: phase_grid_ecstr(device, ethanol, card)):
         during = run()
         counts = {k: counts[k] + during[k] for k in counts}
     assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
-    print('[10 grid] aspirin (63,000 unknowns) trained by the f32 grid route with solver=None; the grid agrees with '
-          'CG on 8c\'s task and with the dense model under energy constraints; launches %s; %.1f s' % (
+    print('[10 grid] aspirin (63,000 unknowns) trained by the f32 grid route with solver=None (held there); the grid '
+          'agrees with CG on 8c\'s task and with the dense model under energy constraints; launches %s; %.1f s' % (
               counts, time.perf_counter() - t0))
-    return counts, split
+    return counts, split, grid
 
 
 @contextlib.contextmanager
@@ -2007,6 +2082,347 @@ def phase_ozaki(device, aspirin_cg, atat_cg, card):
     return counts, splits
 
 
+@contextlib.contextmanager
+def pair_probe(n):
+    """Watch the pair route inside ``train()``: the device ms of the
+    factor's steps by kind (CUDA events recorded around each leaf Cholesky,
+    panel refinement and trailing update, read at the end: the device time
+    between them), each ``chol_grid_pair`` call's side, ``info`` and seconds
+    (synchronized before and after), ``L L^T v`` of the factor that held on
+    ``probe_vector(n, ...)`` (made when the factor returns, before the repack
+    consumes it; the seconds it takes, which train() counts in its factor
+    phase), the int8 strips and leaf stacks the repack made, the ``Analytic``
+    instance that solved, and the solver's log lines at INFO."""
+    probe = {'events': {'leaf': [], 'panel': [], 'update': []}, 'chol': [], 'llt': None, 'v': None,
+             'llt_s': 0.0, 'strips': None, 'leaves': None, 'solver': None, 'log': Records()}
+    names = ('_diag_chol_pair', '_panel_refine_pair', '_trailing_update_pair', 'chol_grid_pair', 'int8_strips',
+             'slice_leaf_inverses')
+    saved = {name: getattr(pairchol, name) for name in names}
+    solve = Analytic._solve_pair_pcg
+
+    def timed(kind, fn):
+        def run(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            probe['events'][kind].append((start, end))
+            return out
+        return run
+
+    def chol(Ghi, Glo):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Lh, Ll, info = saved['chol_grid_pair'](Ghi, Glo)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        probe['chol'].append((len(Ghi) * Ghi[0][0].shape[0], info, t1 - t0))
+        if info == 0:
+            k, b = len(Lh), Lh[0][0].shape[0]
+            probe['v'] = v = probe_vector(n, k * b, Lh[0][0].device)
+
+            def block(r, c):
+                x = pairchol.pair_to_f64(Lh[r][c], Ll[r][c])
+                return torch.tril(x) if r == c else x
+
+            probe['llt'] = factor_llt(block, k, b, v)
+            torch.cuda.synchronize()
+            probe['llt_s'] = time.perf_counter() - t1
+        return Lh, Ll, info
+
+    def kept(key, fn):
+        def run(arg):
+            probe[key] = fn(arg)
+            return probe[key]
+        return run
+
+    def watched(self, *args, **kw):
+        probe['solver'] = self
+        return solve(self, *args, **kw)
+
+    logger = logging.getLogger(an_mod.__name__)
+    level = logger.level
+    logger.addHandler(probe['log'])
+    logger.setLevel(logging.INFO)
+    pairchol._diag_chol_pair = timed('leaf', saved['_diag_chol_pair'])
+    pairchol._panel_refine_pair = timed('panel', saved['_panel_refine_pair'])
+    pairchol._trailing_update_pair = timed('update', saved['_trailing_update_pair'])
+    pairchol.chol_grid_pair = chol
+    pairchol.int8_strips = kept('strips', saved['int8_strips'])
+    pairchol.slice_leaf_inverses = kept('leaves', saved['slice_leaf_inverses'])
+    Analytic._solve_pair_pcg = watched
+    try:
+        yield probe
+    finally:
+        for name, fn in saved.items():
+            setattr(pairchol, name, fn)
+        Analytic._solve_pair_pcg = solve
+        logger.removeHandler(probe['log'])
+        logger.setLevel(level)
+
+
+def pair_train(trainer, task, solver=None):
+    """``trainer.train(task, solver)``, which must take the pair route and
+    not fall back, with its peak memory above what was allocated before it,
+    its K1 launches (from 0) and the probe."""
+    n = task['R_train'].shape[0] * 3 * task['R_train'].shape[1]
+    with pair_probe(n) as probe:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fused_predict.reset_launches()
+        model = trainer.train(task, solver=solver)
+        during = launch_counts()
+    fell_back = [msg for msg in probe['log'].messages if 'falling back' in msg]
+    assert model['solver_name'] == 'analytic' and probe['solver'] is not None and not fell_back, fell_back
+    assert probe['solver'].route == 'pair' and probe['llt'] is not None, probe['solver'].route
+    return model, during, torch.cuda.max_memory_allocated() - base, probe
+
+
+def factor_steps(probe):
+    """Seconds and calls of the factor's steps by kind (the probe's events)."""
+    return {kind: (sum(a.elapsed_time(b) for a, b in ev) / 1e3, len(ev)) for kind, ev in probe['events'].items()}
+
+
+def host_ms(fn):
+    """Host milliseconds to enqueue ``fn()`` on an idle card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def pair_split(label, sstrips, leaves, X, Jc, dperms, sig, lam, n_atoms, iters, card):
+    """Device ms of one refinement-CG iteration at a pair solve's shapes and
+    factor (a chunk of GRID_SPLIT_ITERS), and of its parts, each timed alone:
+    the matvec, K1 inside it (``k1_on_tables``), the strip solve as the route
+    runs it (replayed from its CUDA graph, which must give the eager solve's
+    bits) and eager (with the host's milliseconds to enqueue each), its
+    forward strip sweep, its transposed strip sweep and its 2k leaf applies
+    (eager), with GB/s over the bytes each reads (the strips once a sweep,
+    the leaf stacks twice). Returns K1's entry and the parts' times."""
+    tab, v, k1 = k1_on_tables('pair CG matvec %s' % label, X, Jc, dperms, sig, n_atoms)
+    n = v.shape[0]
+    A_apply = an_mod._matvec_op(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=False)
+    M_apply = an_mod._pair_M_apply(sstrips, leaves, None, None, n, 0, False)
+    eager = lambda: pairchol.solve_strips_int8(sstrips, leaves, v)  # noqa: E731
+    graphed = M_apply(v)
+    assert torch.equal(graphed, eager()), 'the strip solve replayed from its CUDA graph differs from the eager one'
+    mv_ms, solve_ms = time_pair(lambda: A_apply(v), lambda: M_apply(v))
+    eager_ms = cuda_ms(eager, 2)
+    host_graph_ms, host_eager_ms = host_ms(lambda: M_apply(v)), host_ms(eager)
+    k, b = len(leaves), leaves[0].rows
+    z = torch.ones((b, 1), dtype=torch.float64, device=X.device)
+    y = torch.zeros((k * b, 1), dtype=torch.float64, device=X.device)
+    x = torch.ones((k * b, 1), dtype=torch.float64, device=X.device)
+    sweeps = {
+        'forward': lambda: [pairchol._strip_apply_int8(st, z, y, (j + 1) * b) for j, st in enumerate(sstrips)
+                            if st is not None],
+        'transposed': lambda: [pairchol._strip_tapply_int8(st, x, (j + 1) * b, b) for j, st in enumerate(sstrips)
+                               if st is not None],
+        'leaves': lambda: [pairchol._leaf_apply(d, z, t) for d in leaves for t in (False, True)],
+    }
+    ms = {}
+    for name, fn in sweeps.items():
+        fn()
+        torch.cuda.synchronize()
+        ms[name] = cuda_ms(fn, 3)
+    z0 = M_apply(v)
+    state = (torch.zeros_like(v), v, z0, z0, v @ z0, None)
+    chunk = lambda: an_mod._pcg_chol(state, A_apply, M_apply, 1.0, 0.0, max_iters=GRID_SPLIT_ITERS)  # noqa: E731
+    chunk()
+    it_ms = cuda_ms(chunk, 1) / GRID_SPLIT_ITERS
+    s_bytes = sum(st.slices.numel() for st in sstrips if st is not None)
+    l_bytes = sum(d.slices.numel() for d in leaves)
+    floor = (2 * s_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3
+    print('    %s refinement iteration (%d x %d blocks of %d; int8 strips %.2f GB, leaf stacks %.2f GB): %.3f ms in a '
+          'chunk of %d; its parts timed alone: matvec %.3f (K1 %.3f), the strip solve from its CUDA graph %.3f '
+          '(enqueued in %.3f ms; its reads floor %.3f, %.1f%%) = the eager one\'s bits, the eager solve %.3f '
+          '(enqueued in %.3f ms); eager, its forward strip sweep %.3f (%.0f GB/s), transposed strip sweep %.3f (%.0f '
+          'GB/s), %d leaf applies %.3f (%.0f GB/s); K1 at B=%d T=%d D=%d f64 %.3f ms vs plain %.3f ms, bound %.4f ms '
+          'by %s (%.1f%%), route %s (%s)' % (
+              label, k, k, b, s_bytes / 1e9, l_bytes / 1e9, it_ms, GRID_SPLIT_ITERS, mv_ms, k1['ms'], solve_ms,
+              host_graph_ms, floor, 100 * floor / solve_ms, eager_ms, host_eager_ms, ms['forward'],
+              s_bytes / ms['forward'] * 1e-6, ms['transposed'], s_bytes / ms['transposed'] * 1e-6, 2 * k,
+              ms['leaves'], 2 * l_bytes / ms['leaves'] * 1e-6, k1['B'], k1['T'], k1['D'], k1['ms'], k1['plain_ms'],
+              k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'], fused_predict.route(k1['T'], k1['D']),
+              card))
+    return dict(k1, label=label, iteration_ms=it_ms, matvec_ms=mv_ms, apply_ms=solve_ms, eager_apply_ms=eager_ms,
+                host_apply_ms=host_graph_ms, host_eager_apply_ms=host_eager_ms, forward_ms=ms['forward'],
+                transposed_ms=ms['transposed'], leaves_ms=ms['leaves'], solver_iters=int(iters))
+
+
+def strip_to_pair(st, b):
+    """The pair form ``(hi, lo)`` of an int8 strip, a block at a time."""
+    weights = torch.tensor([2.0 ** (-ozaki.Q_BITS * (s + 1)) for s in range(st.slices.shape[0])],
+                           dtype=torch.float64, device=st.slices.device)
+    his, los = [], []
+    for r0 in range(0, st.rows, b):
+        x = torch.tensordot(weights, st.slices[:, r0:r0 + b, :b].to(torch.float64), 1) * st.sigma.double()
+        h, lo = pairchol.pair_split(x)
+        his.append(h)
+        los.append(lo)
+    return torch.cat(his), torch.cat(los)
+
+
+def pair_products(sstrips, leaves, card):
+    """The route's library products against what could replace them: one
+    Ozaki trailing update at the grid's block side (``ozaki_gemm_nt`` of
+    pair operands with their lo parts, and the route's update from operands
+    sliced once) against ``torch.matmul`` in f64 of the same blocks; the int8
+    strip solve against the pair-form ``solve_strips`` on the same factor
+    (its strips rebuilt from the int8 ones; the same leaf stacks). Bounds:
+    int8 at 1,979 TOP/s, f64 at 67 TFLOP/s, bytes at 3.35 TB/s."""
+    b, device = leaves[0].rows, leaves[0].slices.device
+    g = torch.Generator(device='cpu').manual_seed(0)
+    a64, c64 = (torch.randn(b, b, generator=g, dtype=torch.float64).to(device) for _ in range(2))
+    (ah, al), (ch, cl) = pairchol.pair_split(a64), pairchol.pair_split(c64)
+    pa, pc_ = pairchol.pair_to_f64(ah, al), pairchol.pair_to_f64(ch, cl)
+    ozaki_nt = lambda: ozaki.ozaki_gemm_nt(ah, ch, lo_a=al, lo_b=cl)  # noqa: E731
+    f64_nt = lambda: pa @ pc_.mT  # noqa: E731
+    err = rel_err(ozaki_nt(), f64_nt())
+    oz_ms, mm_ms = time_pair(ozaki_nt, f64_nt)
+    sa, sc = pairchol._split7(ah, al), pairchol._split7(ch, cl)
+    th, tl = pairchol.pair_split(c64)
+    update = lambda: pairchol._trailing_update_pair(th, tl, sa, sc)  # noqa: E731
+    split = lambda: pairchol._split7(ah, al)  # noqa: E731
+    for fn in (update, split):
+        fn()
+    torch.cuda.synchronize()
+    upd_ms, split_ms = cuda_ms(update, 5), cuda_ms(split, 5)
+    S = ozaki.DEFAULT_SLICES
+    pairs = S * (S + 1) // 2
+    int8_ms = max(pairs * 2.0 * b**3 / H100_INT8_OPS, 2 * S * b * b / H100_BYTES_PER_S) * 1e3
+    dgemm_ms = max(2.0 * b**3 / H100_FLOPS, 3 * 8 * b * b / H100_BYTES_PER_S) * 1e3
+    print('    library products at b=%d (%s):' % (b, card))
+    print('      trailing update: ozaki_gemm_nt (7 slices, %d slice pairs, lo parts) %.3f ms (%.0f int8 TOP/s; bound '
+          '%.3f ms by operations, %.1f%%) vs torch.matmul f64 on pair_to_f64 of the same blocks %.3f ms (%.1f '
+          'TFLOP/s; bound %.3f ms, %.1f%%), %.2e of max |value| apart; the route\'s update from operands sliced '
+          'once %.3f ms; one operand\'s 7-slice split %.3f ms' % (
+              pairs, oz_ms, pairs * 2e-9 * b**3 / oz_ms, int8_ms, 100 * int8_ms / oz_ms, mm_ms, 2e-9 * b**3 / mm_ms,
+              dgemm_ms, 100 * dgemm_ms / mm_ms, err, upd_ms, split_ms))
+    del a64, c64, ah, al, ch, cl, pa, pc_, sa, sc, th, tl
+    pstrips = [None if st is None else strip_to_pair(st, b) for st in sstrips]
+    k = len(leaves)
+    v = torch.as_tensor(np.random.default_rng(3).normal(size=k * b), device=device)
+    x8 = pairchol.solve_strips_int8(sstrips, leaves, v)
+    xp = pairchol.solve_strips(pstrips, leaves, v)
+    agree = float(torch.linalg.vector_norm(x8 - xp) / torch.linalg.vector_norm(xp))
+    s8_ms, sp_ms = time_pair(lambda: pairchol.solve_strips_int8(sstrips, leaves, v),
+                             lambda: pairchol.solve_strips(pstrips, leaves, v))
+    s_bytes = sum(st.slices.numel() for st in sstrips if st is not None)
+    p_bytes = sum(h.numel() * 6 for h, _ in (p for p in pstrips if p is not None))
+    l_bytes = sum(d.slices.numel() for d in leaves)
+    print('      strip solve: solve_strips_int8 (7-slice int8 strips, %.2f GB) %.3f ms (reads floor %.3f ms, %.1f%%) vs '
+          'the pair-form solve_strips (f32 + bf16 strips, %.2f GB, each block in f64) %.3f ms (reads floor %.3f ms, '
+          '%.1f%%); the same leaf stacks (%.2f GB); %.2e apart (relative; bound %.0e)' % (
+              s_bytes / 1e9, s8_ms, (2 * s_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3,
+              100 * (2 * s_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3 / s8_ms, p_bytes / 1e9, sp_ms,
+              (2 * p_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3,
+              100 * (2 * p_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3 / sp_ms, l_bytes / 1e9, agree,
+              PAIR_SOLVE_TOL))
+    assert err <= 1e-9 and agree <= PAIR_SOLVE_TOL, (err, agree)
+    del pstrips
+
+
+def phase_pair_aspirin(device, grid, card):
+    """12a: 10a's task through ``train()`` with solver=None, not held: it
+    must take the pair route and not fall back, converge (the residual
+    re-measured through the plain matvec), reach 10a's MAE bound within
+    ``est_memory_pair``, and take a lower lam' and fewer refinement
+    iterations than 10a's grid route in this run; the kept factor's error on
+    a probe vector, an iteration's split and the library products."""
+    n_atoms, _, _, _, _, m, sig, lam = GRID_ASPIRIN
+    ds, task = grid['ds'], grid['task']
+    pair_need = Analytic.est_memory_pair(m, n_atoms)
+    trainer = GDMLTrain(device=device)
+    model, during, peak, probe = pair_train(trainer, task)
+    solver, t = probe['solver'], trainer.times
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    rel = true_resid(model, X, Jc, dperms, y, n_atoms) / float(np.linalg.norm(y))
+    R, F_ref, _ = held_out(ds, task, GRID_HELD_OUT)
+    _, F = GDMLPredict(model, device=device).predict(R)
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    n_pad, _, t_fac = probe['chol'][-1]
+    steps = factor_steps(probe)
+    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; est_memory_pair %.2f GB): solver=None took the pair route; '
+          'lmax %.6e, rungs lam\'/info %s, lam\' %.6e (the grid route in 10a: %.6e, %.0fx); %d refinement '
+          'iterations (10a: %d); relative residual re-measured by the plain matvec %.3e (bound %.0e); train() %.2f s '
+          '= descriptors %.3f + lmax %.3f + assembly %.2f + factor %.2f + repack %.2f + refinement CG %.2f (%.1f '
+          'iterations/s) + model %.3f + integration constant %.3f (10a: train() %.2f s, CG %.2f s); the factor that '
+          'held %.3f s: its %d trailing updates %.3f s, %d panel refinements %.3f s, %d leaf Cholesky %.3f s (device '
+          'time between events); its probe product L L^T v %.3f s (in train()\'s factor phase); peak allocated by '
+          'train() %.2f GB (est_memory_pair %.2f GB); held-out force MAE %.5f on %d frames (10a: %.5f; bound %.4f); '
+          'K1 %.2f launches an iteration %s (%s)' % (
+              n_atoms, m, sig, lam, m * 3 * n_atoms, pair_need / 1e9, solver.lmax,
+              [(float('%.6g' % lp), info) for lp, info in solver.rungs], solver.lam_p_used, grid['lam_p'],
+              grid['lam_p'] / solver.lam_p_used, solver.pcg_iters, grid['iters'], rel, GRID_RESID, t['total'],
+              t['descriptors'], t['lmax'], t['assembly'], t['factor'], t['repack'], t['cg'],
+              solver.pcg_iters / t['cg'], t['model creation'], t['integration constant'], grid['times']['total'],
+              grid['times']['cg'], t_fac, steps['update'][1], steps['update'][0], steps['panel'][1],
+              steps['panel'][0], steps['leaf'][1], steps['leaf'][0], probe['llt_s'], peak / 1e9, pair_need / 1e9,
+              mae, len(R), grid['mae'], CG_MAE_SHARE * scale, during['total'] / max(solver.pcg_iters, 1), during,
+              card))
+    assert rel <= GRID_RESID and mae < CG_MAE_SHARE * scale and peak <= pair_need, (rel, mae, peak, pair_need)
+    assert solver.lam_p_used < grid['lam_p'] and solver.pcg_iters < grid['iters'], (
+        solver.lam_p_used, grid['lam_p'], solver.pcg_iters, grid['iters'])
+    err, err_shift = factor_error(probe['llt'], probe['v'], X, Jc, dperms, sig, solver.lam_p_used, n_atoms)
+    print('    the kept pair factor on a probe vector: |L L^T v - (A + lam\' I) v| / |(A + lam\' I) v| %.3e, %.3e '
+          'lam\' |v| (bound %.2f; the f32 grid factor in 10a: %.3f of its lam\' |v|) (%s)' % (
+              err, err_shift, PAIR_FACTOR_SHIFT_TOL, grid['err_shift'], card))
+    assert err_shift <= PAIR_FACTOR_SHIFT_TOL, err_shift
+    sstrips, leaves = probe['strips'], probe['leaves']
+    del probe, model
+    split = pair_split('aspirin pair', sstrips, leaves, X, Jc, dperms, sig, lam, n_atoms, solver.pcg_iters, card)
+    pair_products(sstrips, leaves, card)
+    return during, split
+
+
+def phase_pair_ecstr(device, ethanol, card):
+    """12b: 10c's energy-constrained ethanol task at its budget, not held:
+    the pair route against the dense model (10c's bound)."""
+    ds = ethanol[0]
+    m, gb, lam, bound_rel = GRID_ECSTR
+    n_atoms = ds['R'].shape[1]
+    task = GDMLTrain(device=device).create_task(ds, m, ds, 100, sig=ETHANOL[5], lam=lam, use_sym=False,
+                                               use_E_cstr=True, rng=np.random.RandomState(ETHANOL[3]))
+    assert Analytic.est_memory_pair(m, n_atoms) <= gb * 1024**3 < Analytic.est_memory_requirement(m, n_atoms, True)
+    trainer = GDMLTrain(max_memory=gb, device=device)
+    model, during, _, probe = pair_train(trainer, task)
+    dense = GDMLTrain(device=device).train(task)
+    R = task['R_train'].reshape(m, -1)
+    Ep, Fp = GDMLPredict(model, device=device).predict(R)
+    Ed, Fd = GDMLPredict(dense, device=device).predict(R)
+    f_rel = float(np.linalg.norm(Fp - Fd) / np.linalg.norm(Fd))
+    solver = probe['solver']
+    print('    ethanol M=%d lam=%g with energy constraints (%d unknowns) at %g GB: the pair route (%d rung(s), lam\' '
+          '%.4e, %d refinement iterations, train() %.3f s, border %.3f s) against the dense model: training forces '
+          '%.2e relative (bound %.0e), energies %.2e; K1 launches %s (%s)' % (
+              m, lam, m * (3 * n_atoms + 1), gb, len(solver.rungs), solver.lam_p_used, solver.pcg_iters,
+              trainer.times['total'], trainer.times['border'], f_rel, bound_rel,
+              float(np.abs(Ep - Ed).max() / np.abs(Ed).max()), during, card))
+    assert 'alphas_E' in model and f_rel < bound_rel, f_rel
+    return during
+
+
+def phase_pair(device, ethanol, grid, card):
+    """12: the analytic solver's pair route on the card; K1 runs in lmax's
+    power iteration, every refinement matvec and the integration constant."""
+    t0 = time.perf_counter()
+    counts, split = phase_pair_aspirin(device, grid, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    during = phase_pair_ecstr(device, ethanol, card)
+    counts = {k: counts[k] + during[k] for k in counts}
+    assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
+    print('[12 pair] aspirin (63,000 unknowns) trained by the pair route with solver=None below the grid route\'s lam\' '
+          'and iterations; the pair route agrees with the dense model under energy constraints; launches %s; %.1f s' % (
+              counts, time.perf_counter() - t0))
+    return counts, split
+
+
 def phase_stack_apply(device, card):
     """``--stack-apply``: the slice-stack apply's int8 products in the
     layouts ``ozaki.matvec_sliced_long`` and ``_t`` could take, at the AT-AT
@@ -2053,6 +2469,65 @@ def phase_stack_apply(device, card):
         200 * one_pass / ms, card))
 
 
+def phase_strip_apply(device, card):
+    """``--strip-apply``: the int8 products of the pair route's strip solve
+    in the layouts they could take, at phase 12's aspirin grid (k=20 blocks
+    of 3,150: random 7-slice strips of 13.21 GB, 8-slice leaf stacks), each
+    over a whole sweep, with GB/s against one read of what it reads. The
+    transposed strip product of strip j contracts its rows against the
+    per-block vector slices as disjoint column groups (``W``, rows x 8C);
+    the leaf's transposed product contracts the stack's rows against the
+    vector's 8 slices."""
+    k, b, S = 20, 3150, pairchol.STRIP_SLICES
+    bp = -(-b // 16) * 16
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def draw(*shape):
+        return torch.randint(-96, 97, shape, dtype=torch.int8, device=device, generator=g)
+
+    strips, groups = [], []
+    for j in range(k - 1):
+        C = k - 1 - j
+        rows_p = -(-C * b // 16) * 16
+        strips.append(draw(S, rows_p, bp))
+        Wt = torch.zeros((max(24, -(-8 * C // 16) * 16), rows_p), dtype=torch.int8, device=device)
+        for c in range(C):
+            Wt[8 * c:8 * c + 8, c * b:(c + 1) * b] = draw(8, b)
+        groups.append((Wt, Wt.T.contiguous()))
+    leaves = draw(k, 8, bp, bp)
+    vt = torch.zeros((16, bp), dtype=torch.int8, device=device)
+    vt[:8, :b] = draw(8, b)
+    a24 = torch.zeros((24, bp), dtype=torch.int8, device=device)
+    a24[:8] = vt[:8]
+    s_bytes, l_bytes = sum(st.numel() for st in strips), leaves.numel()
+    print('    strip-apply layouts at k=%d, b=%d: strips %.2f GB (one read at least %.3f ms), leaf stacks %.2f GB (%.3f '
+          'ms) (%s)' % (k, b, s_bytes / 1e9, s_bytes / H100_BYTES_PER_S * 1e3, l_bytes / 1e9,
+                       l_bytes / H100_BYTES_PER_S * 1e3, card))
+    mm = torch._int_mm
+    variants = (
+        ('forward: every slice\'s rows (S rows, b) x column-major (b, 16) [the route]', s_bytes,
+         lambda: [mm(st.view(-1, bp), vt.T) for st in strips]),
+        ('transposed: a slice column-major (b, rows) x W row-major (rows, 8C)', s_bytes,
+         lambda: [mm(st[i].T, W) for st, (_, W) in zip(strips, groups) for i in range(S)]),
+        ('transposed: a slice column-major (b, rows) x W column-major (rows, 8C) [the route]', s_bytes,
+         lambda: [mm(st[i].T, Wt.T) for st, (Wt, _) in zip(strips, groups) for i in range(S)]),
+        ('transposed, out^T: W^T row-major (8C, rows) x a slice row-major (rows, b)', s_bytes,
+         lambda: [mm(Wt, st[i]) for st, (Wt, _) in zip(strips, groups) for i in range(S)]),
+        ('leaf forward: every slice\'s rows (8 b, b) x column-major (b, 16) [the route]', l_bytes,
+         lambda: [mm(d.view(-1, bp), vt.T) for d in leaves]),
+        ('leaf transposed: (24, b) x a slice row-major (b, b) [the route]', l_bytes,
+         lambda: [mm(a24, d[i]) for d in leaves for i in range(8)]),
+        ('leaf transposed: a slice column-major (b, b) x column-major (b, 16)', l_bytes,
+         lambda: [mm(d[i].T, vt.T) for d in leaves for i in range(8)]),
+    )
+    for label, n_bytes, fn in variants:
+        fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 3)
+        print('      %-86s %9.3f ms, %5.0f GB/s, %4.1f%% of the bytes bound' % (
+            label, ms, n_bytes / ms * 1e-6, 100 * n_bytes / H100_BYTES_PER_S * 1e3 / ms))
+
+
 def phase_atat_factors(device, card):
     """``--atat-factors``: phase 8d's AT-AT task solved by CG for
     ``ATAT_FACTOR_SECONDS`` each with the 6-slice stack (automatic slices),
@@ -2095,6 +2570,7 @@ def bound(B, T, D, itemsize):
 
 
 def main():
+    t_start = time.perf_counter()
     logging.basicConfig(level=logging.WARNING, format='%(levelname)s %(name)s: %(message)s')
     smi = phase_device()
     device = 'cuda'
@@ -2111,21 +2587,30 @@ def main():
         phase_stack_apply(device, smi)
         print(smi)
         return
+    if sys.argv[1:] == ['--strip-apply']:
+        phase_strip_apply(device, smi)
+        print(smi)
+        return
     max_abs, times = phase_kernel_vs_plain(device)
     serving_counts, atat = phase_serving(device, smi)
     main_path = [phase_golden(device), serving_counts, phase_md(device)]
     train_counts, ethanol = phase_train(device, smi)
     cg_counts, splits, aspirin_cg, atat_cg = phase_cg(device, ethanol, smi)
     cli_counts = phase_cli(device, ethanol, atat, splits[1]['solver_iters'], smi)
-    grid_counts, grid_split_ = phase_grid(device, ethanol, aspirin_cg, smi)
+    grid_counts, grid_split_, grid = phase_grid(device, ethanol, aspirin_cg, smi)
     splits.append(grid_split_)
     ozaki_counts, ozaki_splits = phase_ozaki(device, aspirin_cg, atat_cg, smi)
     splits += ozaki_splits
-    main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts]
+    del aspirin_cg, atat_cg
+    gc.collect()
+    pair_counts, pair_split_ = phase_pair(device, ethanol, grid, smi)
+    splits.append(pair_split_)
+    main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]
     bound_ms, bound_by = bound(*SHAPES['at-at'], 8)
+    print('[wall] %.1f s from the start of chip_smoke.py, the kernel build included' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': [{
         'name': 'fused_predict', 'route': 'cuda',
         'source': 'sgdml_tpu_torch/csrc/fused_predict.cu',

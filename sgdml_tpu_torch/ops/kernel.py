@@ -29,7 +29,9 @@ descriptor per off-diagonal atom block), so full ``(D, 3N)`` Jacobians are
 never formed for the force-force blocks.
 
 :func:`assemble_kernel_grid` assembles ``A = -K`` block by block into the
-packed triangle of ``ops/blockchol.py`` (the analytic solver's grid route).
+packed triangle of ``ops/blockchol.py`` (the analytic solver's grid route),
+:func:`assemble_kernel_grid_pair` into the pair-float grid of
+``ops/pairchol.py`` (its pair route).
 :func:`assemble_kernel_columns` assembles a column subset ``K[:, cols]`` for
 the iterative solver's Nystrom preconditioner, in the matmul form of
 :func:`column_force_tile`, written row tile by row tile into a preallocated
@@ -48,6 +50,7 @@ import torch
 from ._precision import _true_f32
 from . import ozaki
 from .descriptor import incidence
+from .pairchol import pair_split
 
 __all__ = [
     'COLUMN_TILE_BUDGET_BYTES',
@@ -58,6 +61,7 @@ __all__ = [
     'assemble_kernel_columns',
     'assemble_kernel_columns_range',
     'assemble_kernel_grid',
+    'assemble_kernel_grid_pair',
     'column_force_tile',
     'column_tables',
     'column_tile_rows',
@@ -413,23 +417,10 @@ def assemble_kernel(
     return K
 
 
-def assemble_kernel_grid(
-    R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, dtype=torch.float32,
-    tile_i: int | None = None, tile_j: int | None = None, mm: str = 'native',
-):
-    """Assemble ``A = -K`` (force block only) into the block-grid packed
-    triangle of ``ops/blockchol.py``, on the inputs' device, in ``dtype``.
-
-    ``spec.n`` counts ``m_pad >= M`` points of ``3N`` rows each and
-    ``spec.b`` must be a multiple of ``3N``. Rows and columns of the padded
-    points are zero, and the padded diagonal is 1, so the padded system
-    stays SPD. Each ``(b, b)`` block is written tile by tile (``tile_i`` x
-    ``tile_j`` points, default :func:`default_tile_sizes` in ``dtype``,
-    capped at the block's points; edge tiles are smaller). float32 blocks
-    are computed from float32 descriptors with TF32 off. ``mm`` goes to
-    :func:`hessian_tile_compressed` (``'ozaki'`` takes float64). Same
-    layout and values as ``sgdml_tpu.ops.kernel.assemble_kernel_grid``.
-    """
+def _grid_block_fn(R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, dtype, tile_i, tile_j, mm):
+    """``block(bi, bj)``: the ``(b, b)`` block ``(bi, bj)`` of ``A = -K``
+    in ``dtype``, written tile by tile (the shared loop of
+    :func:`assemble_kernel_grid` and :func:`assemble_kernel_grid_pair`)."""
     _check_mm(mm, dtype)
     dim_i = 3 * n_atoms
     if spec.b % dim_i != 0:
@@ -459,8 +450,50 @@ def assemble_kernel_grid(
             out.diagonal()[max(0, m - p0) * dim_i:] = 1.0
         return out
 
+    return block
+
+
+def assemble_kernel_grid(
+    R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, dtype=torch.float32,
+    tile_i: int | None = None, tile_j: int | None = None, mm: str = 'native',
+):
+    """Assemble ``A = -K`` (force block only) into the block-grid packed
+    triangle of ``ops/blockchol.py``, on the inputs' device, in ``dtype``.
+
+    ``spec.n`` counts ``m_pad >= M`` points of ``3N`` rows each and
+    ``spec.b`` must be a multiple of ``3N``. Rows and columns of the padded
+    points are zero, and the padded diagonal is 1, so the padded system
+    stays SPD. Each ``(b, b)`` block is written tile by tile (``tile_i`` x
+    ``tile_j`` points, default :func:`default_tile_sizes` in ``dtype``,
+    capped at the block's points; edge tiles are smaller). float32 blocks
+    are computed from float32 descriptors with TF32 off. ``mm`` goes to
+    :func:`hessian_tile_compressed` (``'ozaki'`` takes float64). Same
+    layout and values as ``sgdml_tpu.ops.kernel.assemble_kernel_grid``.
+    """
+    block = _grid_block_fn(R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, dtype, tile_i, tile_j, mm)
     with _true_f32(dtype):
         return [[block(i, j) for j in range(i + 1)] for i in range(spec.k)]
+
+
+def assemble_kernel_grid_pair(
+    R_desc, R_d_desc, desc_perms, sig, n_atoms, spec,
+    tile_i: int | None = None, tile_j: int | None = None, mm: str = 'native',
+):
+    """Assemble ``A = -K`` straight into pair-float (f32 hi, bf16 lo)
+    block-grid storage (``ops/pairchol.py``): each ``(b, b)`` block is
+    computed in f64 by :func:`assemble_kernel_grid`'s loop and split as soon
+    as it is made, so the f64 triangle never exists whole. About 33-bit
+    entries let the pair Cholesky's stability shift sit at the pair-storage
+    floor instead of f32 entry noise. Returns ``(Ghi, Glo)``; same layout
+    and values as ``sgdml_tpu.ops.kernel.assemble_kernel_grid_pair``.
+    """
+    block = _grid_block_fn(R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, torch.float64, tile_i, tile_j, mm)
+    Ghi, Glo = [], []
+    for i in range(spec.k):
+        pairs = [pair_split(block(i, j)) for j in range(i + 1)]
+        Ghi.append([p[0] for p in pairs])
+        Glo.append([p[1] for p in pairs])
+    return Ghi, Glo
 
 
 def column_tables(X, Jc, desc_perms, col_3n_idxs, n_atoms, s_perm):

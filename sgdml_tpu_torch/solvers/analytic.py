@@ -23,13 +23,19 @@ by the device-memory budget:
   factorization to hold, which bounds the preconditioned condition number
   by ``lam'/lam``. Energy constraints add a dense border through an exact
   Schur-complement preconditioner.
+* **pair precision + refinement CG** (past the dense bound, where ``lam <
+  1e-7 lmax`` and ``est_memory_pair`` fits): the same refinement CG with
+  the (f32, bf16) pair-precision factor of ``ops/pairchol.py``, assembled in
+  f64 and factorized with exact int8 Ozaki updates at the pair-storage
+  floor, so ``lam'`` sits about 100x below the f32 grid's and CG takes
+  far fewer iterations; the factor is applied through int8 slice stacks.
+  Its ladder starts at ``3e-9 lmax``; where every rung fails, or CG breaks
+  down before a finite iterate, it falls back to the grid route (logged).
 
 Same routes and results as ``sgdml_tpu.solvers.analytic`` on one device,
-where H100 measurements re-decided two TPU rules: dense f64 stays the
-route wherever it fits (the JAX package leaves it past 8,192 unknowns
-because the TPU emulates f64), and the region where the JAX package takes
-its pair-precision route (``lam < 1e-7 lmax``) takes the grid route with a
-log line, until ROADMAP queue 1 item 12b ports that route.
+where H100 measurements re-decided one TPU rule: dense f64 stays the route
+wherever it fits (the JAX package leaves it past 8,192 unknowns because the
+TPU emulates f64). Past it, the pair-or-grid rule is the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,10 +46,10 @@ import timeit
 import numpy as np
 import torch
 
-from ..ops import blockchol
+from ..ops import blockchol, pairchol
 from ..ops.kernel import (
     _grad_row_tile, _perms_key, _tile_constants, _value_tile, assemble_kernel, assemble_kernel_grid,
-    expand_perm_jacobian, perm_tables,
+    assemble_kernel_grid_pair, expand_perm_jacobian, perm_tables,
 )
 from ..utils.profiling import PhaseTimer
 
@@ -62,6 +68,13 @@ GRID_TARGET_BLOCK = 8192  # side of a grid block, in unknowns
 # 1e-7 lmax: an f32 factorization needs the smallest eigenvalue above about
 # n eps32 lmax.
 LAM_P_SHIFTS = (0.0, 3e-7, 3e-6, 3e-5, 3e-4, 3e-3)
+# The pair route: its block side and its ladder, which starts near the
+# pair-storage floor (~2^-33 lmax) plus assembly noise; the unshifted rung is
+# skipped when lam < 1e-9 lmax. The route is taken where lam is below
+# PAIR_REGION lmax (the f32 grid's first rung would shift it).
+PAIR_TARGET_BLOCK = 4096
+PAIR_LAM_P_SHIFTS = (0.0, 3e-9, 3e-8, 3e-7, 3e-6)
+PAIR_REGION = 1e-7
 BORDER_TILE = 64  # energy columns a tile of the border assembly
 
 _F32, _F64 = torch.float32, torch.float64
@@ -203,13 +216,34 @@ def _border_pieces_grid(L32, A_fe, Aee):
     B = torch.zeros((n_pad, m), dtype=_F32, device=A_fe.device)
     B[:n_f] = A_fe
     G = blockchol.solve_grid(L32, B)[:n_f]
-    S = Aee - A_fe.mT @ G.to(Aee.dtype)
+    return G, _schur_chol(Aee - A_fe.mT @ G.to(Aee.dtype))
+
+
+def _border_pieces_pair(sstrips, Dinv, A_fe, Aee):
+    """Bordered-preconditioner pieces for the pair factor: ``G = P_ff^{-1}
+    A_fe`` by the int8 strip solve with ``M`` right-hand sides (f64) and
+    ``Ls = chol(Aee + lam' - A_ef G)``."""
+    G = pairchol.solve_strips_int8(sstrips, Dinv, A_fe)
+    return G, _schur_chol(Aee - A_fe.mT @ G)
+
+
+def _schur_chol(S):
     Ls, info = torch.linalg.cholesky_ex(S)
     if int(info) != 0:
         raise RuntimeError(
             'the energy-constraint Schur complement is not positive definite at this lam\'; '
             'try a different sigma or a larger regularization')
-    return G, Ls
+    return Ls
+
+
+def _matvec_op(tab, sig, lam, *, n_atoms, use_E_cstr):
+    """The refinement CG's matrix-free f64 matvec ``v -> A v``."""
+    from .iterative import _matvec_A
+
+    def A_apply(v):
+        return _matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+
+    return A_apply
 
 
 def _grid_operators(L32, G, Ls, tab, sig, lam, *, n_atoms, n, use_E_cstr):
@@ -217,14 +251,10 @@ def _grid_operators(L32, G, Ls, tab, sig, lam, *, n_atoms, n, use_E_cstr):
     matvec, and the preconditioner, which pads to the grid's side, solves
     in f32 through ``L32`` and casts back (through the exact border with
     ``G``, ``Ls`` when ``use_E_cstr``)."""
-    from .iterative import _matvec_A
-
     m = tab.X.shape[0]
     n_f = n - (m if use_E_cstr else 0)
     n_pad = len(L32) * L32[0][0].shape[0]
-
-    def A_apply(v):
-        return _matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+    A_apply = _matvec_op(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
 
     def M_ff(v):
         vp = torch.zeros(n_pad, dtype=_F32, device=v.device)
@@ -232,6 +262,47 @@ def _grid_operators(L32, G, Ls, tab, sig, lam, *, n_atoms, n, use_E_cstr):
         return blockchol.solve_grid(L32, vp)[:n_f].to(v.dtype)
 
     return A_apply, (_border_M_apply(M_ff, G.to(_F64), Ls, n_f) if use_E_cstr else M_ff)
+
+
+def _cuda_graph(fn, n, device):
+    """``fn`` of f64 vectors of length ``n`` on a CUDA ``device``, captured
+    once as a CUDA graph (after two warm-up calls on the capture stream)
+    and replayed: same kernels, same bits, one launch from the host."""
+    x = torch.zeros(n, dtype=_F64, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn(x)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn(x)
+
+    def replay(v):
+        x.copy_(v)
+        graph.replay()
+        return out.clone()
+
+    return replay
+
+
+def _pair_M_apply(sstrips, Dinv, G, Ls, n, m, use_E_cstr):
+    """The pair route's preconditioner: the int8 strip solve through the
+    factor (``pairchol.solve_strips_int8``, which pads to the grid's side),
+    through the exact border with ``G``, ``Ls`` when ``use_E_cstr`` (``m``
+    energy rows). On a GPU the strip solve of a vector is a CUDA graph
+    (:func:`_cuda_graph`): it issues about 8,000 small kernels, which the
+    host took 0.2 s to enqueue at aspirin M=1000 on the H100 (PERF.md)."""
+    n_f = n - m if use_E_cstr else n
+
+    def M_ff(v):
+        return pairchol.solve_strips_int8(sstrips, Dinv, v)
+
+    device = Dinv[0].slices.device
+    if device.type == 'cuda':
+        M_ff = _cuda_graph(M_ff, n_f, device)
+    return _border_M_apply(M_ff, G, Ls, n_f) if use_E_cstr else M_ff
 
 
 def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters):
@@ -274,24 +345,73 @@ def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters):
     return (x, r, z, p, rz, it), torch.linalg.vector_norm(r)
 
 
+def _refinement_cg(A_apply, M_apply, y):
+    """Refinement CG on ``y`` preconditioned by ``M_apply``, in chunks of
+    ``PCG_CHUNK_ITERS`` (:func:`_pcg_chol`, one host read a chunk), to
+    ``PCG_RTOL`` or ``PCG_MAX_ITERS``. Returns ``(x, rel, iters)``.
+
+    On a numerical breakdown (a non-finite residual) ``x`` is the best
+    finite iterate seen at a chunk's end, with a warning, or None when there
+    was none: a breakdown poisons the in-flight state with NaNs, and NaN
+    comparisons being False would otherwise let the poisoned ``x`` through.
+    A stop above ``1e-6`` warns."""
+    b_norm = max(float(torch.linalg.vector_norm(y)), 1e-300)
+    iters, rel = 0, 1.0
+    best_x, best_rel = None, np.inf
+    t0 = timeit.default_timer()
+    z0 = M_apply(y)
+    state = (torch.zeros_like(y), y, z0, z0, y @ z0, None)
+    for _ in range(-(-PCG_MAX_ITERS // PCG_CHUNK_ITERS)):
+        state, resid = _pcg_chol(state, A_apply, M_apply, b_norm, PCG_RTOL, max_iters=PCG_CHUNK_ITERS)
+        head = torch.stack([state[5].to(_F64), resid]).cpu()  # the chunk's one host read
+        it_done, rel = int(head[0]), float(head[1]) / b_norm
+        iters += it_done
+        if np.isfinite(rel) and rel < best_rel:
+            best_x, best_rel = state[0], rel
+        log.info('Refinement CG: %d iterations, relative residual %.2e (%.1f s).',
+                 iters, rel, timeit.default_timer() - t0)
+        if not np.isfinite(rel) or rel <= PCG_RTOL or it_done < PCG_CHUNK_ITERS:
+            break
+    if not np.isfinite(rel):
+        if best_x is None:
+            return None, rel, iters
+        log.warning(
+            'Refinement CG broke down numerically at iteration %d; '
+            'returning the best finite iterate (relative residual '
+            '%.2e).', iters, best_rel,
+        )
+        x, rel = best_x, best_rel
+    else:
+        x = state[0]
+    if not (rel <= 1e-6):
+        log.warning(
+            'Refinement CG stopped at relative residual %.2e (target '
+            '%.0e); the solution may be slightly less accurate than a '
+            'direct f64 factorization.', rel, PCG_RTOL,
+        )
+    return x, rel, iters
+
+
 class Analytic:
     """Closed-form training on the device of its inputs.
 
     Parameters
     ----------
     gdml_train: the calling trainer (kept for API parity).
-    callback: optional progress callback (unused by both routes).
+    callback: optional progress callback (unused by every route).
     mesh: multi-device solves are not ported; must be None.
     max_memory: budget in GB for the route choice; None takes
         :func:`memory_budget` of the inputs' device.
 
-    After :meth:`solve`, ``timer.durations`` holds the seconds of the
-    route's phases, each ended by a device synchronization: ``'assembly'``
-    and ``'cholesky'`` on the dense route; ``'lmax'``, ``'assembly'`` and
-    ``'factor'`` (summed over the lam' ladder's rungs), ``'border'`` (with
-    energy constraints) and ``'cg'`` on the grid route. ``t_assemble`` is
-    everything before the solve proper and ``t_solve`` the rest. The grid
-    route also sets ``lmax``, ``rungs`` (``(lam', info)`` of each rung
+    After :meth:`solve`, ``route`` names the route that solved (``'dense'``,
+    ``'grid'`` or ``'pair'``) and ``timer.durations`` holds the seconds of
+    its phases, each ended by a device synchronization: ``'assembly'`` and
+    ``'cholesky'`` on the dense route; ``'lmax'``, ``'assembly'`` and
+    ``'factor'`` (summed over the lam' ladder's rungs), ``'repack'`` (the
+    pair route: leaf inverses and int8 slice stacks), ``'border'`` (with
+    energy constraints) and ``'cg'`` past it. ``t_assemble`` is everything
+    before the solve proper and ``t_solve`` the rest. The grid and pair
+    routes also set ``lmax``, ``rungs`` (``(lam', info)`` of each rung
     tried; ``info`` 0 where the factor held), ``lam_p_used`` and
     ``pcg_iters``.
     """
@@ -303,17 +423,21 @@ class Analytic:
         self.gdml_train = gdml_train
         self.callback = callback
         self._max_memory = max_memory
-        self.t_assemble = self.t_solve = None
+        self.t_assemble = self.t_solve = self.route = None
         self.timer = PhaseTimer()
 
     def solve(self, task, R_desc, R_d_desc, desc_perms, y):
         """Solve ``(-K + lam I) x = y`` and return ``alphas = -x`` as a
         tensor on the inputs' device: densely when the system's ``24 n^2``
-        bytes fit the budget, else by the f32 grid route.
+        bytes fit the budget; past that, by the pair route where ``lam <
+        1e-7 lmax`` and :meth:`est_memory_pair` fits the budget, else by the
+        f32 grid route (``sgdml_tpu/solvers/analytic.py:393-416``).
 
         R_desc: ``(M, D)``, R_d_desc: ``(M, D, 3)`` tensors on the device.
         desc_perms: ``(P, D)`` host ints. y: ``(n,)`` labels.
         """
+        from .iterative import matvec_tables
+
         sig = float(np.squeeze(task['sig']))
         lam = float(np.squeeze(task['lam']))
         use_E_cstr = bool(task.get('use_E_cstr', False))
@@ -326,8 +450,18 @@ class Analytic:
                   else self._max_memory * 1024**3)
         need = Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr)
         if need > budget:
-            return self._solve_grid_pcg(task, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, budget=budget)
+            # Both routes refine on the f64 inputs and their matvec tables:
+            # made once here, where lmax picks the route.
+            X, Jc = R_desc.to(_F64), R_d_desc.to(_F64)
+            with timer.phase('lmax'):
+                tab = matvec_tables(X, Jc, desc_perms)
+                lmax = _lmax_power(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+            route = (self._solve_pair_pcg
+                     if lam < PAIR_REGION * lmax and Analytic.est_memory_pair(n_train, n_atoms) <= budget
+                     else self._solve_grid_pcg)
+            return route(task, X, Jc, desc_perms, y, sig, lam, n_atoms, lmax=lmax, tab=tab)
 
+        self.route = 'dense'
         with timer.phase('assembly'):
             K = assemble_kernel(R_desc, R_d_desc, desc_perms, sig, n_atoms, use_E_cstr=use_E_cstr)
         self.t_assemble = timer.durations['assembly']
@@ -347,32 +481,46 @@ class Analytic:
         log.info('Solved %d-dim linear system in %.2f s', K.shape[0], self.t_solve)
         return alphas
 
-    def _solve_grid_pcg(self, task, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, lmax=None, budget=None):
-        """Large-system closed-form solve: f32 block-grid Cholesky
-        preconditioner + f64 matrix-free refinement CG (module docstring).
-        ``lmax`` is found by power iteration unless given. With ``budget``
-        (bytes), where the JAX package would take its pair route (``lam <
-        1e-7 lmax`` and :meth:`est_memory_pair` within the budget), one
-        line names ROADMAP item 12b. Returns ``alphas = -x`` as a float64
-        tensor on the inputs' device."""
+    def _setup_refinement(self, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr, lmax, tab):
+        """The f64 inputs and labels of a refinement route, with its matvec
+        tables and ``lmax`` (by power iteration) where not given."""
         from .iterative import matvec_tables
 
+        X, Jc = R_desc.to(_F64), R_d_desc.to(_F64)
+        y = torch.as_tensor(y, dtype=_F64, device=X.device)
+        if tab is None:
+            tab = matvec_tables(X, Jc, desc_perms)
+        if lmax is None:
+            with self.timer.phase('lmax'):
+                lmax = _lmax_power(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+        return X, Jc, y, tab, lmax
+
+    def _record_factor(self, lmax, lam_p_used, what, spec, lam, m, use_E_cstr):
+        """Keep lmax, lam' and the seconds before the solve proper; log them."""
+        timer = self.timer
+        self.lmax, self.lam_p_used = lmax, lam_p_used
+        self.t_assemble = sum(timer.durations.get(k, 0.0) for k in ('lmax', 'assembly', 'factor', 'repack', 'border'))
+        log.info(
+            "Assembled+factorized %dx%d %s triangle (%d x %d blocks) in %.2f s (lmax=%.3e, lam'=%g%s%s).",
+            spec.n, spec.n, what, spec.k, spec.k, self.t_assemble, lmax, lam_p_used,
+            '' if lam_p_used == lam else ' [shifted for stability]',
+            ' [+%d-row E border]' % m if use_E_cstr else '',
+        )
+
+    def _solve_grid_pcg(self, task, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, lmax=None, tab=None):
+        """Large-system closed-form solve: f32 block-grid Cholesky
+        preconditioner + f64 matrix-free refinement CG (module docstring).
+        ``lmax`` is found by power iteration, and ``tab`` (the matvec tables
+        of the f64 inputs) is built, unless given. Returns ``alphas = -x`` as
+        a float64 tensor on the inputs' device."""
         use_E_cstr = bool(task.get('use_E_cstr', False))
         timer = self.timer
         dim_i = 3 * n_atoms
         m = R_desc.shape[0]
         m_pad = -(-m // 8) * 8
         spec = blockchol.grid_spec(m_pad * dim_i, target_block=GRID_TARGET_BLOCK, align=dim_i)
-        X, Jc = R_desc.to(_F64), R_d_desc.to(_F64)
-        y = torch.as_tensor(y, dtype=_F64, device=X.device)
-        tab = matvec_tables(X, Jc, desc_perms)
-        if lmax is None:
-            with timer.phase('lmax'):
-                lmax = _lmax_power(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
-        if budget is not None and lam < 1e-7 * lmax and Analytic.est_memory_pair(m, n_atoms) <= budget:
-            log.info(
-                "lam=%g < 1e-7 lmax (lmax=%.3e): the JAX package takes its pair-precision route here, "
-                "ROADMAP queue 1 item 12b (not ported); taking the f32 grid route.", lam, lmax)
+        X, Jc, y, tab, lmax = self._setup_refinement(R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms,
+                                                     use_E_cstr, lmax, tab)
 
         # lam' ladder: raise the preconditioner shift until the f32
         # factorization holds. The preconditioned condition number is
@@ -408,62 +556,112 @@ class Analytic:
                 G, Ls = _border_pieces_grid(
                     L32, _assemble_fe_A(X, Jc, sig, desc_perms, n_atoms),
                     _assemble_ee_A(X, sig, lam_p_used, desc_perms))
-        self.lmax, self.lam_p_used = lmax, lam_p_used
-        self.t_assemble = sum(timer.durations.get(k, 0.0) for k in ('lmax', 'assembly', 'factor', 'border'))
-        log.info(
-            "Assembled+factorized %dx%d f32 packed triangle (%d x %d blocks) in %.2f s (lmax=%.3e, lam'=%g%s%s).",
-            spec.n, spec.n, spec.k, spec.k, self.t_assemble, lmax, lam_p_used,
-            '' if lam_p_used == lam else ' [shifted for f32 stability]',
-            ' [+%d-row E border]' % m if use_E_cstr else '',
-        )
+        self._record_factor(lmax, lam_p_used, 'f32 packed', spec, lam, m, use_E_cstr)
 
         A_apply, M_apply = _grid_operators(L32, G, Ls, tab, sig, lam, n_atoms=n_atoms, n=y.shape[0],
                                            use_E_cstr=use_E_cstr)
-        b_norm = max(float(torch.linalg.vector_norm(y)), 1e-300)
-        iters, rel = 0, 1.0
-        # Best finite iterate across chunk boundaries: a numerical breakdown
-        # poisons the in-flight state with NaNs, and NaN comparisons being
-        # False would otherwise let the poisoned x through silently.
-        best_x, best_rel = None, np.inf
         with timer.phase('cg'):
-            t0 = timeit.default_timer()
-            z0 = M_apply(y)
-            state = (torch.zeros_like(y), y, z0, z0, y @ z0, None)
-            for _ in range(-(-PCG_MAX_ITERS // PCG_CHUNK_ITERS)):
-                state, resid = _pcg_chol(state, A_apply, M_apply, b_norm, PCG_RTOL, max_iters=PCG_CHUNK_ITERS)
-                head = torch.stack([state[5].to(_F64), resid]).cpu()  # the chunk's one host read
-                it_done, rel = int(head[0]), float(head[1]) / b_norm
-                iters += it_done
-                if np.isfinite(rel) and rel < best_rel:
-                    best_x, best_rel = state[0], rel
-                log.info('Refinement CG: %d iterations, relative residual %.2e (%.1f s).',
-                         iters, rel, timeit.default_timer() - t0)
-                if not np.isfinite(rel) or rel <= PCG_RTOL or it_done < PCG_CHUNK_ITERS:
-                    break
-        if not np.isfinite(rel):
-            if best_x is None:
-                raise RuntimeError(
-                    'Refinement CG broke down numerically before producing '
-                    'a finite iterate (the f32 factor is unusable as a '
-                    'preconditioner). Try a different sigma or a larger '
-                    'regularization.'
-                )
-            log.warning(
-                'Refinement CG broke down numerically at iteration %d; '
-                'returning the best finite iterate (relative residual '
-                '%.2e).', iters, best_rel,
+            x, _, self.pcg_iters = _refinement_cg(A_apply, M_apply, y)
+        if x is None:
+            raise RuntimeError(
+                'Refinement CG broke down numerically before producing '
+                'a finite iterate (the f32 factor is unusable as a '
+                'preconditioner). Try a different sigma or a larger '
+                'regularization.'
             )
-            x, rel = best_x, best_rel
-        else:
-            x = state[0]
         self.t_solve = timer.durations['cg']
-        if not (rel <= 1e-6):
-            log.warning(
-                'Refinement CG stopped at relative residual %.2e (target '
-                '%.0e); the solution may be slightly less accurate than a '
-                'direct f64 factorization.', rel, PCG_RTOL,
-            )
+        self.route = 'grid'
+        return -x
+
+    def _solve_pair_pcg(self, task, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms,
+                        target_block: int = PAIR_TARGET_BLOCK, lmax=None, tab=None):
+        """Large-system closed-form solve, pair-precision variant: the (f32,
+        bf16) block Cholesky with Ozaki int8 updates (``ops/pairchol.py``)
+        factors at the pair-storage floor, so the stability shift lam' sits
+        orders of magnitude below the f32 grid's (~3e-7 lmax), and the
+        refinement CG converges in ~sqrt(lam'_f32 / lam'_pair) fewer
+        iterations (``sgdml_tpu/solvers/analytic.py:638-836``).
+
+        Each rung assembles true pair entries in f64
+        (``assemble_kernel_grid_pair``) with native products: the JAX
+        package's ``assembly='f64'``, and its ``mm='auto'`` as that rule
+        reads off a TPU (it takes Ozaki products only there); no caller sets
+        another value, so neither is an argument here. ``lmax`` and ``tab``
+        as in :meth:`_solve_grid_pcg`. The factor is repacked in stages
+        (factor at 6 bytes an element, leaf inverses, drop the diagonal
+        pairs, int8 strips one at a time) and applied by
+        ``pairchol.solve_strips_int8``. The CG is the grid route's chunked
+        driver (:func:`_refinement_cg`, :func:`_pcg_chol`) with the pair
+        preconditioner (:func:`_pair_M_apply`): the JAX package's
+        ``_pcg_pair_step`` and ``_pcg_pair_start``, which host-step it and
+        read the residual every 10 iterations, have no separate body here.
+        When every rung fails, or CG breaks down before a finite iterate, it
+        falls back to :meth:`_solve_grid_pcg` with a warning (given this
+        ``lmax``). Returns ``alphas = -x`` as a float64 tensor."""
+        use_E_cstr = bool(task.get('use_E_cstr', False))
+        timer = self.timer
+        dim_i = 3 * n_atoms
+        m = R_desc.shape[0]
+        m_pad = -(-m // 8) * 8
+        spec = blockchol.grid_spec(m_pad * dim_i, target_block=target_block, align=dim_i)
+        X, Jc, y, tab, lmax = self._setup_refinement(R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms,
+                                                     use_E_cstr, lmax, tab)
+
+        # lam' ladder from near the pair-storage floor; a failed rung costs
+        # one assembly and a factorization up to its first indefinite leaf.
+        shifts = PAIR_LAM_P_SHIFTS[1:] if lam < 1e-9 * lmax else PAIR_LAM_P_SHIFTS
+        Lh = Ll = lam_p_used = None
+        self.rungs = []
+        for shift in shifts:
+            lam_p = max(lam, shift * lmax)
+            with timer.phase('assembly'):
+                Ghi, Glo = assemble_kernel_grid_pair(X, Jc, desc_perms, sig, n_atoms, spec)
+                pairchol.grid_pair_diag_add(Ghi, Glo, lam_p)
+            with timer.phase('factor'):
+                Ghi, Glo, info = pairchol.chol_grid_pair(Ghi, Glo)
+            self.rungs.append((lam_p, info))
+            if info == 0:
+                Lh, Ll, lam_p_used = Ghi, Glo, lam_p
+                break
+            log.debug("pair rung lam'=%g: the factorization failed at order %d.", lam_p, info)
+            del Ghi, Glo
+        if Lh is None:
+            log.warning("Pair-precision factorization failed at every lam' rung; falling back to the f32 grid "
+                        'solver.')
+            return self._solve_grid_pcg(task, X, Jc, desc_perms, y, sig, lam, n_atoms, lmax=lmax, tab=tab)
+        with timer.phase('repack'):
+            # Staged: the factor whole at 6 bytes an element, then its leaf
+            # inverses, then the int8 strips one at a time.
+            Dinv = pairchol.leaf_inverses(Lh, Ll)
+            for j in range(len(Lh)):
+                Lh[j][j] = Ll[j][j] = None
+            sstrips = pairchol.int8_strips(pairchol.strips_from_grid(Lh, Ll))
+            del Lh, Ll
+            Dinv = pairchol.slice_leaf_inverses(Dinv)
+        # Energy-constraint border (see _solve_grid_pcg): exact bordered
+        # preconditioner through the pair factor at the same lam'.
+        G = Ls = None
+        if use_E_cstr:
+            with timer.phase('border'):
+                G, Ls = _border_pieces_pair(
+                    sstrips, Dinv, _assemble_fe_A(X, Jc, sig, desc_perms, n_atoms),
+                    _assemble_ee_A(X, sig, lam_p_used, desc_perms))
+        self._record_factor(lmax, lam_p_used, 'pair-precision (f32+bf16)', spec, lam, m, use_E_cstr)
+
+        A_apply = _matvec_op(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+        with timer.phase('cg'):
+            M_apply = _pair_M_apply(sstrips, Dinv, G, Ls, y.shape[0], m, use_E_cstr)
+            x, rel, iters = _refinement_cg(A_apply, M_apply, y)
+        if x is None:
+            log.warning('Pair-precision refinement CG broke down before producing a finite iterate; falling back '
+                        'to the f32 grid solver.')
+            del M_apply, sstrips, Dinv, G, Ls
+            return self._solve_grid_pcg(task, X, Jc, desc_perms, y, sig, lam, n_atoms, lmax=lmax, tab=tab)
+        log.info('Refinement CG done: %d iterations, relative residual %.2e (%.1f s).', iters, rel,
+                 timer.durations['cg'])
+        self.t_solve = timer.durations['cg']
         self.pcg_iters = iters
+        self.route = 'pair'
         return -x
 
     @staticmethod
@@ -484,10 +682,10 @@ class Analytic:
 
     @staticmethod
     def est_memory_pair(n_train, n_atoms):
-        """Bytes the JAX package's pair-precision path needs (7-slice int8
-        strips, 8-slice int8 leaf inverses and transients); the route
-        itself is ROADMAP queue 1 item 12b, and this estimate places the log
-        line that :meth:`solve` writes where that package would take it."""
+        """Bytes needed on the device for the pair-precision path. Peak =
+        the repack and the CG phase: 7-slice int8 strips (3.5 bytes an
+        element over the full square) + the leaf inverses (8 bytes an
+        element of their blocks) + transients (the JAX package's formula)."""
         dim_i = 3 * n_atoms
         n = (-(-n_train // 8) * 8) * dim_i
         spec = blockchol.grid_spec(n, target_block=4096, align=dim_i)

@@ -219,23 +219,37 @@ def test_grid_failure_modes(monkeypatch, caplog, fault):
         assert any('best finite iterate' in r.message for r in caplog.records)
 
 
-def test_route_choice(monkeypatch, caplog):
-    """Dense where ``24 n^2`` fits (no lmax); else lmax and the grid route,
-    with one log line naming item 12b where the JAX package would take its
-    pair route (lam < 1e-7 lmax and ``est_memory_pair`` within the budget)."""
+def test_route_choice(monkeypatch):
+    """Dense where ``24 n^2`` fits (no lmax); else lmax, then the pair route
+    where the JAX package takes it (lam < 1e-7 lmax and ``est_memory_pair``
+    within the budget), else the grid route: each choice made on both sides
+    (the JAX routes stubbed to record which one its ``solve`` calls). Past
+    the dense bound ``solve`` builds the matvec tables once, for lmax and
+    the route."""
     X, Jc, dperms, y = _system(1)
-    task = {'sig': SIG, 'lam': LAM}
+    builds = []
+    tables = it_mod.matvec_tables
+    monkeypatch.setattr(it_mod, 'matvec_tables', lambda *a: builds.append(1) or tables(*a))
     dense = an.Analytic(max_memory=1.0)
-    dense.solve(task, X, Jc, dperms, y)
-    assert set(dense.timer.durations) == {'assembly', 'cholesky'} and not hasattr(dense, 'pcg_iters')
-    for pair_bytes, logged in ((10**12, False), (0, True)):
-        monkeypatch.setattr(an.Analytic, 'est_memory_pair', staticmethod(lambda n_train, n_atoms: pair_bytes))
-        caplog.clear()
-        grid = an.Analytic(max_memory=1e-4)
-        with caplog.at_level(logging.INFO, logger=LOGGER):
-            grid.solve(task, X, Jc, dperms, y)
-        assert grid.pcg_iters > 0 and grid.lmax > 0 and 'lmax' in grid.timer.durations
-        assert any('item 12b' in r.message for r in caplog.records) == logged
+    dense.solve({'sig': SIG, 'lam': LAM}, X, Jc, dperms, y)
+    assert dense.route == 'dense' and set(dense.timer.durations) == {'assembly', 'cholesky'}
+    assert not hasattr(dense, 'pcg_iters')
+    taken = []
+    for route in ('pair', 'grid'):
+        monkeypatch.setattr(jax_an.Analytic, '_solve_%s_pcg' % route,
+                            lambda self, *a, _route=route, **k: taken.append(_route) or np.zeros(len(y)))
+    for pair_bytes, lam, route in ((10**12, LAM, 'grid'), (0, LAM, 'pair'), (0, 1e-3, 'grid')):
+        for cls in (an.Analytic, jax_an.Analytic):
+            monkeypatch.setattr(cls, 'est_memory_pair', staticmethod(lambda n_train, n_atoms: pair_bytes))
+        task = {'sig': SIG, 'lam': lam}
+        solver = an.Analytic(max_memory=1e-4)
+        builds.clear()
+        solver.solve(task, X, Jc, dperms, y)
+        assert len(builds) == 1, (route, len(builds))
+        jax_an.Analytic(max_memory=1e-4).solve(task, X.numpy(), Jc.numpy(), dperms, y)
+        assert solver.route == taken[-1] == route, (pair_bytes, lam, solver.route, taken)
+        assert solver.pcg_iters > 0 and solver.lmax > 0 and 'lmax' in solver.timer.durations
+        assert ('repack' in solver.timer.durations) == (route == 'pair')
 
 
 def test_memory_estimates_match_jax():
