@@ -135,10 +135,24 @@ each a plain assertion that ends the run with a traceback when it fails:
    applies, with GB/s); the route's library products against what could
    replace them (an Ozaki trailing update against ``torch.matmul`` in f64;
    the int8 strip solve against the pair-form one); (b) phase 10c's
-   energy-constrained task on the pair route against the dense model.
+   energy-constrained task on the pair route against the dense model;
+13. the mesh (``sgdml_tpu_torch/parallel``) on a one-rank NCCL world that the
+   phase makes, with no launcher, and destroys: (a) phase 7c's ethanol M=1000
+   task by ``GDMLTrain(mesh=default_mesh(1))`` against 7c's dense model (1e-7),
+   with both routes' phases side by side; (b) 10a's aspirin task (63,000
+   unknowns, lam 1e-10) by the sharded f64 Cholesky, whose one strip stores
+   the matrix once (8 n^2 bytes against the dense route's 24 n^2): seconds by
+   phase, the factor's TFLOP/s on n^3/3 and on the flops it does, the peak
+   against the strip, the residual re-measured through K1, the held-out MAE
+   against 10a's and the forces against 12a's pair-route model; (c) 8c's task
+   by CG on the mesh (the factor column-sharded) at 8c's budget: 8c's k,
+   iterations and model; (d) ``GDMLPredict(mesh=)`` at phase 5's AT-AT width
+   (B = 1, 512 and 10,000) against one device, both timed; (e)
+   ``dryrun_multichip(1)`` and the quick start with ``--devices 1`` against
+   9a.
 
-Phases 4-12 are the main path: each sets the launch counts to 0 before it
-drives the path (phases 8-12 before each training run, solve or command)
+Phases 4-13 are the main path: each sets the launch counts to 0 before it
+drives the path (phases 8-13 before each training run, solve or command)
 and reads them right after. The last lines are the command's wall, the
 kernels' JSON record, the card's name and power limit, and ``{"ok": true,
 ...}``.
@@ -168,6 +182,9 @@ from sgdml_tpu_torch.intf import ase_calc
 from sgdml_tpu_torch.md import MDEngine
 from sgdml_tpu_torch import train as train_mod
 from sgdml_tpu_torch.ops import _build, blockchol, fused_predict, ozaki, pairchol
+from sgdml_tpu_torch.parallel import mesh as mesh_mod
+from sgdml_tpu_torch.parallel import spmd
+from sgdml_tpu_torch.parallel.dryrun import dryrun_multichip
 from sgdml_tpu_torch.ops import kernel as kernel_ops
 from sgdml_tpu_torch.ops import descriptor as desc_ops
 from sgdml_tpu_torch.ops._precision import _true_f32
@@ -318,11 +335,34 @@ OZAKI_ATAT_FALL = 0.95
 # still held memory).
 ATAT_FACTOR_SECONDS, ATAT_FACTOR_GB = 40.0, 68.5
 
+# Phase 13: 13a's bound on the mesh's ethanol forces against the dense
+# model's (max |dF| / max |F|; the two factorizations sum in different
+# orders at a condition number near 1e10); 13b's bounds: its held-out MAE
+# within this share of 10a's, its peak allocated in bytes, its residual
+# re-measured through K1 (6.7e-10 read on the H100: 15x above that, where a
+# wrong factor lands orders of magnitude higher), and its forces against
+# 12a's pair-route model (1.3e-9 read; a second solve of the same system,
+# held as 13a's are); 13d's request sizes and bound against the single
+# device; 13e's bound on the quick start's errors against 9a's.
+MESH_ETHANOL_TOL = 1e-7
+MESH_MAE_SHARE = 0.01
+MESH_PEAK_BYTES = 36e9
+MESH_RESID = 1e-8
+MESH_PAIR_TOL = 1e-7
+MESH_SERVE_B = (1, 512, 10_000)
+MESH_SERVE_TOL = 1e-12
+MESH_CLI_TOL = 1e-7
+
 # H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s),
 # dense int8 tensor-core peak (1,979 TOP/s) and HBM3 bandwidth, for the
 # bounds of K1 and of the int8 products.
 H100_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
 H100_INT8_OPS = 1979e12
+
+# What a later phase holds an earlier phase's run against: phase 5's AT-AT
+# queries ('5'), 8c's aspirin recipe ('8c'), 9a's quick start ('9a') and 12a's
+# held-out forces ('12a').
+RESULTS = {}
 
 
 def rel_err(ours, ref):
@@ -586,6 +626,7 @@ def phase_serving(device, card, n_atoms=60, n_train=3000, requests=(1, 17, 512, 
                       NAME[dtype], B, B / ms * 1e3, ms, B / plain_ms * 1e3, plain_ms, B / e2e, card))
     print('[5 serving] AT-AT width: %d requests in f64 and f32 agree with the plain path; '
           'launches %s' % (2 * len(requests), counts))
+    RESULTS['5'] = R_q
     return counts, model
 
 
@@ -1603,6 +1644,8 @@ def cli_quickstart(device, ds_path, ds, card):
     assert io.is_model(model) and np.isfinite(err['mae']) and model['n_test'] == int(QUICKSTART[2]), err
     assert tuple(sigs) == ref_sigs and float(np.squeeze(model['sig'])) == ref_sig and rel <= QUICKSTART_TOL
     assert during['total'] > 0, during
+    RESULTS['9a'] = dict(trained=trained, sig=float(np.squeeze(model['sig'])), f_mae=err['mae'], e_mae=e_err['mae'],
+                         wall=wall)
     return during
 
 
@@ -2345,6 +2388,7 @@ def phase_pair_aspirin(device, grid, card):
     R, F_ref, _ = held_out(ds, task, GRID_HELD_OUT)
     _, F = GDMLPredict(model, device=device).predict(R)
     mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    RESULTS['12a'] = dict(F=F, times=dict(trainer.times))
     n_pad, _, t_fac = probe['chol'][-1]
     steps = factor_steps(probe)
     print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; est_memory_pair %.2f GB): solver=None took the pair route; '
@@ -2559,6 +2603,234 @@ def phase_atat_factors(device, card):
     logger.removeHandler(handler)
 
 
+def cholesky_flops(n, nb):
+    """Flops of ``ops/linalg.blocked_cholesky`` on one strip of all ``n``
+    rows at block ``nb``: each block column's leaf (``b^3 / 3``), its panel
+    solve (``rows b^2``) and its trailing updates, a row block at a time up to
+    the block's last row (``2 rows b cols``)."""
+    total = 0.0
+    for k0 in range(0, n, nb):
+        k1 = min(n, k0 + nb)
+        b = k1 - k0
+        total += b**3 / 3 + (n - k1) * b * b
+        for i0 in range(k1, n, nb):
+            i1 = min(n, i0 + nb)
+            total += 2.0 * (i1 - i0) * b * (i1 - k1)
+    return total
+
+
+def mesh_times(t, keys):
+    return ' + '.join('%s %.3f' % (k, t[k]) for k in keys if k in t)
+
+
+def phase_mesh_ethanol(device, mesh, ethanol, card):
+    """13a: phase 7c's ethanol M=1000 task on the one-rank mesh against the
+    single-device dense model, with both routes' phases side by side."""
+    ds, task, dense_model = ethanol
+    n_atoms, m = ds['R'].shape[1], task['R_train'].shape[0]
+    dense = GDMLTrain(device=device)
+    dense.train(task, solver='analytic')  # the dense route's seconds, warm
+    trainer = GDMLTrain(mesh=mesh, device=device)
+    trainer.train(task, solver='analytic')  # the mesh route's first call pays its set-up
+    R, _, _ = held_out(ds, task, 1000)
+    fused_predict.reset_launches()
+    model = trainer.train(task, solver='analytic')
+    _, Fm = GDMLPredict(model, mesh=mesh, device=device).predict(R)
+    during = launch_counts()
+    _, Fd = GDMLPredict(dense_model, device=device).predict(R)
+    rel = float(np.abs(Fm - Fd).max() / np.abs(Fd).max())
+    print('    ethanol M=%d (%d unknowns) on the one-rank mesh: train() %.3f s = %s; the dense route (one device): '
+          'train() %.3f s = %s; held-out forces of the mesh model against phase 7c\'s dense model: max |dF| / max |F| '
+          '%.3e (bound %.0e) on %d frames; K1 launches %s (%s)' % (
+              m, m * 3 * n_atoms, trainer.times['total'],
+              mesh_times(trainer.times, ('descriptors', 'assembly', 'factor', 'solve', 'model creation',
+                                         'integration constant')),
+              dense.times['total'], mesh_times(dense.times, ('descriptors', 'assembly', 'cholesky', 'model creation',
+                                                             'integration constant')),
+              rel, MESH_ETHANOL_TOL, len(R), during, card))
+    assert rel <= MESH_ETHANOL_TOL, rel
+    return during
+
+
+def phase_mesh_aspirin(device, mesh, grid, card):
+    """13b: 10a's aspirin task (63,000 unknowns, lam 1e-10) on the one-rank
+    mesh by the sharded f64 Cholesky: its one strip stores the matrix once."""
+    n_atoms, _, _, _, _, m, sig, lam = GRID_ASPIRIN
+    ds, task = grid['ds'], grid['task']
+    n = m * 3 * n_atoms
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_predict.reset_launches()
+    trainer = GDMLTrain(mesh=mesh, device=device)
+    model = trainer.train(task, solver='analytic')
+    peak = torch.cuda.max_memory_allocated() - base
+    R, F_ref, _ = held_out(ds, task, GRID_HELD_OUT)
+    _, F = GDMLPredict(model, mesh=mesh, device=device).predict(R)
+    during = launch_counts()
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    x = -torch.as_tensor(model['alphas_F'], dtype=torch.float64, device=device)
+    r = torch.as_tensor(y, device=device) - it_mod._matvec_A(x, it_mod.matvec_tables(X, Jc, dperms), sig, lam,
+                                                            n_atoms=n_atoms, use_E_cstr=False)
+    rel = float(torch.linalg.vector_norm(r)) / float(np.linalg.norm(y))
+    F_pair = RESULTS['12a']['F']
+    d_pair = float(np.abs(F - F_pair).max() / np.abs(F_pair).max())
+    t = trainer.times
+    flops = cholesky_flops(n, spmd.NB)
+    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns) on the one-rank mesh (sharded f64 Cholesky, nb %d): '
+          'train() %.2f s = %s; the factor %.1f TFLOP/s on n^3/3, %.1f on the %.3e flops it does; peak allocated by '
+          'train() %.2f GB (the strip 8 n^2 = %.2f GB; bound %.0f GB); relative residual re-measured by the K1 matvec '
+          '%.3e (bound %.0e); held-out force MAE %.6f on %d frames (10a: %.6f, bound %.0f%%); max |dF| / max |F| '
+          'from 12a\'s pair-route model %.3e (bound %.0e); the grid route (10a) train() %.2f s, the pair route '
+          '(12a) %.2f s; K1 launches %s (%s)' % (
+              n_atoms, m, sig, lam, n, spmd.NB, t['total'],
+              mesh_times(t, ('descriptors', 'assembly', 'factor', 'solve', 'model creation', 'integration constant')),
+              n**3 / 3 / t['factor'] * 1e-12, flops / t['factor'] * 1e-12, flops,
+              peak / 1e9, 8.0 * n * n / 1e9, MESH_PEAK_BYTES / 1e9, rel, MESH_RESID, mae, len(R), grid['mae'],
+              100 * MESH_MAE_SHARE, d_pair, MESH_PAIR_TOL, grid['times']['total'], RESULTS['12a']['times']['total'],
+              during, card))
+    assert peak < MESH_PEAK_BYTES and rel <= MESH_RESID and d_pair <= MESH_PAIR_TOL, (peak, rel, d_pair)
+    assert abs(mae - grid['mae']) <= MESH_MAE_SHARE * grid['mae'] and mae < CG_MAE_SHARE * scale, (mae, grid['mae'])
+    return during
+
+
+def phase_mesh_cg(device, mesh, card):
+    """13c: 8c's aspirin task (lam 1e-8) by CG on the one-rank mesh, the f64
+    factor column-sharded, at 8c's budget: 8c's k, its iterations within
+    ``CG_ANCHOR_TOL``, and its model within 10b's bound of 8c's."""
+    r = RESULTS['8c']
+    task, ds, cg_model = r['task'], r['ds'], r['model']
+    n_atoms = ds['R'].shape[1]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_predict.reset_launches()
+    trainer = GDMLTrain(max_memory=r['budget'] / 1024**3, mesh=mesh, device=device)
+    model = trainer.train(task, solver='cg', solver_max_seconds=CG_ASPIRIN_SECONDS)
+    during = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    k = len(model['inducing_pts_idxs']) // (3 * n_atoms)
+    iters, iters_8c = model['solver_iters'], cg_model['solver_iters']
+    conv = model['solver_resid'] <= model['solver_tol'] * model['norm_y_train']
+    R, F_ref, _ = held_out(ds, task, 500)
+    _, F = GDMLPredict(model, device=device).predict(R)
+    _, Fc = GDMLPredict(cg_model, device=device).predict(R)
+    f_rel = float(np.abs(F - Fc).mean() / np.abs(Fc).mean())
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    t, tc = trainer.times, r['times']
+    print('    aspirin M=%d sig=%g lam=%g by CG on the one-rank mesh: k=%d (8c: %d), %d iterations (8c: %d; bound %d%% '
+          'or %d), converged %s; train() %.2f s = %s (8c: train() %.2f s = %s); peak allocated %.2f GB (8c: %.2f); '
+          'held-out force MAE %.5f (bound %.4f); mean |dF| / mean |F| from 8c\'s model %.2e (bound %.0e) on %d '
+          'frames; K1 launches %s (%s)' % (
+              len(task['idxs_train']), float(task['sig']), float(task['lam']), k, r['k'], iters, iters_8c,
+              100 * CG_ANCHOR_TOL[0], CG_ANCHOR_TOL[1], conv, t['total'],
+              mesh_times(t, ('descriptors', 'leverage scores', 'factor', 'cg', 'integration constant')), tc['total'],
+              mesh_times(tc, ('descriptors', 'leverage scores', 'factor', 'cg', 'integration constant')), peak / 1e9,
+              r['peak'] / 1e9, mae, CG_MAE_SHARE * scale, f_rel, CG_DENSE_BOUNDS[0], len(R), during, card))
+    assert k == r['k'] and conv, (k, r['k'], conv)
+    assert abs(iters - iters_8c) <= max(CG_ANCHOR_TOL[0] * iters_8c, CG_ANCHOR_TOL[1]), (iters, iters_8c)
+    assert f_rel < CG_DENSE_BOUNDS[0] and mae < CG_MAE_SHARE * scale, (f_rel, mae)
+    return during
+
+
+def phase_mesh_serving(device, mesh, atat, card):
+    """13d: ``GDMLPredict(mesh=)`` at phase 5's AT-AT width against the
+    single device, and both timed host to host (the median of three)."""
+    R_q = RESULTS['5']
+    single, sharded = GDMLPredict(atat, device=device), GDMLPredict(atat, mesh=mesh, device=device)
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def wall(pred, R):
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred.predict(R)
+            secs.append(time.perf_counter() - t0)
+        return 1e3 * sorted(secs)[1]
+
+    for B in MESH_SERVE_B:
+        fused_predict.reset_launches()
+        Em, Fm = sharded.predict(R_q[:B])
+        during = launch_counts()
+        counts = {k: counts[k] + during[k] for k in counts}
+        Es, Fs = single.predict(R_q[:B])
+        err = max(rel_err(torch.as_tensor(Em), torch.as_tensor(Es)), rel_err(torch.as_tensor(Fm), torch.as_tensor(Fs)))
+        ms_mesh, ms_single = wall(sharded, R_q[:B]), wall(single, R_q[:B])
+        print('    AT-AT N=%d T=%d B=%5d: the one-rank mesh against one device: %.2e of max |value| (bound %.0e); '
+              'predict() %.3f ms on the mesh, %.3f ms on one device (host to host, the median of 3); K1 launches %s '
+              '(%s)' % (len(atat['z']), atat['R_desc'].shape[1], B, err, MESH_SERVE_TOL, ms_mesh, ms_single, during,
+                        card))
+        assert err <= MESH_SERVE_TOL and during['total'] > 0, (B, err, during)
+    return counts
+
+
+def phase_mesh_entry_points(device, mesh, ethanol, card):
+    """13e: ``dryrun_multichip(1)``, then the quick start ``all <ethanol>
+    200 1000 5000 --devices 1`` against 9a's run."""
+    fused_predict.reset_launches()
+    t0 = time.perf_counter()
+    df = dryrun_multichip(1, device=device)
+    t_dry = time.perf_counter() - t0
+    ref = RESULTS['9a']
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_mesh_') as tmp:
+        ds_path = os.path.join(tmp, 'ethanol.npz')
+        io.save_dict(ds_path, ethanol[0])
+        with in_dir(os.path.join(tmp, 'all')):
+            t0 = time.perf_counter()
+            np.random.seed(1)
+            cli.main(['--device', device, 'all', ds_path, *QUICKSTART, '--devices', '1'])
+            wall = time.perf_counter() - t0
+            name, model = final_model()
+            task_dir = [d for d in os.listdir('.') if os.path.isdir(d)][0]
+            trained = sorted(f for f in os.listdir(task_dir) if f.startswith('model-'))
+    during = launch_counts()
+    err, e_err = recorded(model, 'f_err'), recorded(model, 'e_err')
+    rel = max(abs(err['mae'] - ref['f_mae']) / ref['f_mae'], abs(e_err['mae'] - ref['e_mae']) / ref['e_mae'])
+    print('    dryrun_multichip(1): sharded against single-device forces %.2e (bound %.0e), %.2f s; `all ethanol.npz %s '
+          '--devices 1`: %.3f s (9a: %.3f s), %d sigmas trained (9a: %d), selected sig=%g (9a: %g), test force MAE '
+          '%.8f, energy MAE %.8f, %.1e relative from 9a\'s (bound %.0e); K1 launches %s (%s)' % (
+              df, 1e-6, t_dry, ' '.join(QUICKSTART), wall, ref['wall'], len(trained), len(ref['trained']),
+              float(np.squeeze(model['sig'])), ref['sig'], err['mae'], e_err['mae'], rel, MESH_CLI_TOL, during,
+              card))
+    assert trained == ref['trained'] and float(np.squeeze(model['sig'])) == ref['sig'] and rel <= MESH_CLI_TOL
+    return during
+
+
+def phase_mesh(device, ethanol, grid, atat, card):
+    """13: the mesh on the card: a one-rank NCCL world made here (no
+    launcher) and destroyed at the end; K1 runs in every rank's serving, the
+    CG matvec and the integration constant."""
+    t0 = time.perf_counter()
+    assert not torch.distributed.is_initialized()
+    mesh_mod.init_distributed(world_size=1, rank=0, device=device)
+    counts = dict.fromkeys(launch_counts(), 0)
+    try:
+        mesh = mesh_mod.default_mesh(1, device=device)
+        torch.distributed.barrier()  # the backend makes its communicator at the first collective
+        t_init = time.perf_counter() - t0
+        assert str(torch.distributed.get_backend()) == ('nccl' if device == 'cuda' else 'gloo')
+        runs = (lambda: phase_mesh_ethanol(device, mesh, ethanol, card),
+                lambda: phase_mesh_aspirin(device, mesh, grid, card),
+                lambda: phase_mesh_cg(device, mesh, card),
+                lambda: phase_mesh_serving(device, mesh, atat, card),
+                lambda: phase_mesh_entry_points(device, mesh, ethanol, card))
+        for run in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            during = run()
+            counts = {k: counts[k] + during[k] for k in counts}
+    finally:
+        torch.distributed.destroy_process_group()
+    assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
+    print('[13 mesh] one-rank %s world (%.2f s to make, its first collective included): ethanol on the mesh = the dense model; aspirin (%d unknowns) '
+          'by the sharded f64 Cholesky within 1%% of 10a\'s MAE; CG on the mesh = 8c; mesh serving = one device; '
+          'dryrun_multichip(1) and the quick start with --devices 1 = 9a; launches %s; %.1f s (%s)' % (
+              'NCCL' if device == 'cuda' else 'gloo', t_init, GRID_ASPIRIN[5] * 3 * GRID_ASPIRIN[0], counts,
+              time.perf_counter() - t0, card))
+    return counts
+
+
 def bound(B, T, D, itemsize):
     """(ms, 'bytes' or 'operations'): the least time of one contraction on
     an H100 SXM: 8 B T D operations at 67 TFLOP/s (FP64 tensor core and FP32
@@ -2601,11 +2873,15 @@ def main():
     splits.append(grid_split_)
     ozaki_counts, ozaki_splits = phase_ozaki(device, aspirin_cg, atat_cg, smi)
     splits += ozaki_splits
+    RESULTS['8c'] = {k: aspirin_cg[k] for k in ('ds', 'task', 'model', 'k', 'budget', 'times', 'peak')}
     del aspirin_cg, atat_cg
     gc.collect()
     pair_counts, pair_split_ = phase_pair(device, ethanol, grid, smi)
     splits.append(pair_split_)
-    main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_counts = phase_mesh(device, ethanol, grid, atat, smi)
+    main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]

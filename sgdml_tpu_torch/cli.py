@@ -20,19 +20,28 @@ may come before or after the subcommand): on a GPU each validation and test
 prediction, the integration constant and every CG matvec run the fused
 (E, F) kernel. Without a card the default raises before any file is
 written; nothing falls back to the CPU unasked.
+
+``--devices N`` trains and tests over a mesh of N devices, one process
+each: ``torchrun --nproc-per-node N -m sgdml_tpu_torch.cli ... --devices N``
+(``-1``: the launched world; ``1`` needs no launcher). A world of another
+size raises before any work. Every rank runs the command; rank 0 alone
+writes files and prints, and the others wait for its writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import shutil
 import sys
 
 import numpy as np
+import torch.distributed as dist
 
 from . import __version__
+from .parallel.mesh import is_writer
 from .predict import GDMLPredict
 from .train import GDMLTrain
 from .utils import io
@@ -49,18 +58,61 @@ def _dataset_path(arg):
     return path
 
 
-def _make_mesh(n_devices):
-    """The device mesh of ``--devices``: None/0 -> single device (no mesh).
+def _make_mesh(n_devices, device='cuda'):
+    """The device mesh of ``--devices`` on ``device``'s type: None/0 -> a
+    single device (no mesh); N -> a 1-D mesh over a world of N processes;
+    -1 -> over the launched world. :func:`main` makes it once, before any
+    work, and the subcommands read it as ``args.mesh``.
 
-    Training and serving over several GPUs is not ported; any other count
-    raises before work starts.
+    The world comes from ``torchrun``'s environment; without one it has
+    this process alone, and is made here when N is 1 or -1. A world of
+    another size than N raises ``ValueError``.
     """
     if not n_devices:
         return None
-    raise NotImplementedError(
-        '--devices %d: training and serving over several GPUs is ROADMAP queue 1 '
-        'item 13 (multi-GPU); run on one device' % n_devices
-    )
+    from .parallel import mesh as mesh_mod
+
+    mesh_mod.init_distributed(device=device)  # from torchrun's environment, if any
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    want = world if n_devices < 0 else n_devices
+    if want != world:
+        raise ValueError(
+            '--devices %d: the launched world has %d process(es); launch one process a device with '
+            '`torchrun --nproc-per-node %d -m sgdml_tpu_torch.cli ... --devices %d`' % (
+                n_devices, world, want, want))
+    if not dist.is_initialized():
+        mesh_mod.init_distributed(world_size=1, rank=0, device=device)
+    return mesh_mod.default_mesh(want, device=device)
+
+
+def _write(fn, *args):
+    """``fn(*args)`` (a file write) on rank 0 alone, between two barriers:
+    no rank is still reading the file when it is written, nor reads it
+    before."""
+    if dist.is_initialized():
+        dist.barrier()
+    if is_writer():
+        fn(*args)
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _from_writer(fn, *args):
+    """``fn(*args)`` on rank 0 alone; its result, or its exception, on
+    every rank."""
+    if not dist.is_initialized():
+        return fn(*args)
+    out = [None]
+    if dist.get_rank() == 0:
+        try:
+            out[0] = (True, fn(*args))
+        except BaseException as exc:  # SystemExit too: every rank stops alike
+            out[0] = (False, exc)
+    dist.broadcast_object_list(out, src=0)
+    ok, value = out[0]
+    if not ok:
+        raise value
+    return value
 
 
 def _device(args):
@@ -140,6 +192,12 @@ def _load_perms_file(path):
 
 
 def create(args):
+    """Create the task files of a sigma grid (on rank 0; every rank returns
+    the task directory)."""
+    return _from_writer(_create, args)
+
+
+def _create(args):
     # The trainer first: it resolves the device, so a missing card raises
     # before the task directory exists.
     trainer = GDMLTrain(max_memory=args.max_memory, device=_device(args))
@@ -219,7 +277,7 @@ def train(args):
         sys.exit(1)
 
     trainer = GDMLTrain(
-        max_memory=args.max_memory, mesh=_make_mesh(getattr(args, 'devices', None)),
+        max_memory=args.max_memory, mesh=getattr(args, 'mesh', None),
         device=_device(args),
     )
     valid_dataset = (
@@ -258,12 +316,13 @@ def train(args):
             continue
 
         def save_progress(unconv_model, _path=model_path):
-            io.save_dict(_path.replace('model-', '_unconv_model-'), unconv_model)
+            if is_writer():
+                io.save_dict(_path.replace('model-', '_unconv_model-'), unconv_model)
 
         # Mark the attempt up front, so a crash mid-training leaves the
         # marker behind for --lazy runs to skip.
         task['tried_training'] = True
-        io.save_dict(task_path, task)
+        _write(io.save_dict, task_path, task)
 
         log.info('Training task %s', task_path)
         if (
@@ -292,19 +351,16 @@ def train(args):
                 'F': model['alphas_F'],
                 'E': model.get('alphas_E'),
             }
-        io.save_dict(model_path, model)
-        model_paths.append(model_path)
         unconv = model_path.replace('model-', '_unconv_model-')
-        if os.path.exists(unconv):
-            os.remove(unconv)
+        _write(_save_model, model_path, model, unconv)
+        model_paths.append(model_path)
         print('Trained %s' % model_path)
 
         # Early stopping over the sigma grid: validation force RMSE rising
         # (reference: sgdml/cli.py:1138-1150).
         if valid_dataset is not None and len(tasks) > 1:
-            res = _validate_model(
-                io.load_dict(model_path), valid_dataset, device=_device(args)
-            )
+            res = _from_writer(lambda: _validate_model(io.load_dict(model_path), valid_dataset,
+                                                       device=_device(args)))
             rmse = res['f_err']['rmse']
             log.info('Validation force RMSE at sig=%s: %.5f', task['sig'], rmse)
             if prev_valid_rmse is not None and rmse > prev_valid_rmse:
@@ -312,6 +368,13 @@ def train(args):
                 break
             prev_valid_rmse = rmse
     return model_paths
+
+
+def _save_model(path, model, unconv):
+    """Write a trained model and drop its checkpoint."""
+    io.save_dict(path, model)
+    if os.path.exists(unconv):
+        os.remove(unconv)
 
 
 def _validate_model(model, dataset, n_test=None, batch=250, mesh=None, device='cuda'):
@@ -400,7 +463,7 @@ def test(args, n_test='arg'):
 
         res = _validate_model(
             model, dataset, n_test=n_test,
-            mesh=_make_mesh(getattr(args, 'devices', None)), device=_device(args),
+            mesh=getattr(args, 'mesh', None), device=_device(args),
         )
         kind = 'validation' if n_test is None else 'test'
         print(
@@ -432,19 +495,24 @@ def test(args, n_test='arg'):
             model['f_err'] = res['f_err']
             if 'e_err' in res:
                 model['e_err'] = res['e_err']
-            io.save_dict(path, model)
+            _write(io.save_dict, path, model)
         elif never_validated:
             model['f_err'] = res['f_err']
             if 'e_err' in res:
                 model['e_err'] = res['e_err']
-            io.save_dict(path, model)
+            _write(io.save_dict, path, model)
         results.append((path, res))
     return results
 
 
 def select(args):
     """Pick the model with minimal validation force RMSE over the sigma
-    grid (reference: sgdml/cli.py:1797-1937)."""
+    grid (reference: sgdml/cli.py:1797-1937), on rank 0; every rank returns
+    the selected model's path."""
+    return _from_writer(_select, args)
+
+
+def _select(args):
     dataset = io.load_dict(args.dataset) if args.dataset else None
     paths = sorted(
         os.path.join(args.model_dir, f)
@@ -507,7 +575,7 @@ def all_cmd(args):
         overwrite=False,
         max_memory=args.max_memory,
         solver=args.solver,
-        devices=getattr(args, 'devices', None),
+        mesh=getattr(args, 'mesh', None),
         lazy=getattr(args, 'lazy', False),
         max_seconds=getattr(args, 'max_seconds', None),
         factor_slices=getattr(args, 'factor_slices', None),
@@ -524,7 +592,7 @@ def all_cmd(args):
     if args.n_test is None or args.n_test != 0:
         xargs = argparse.Namespace(
             model=best, dataset=test_path,
-            devices=getattr(args, 'devices', None), device=_device(args),
+            mesh=getattr(args, 'mesh', None), device=_device(args),
         )
         test(xargs, n_test=args.n_test or 0)
     print('Model saved to %s' % best)
@@ -548,7 +616,7 @@ def resume(args):
         sys.exit(1)
 
     trainer = GDMLTrain(
-        max_memory=args.max_memory, mesh=_make_mesh(getattr(args, 'devices', None)),
+        max_memory=args.max_memory, mesh=getattr(args, 'mesh', None),
         device=_device(args),
     )
     task = trainer.create_task_from_model(model, dataset)
@@ -558,7 +626,7 @@ def resume(args):
         factor_slices=getattr(args, 'factor_slices', None),
     )
     out = args.out or args.model
-    io.save_dict(out, new_model)
+    _write(io.save_dict, out, new_model)
     print('Resumed model saved to %s' % out)
 
 
@@ -653,8 +721,9 @@ def _add_common_train_args(p):
     )
     p.add_argument(
         '--devices', type=int, default=None,
-        help='device mesh of N GPUs: not ported (ROADMAP item 13), any N but 0 '
-        'raises (default: single device)',
+        help='train and test over a mesh of N devices, one process each (launch '
+        'with torchrun --nproc-per-node N; -1: the launched world; default: one '
+        'device)',
     )
     _add_device_arg(p)
     _add_max_seconds_arg(p)
@@ -773,7 +842,7 @@ def main(argv=None):
 
     if hasattr(args, 'sig'):
         args.sig = io.parse_list_or_range(args.sig)
-    _make_mesh(getattr(args, 'devices', None))  # before any work
+    args.mesh = _make_mesh(getattr(args, 'devices', None), _device(args))  # before any work
 
     cmd = {
         'all': all_cmd,
@@ -786,7 +855,16 @@ def main(argv=None):
         'show': show,
         'reset': reset,
     }[args.command]
-    return cmd(args)
+    if is_writer():
+        return cmd(args)
+    # The other ranks of a mesh compute alike, but print nothing.
+    level = logging.getLogger('sgdml_tpu_torch').level
+    logging.getLogger('sgdml_tpu_torch').setLevel(logging.WARNING)
+    try:
+        with open(os.devnull, 'w') as devnull, contextlib.redirect_stdout(devnull):
+            return cmd(args)
+    finally:
+        logging.getLogger('sgdml_tpu_torch').setLevel(level)
 
 
 if __name__ == '__main__':

@@ -202,30 +202,40 @@ class GDMLPredict:
     batch_size: geometries per device call; requests are chunked by it.
     transfer_dtype: optional narrower ``torch.dtype`` for host<->device
         copies of geometries and results (compute stays in ``dtype``).
-    mesh: multi-device serving is not ported; must be None.
+    mesh: a ``DeviceMesh`` (``parallel/mesh.py``) for data-parallel serving,
+        every rank calling :meth:`predict` alike: each rank predicts its shard
+        of the request against the whole tables (K1 on a GPU) and one
+        all-gather returns all of ``E`` and ``F`` to every rank.
+        ``batch_size`` is then rounded up to a multiple of the ranks, each
+        rank taking its share of a batch.
     device: the device to serve on: the GPU unless the caller asks for the
-        CPU (``device='cpu'``); without a card the default raises.
+        CPU (``device='cpu'``); without a card the default raises. With a
+        mesh, this rank's device of the mesh, which ``device`` must name.
     """
 
     def __init__(self, model, dtype=torch.float64, batch_size: int | None = None,
                  transfer_dtype=None, mesh=None, *, device='cuda'):
-        if mesh is not None:
-            raise NotImplementedError(
-                'mesh= (data-parallel serving over several GPUs) is ROADMAP '
-                'queue 1 item 13, multi-GPU'
-            )
         model = as_model_dict(model)
         if not io.is_model(model):
             raise ValueError('The provided data structure is not a valid model.')
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._info = None
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from .parallel.mesh import mesh_device, mesh_info
+
+            self._info = mesh_info(mesh)
+            self.device = mesh_device(self._info, device)
+        self._n_dev = 1 if self._info is None else self._info.size
         self.n_atoms = int(model['z'].shape[0])
         self.dim_i = 3 * self.n_atoms
         self.dtype = dtype
         self.transfer_dtype = transfer_dtype
         if batch_size is None:
             batch_size = _auto_batch_size(self.device)
-        self.batch_size = int(batch_size)
+        self.batch_size = -(-int(batch_size) // self._n_dev) * self._n_dev
 
         self.sig = float(np.squeeze(model['sig']))
         self.std = float(np.squeeze(model.get('std', 1.0)))
@@ -288,11 +298,47 @@ class GDMLPredict:
 
         Returns
         -------
-        (E (B,), F (B, 3N)) as NumPy arrays.
+        (E (B,), F (B, 3N)) as NumPy arrays (on a mesh, all of them on every
+        rank).
         """
+        if self._info is None:
+            E, F = self._predict(R, R_desc, R_d_desc)
+        else:
+            E, F = self._predict_sharded(R, R_desc, R_d_desc)
+        return (_numpy(E), _numpy(F)) if return_E else (None, _numpy(F))
+
+    def _predict_sharded(self, R, R_desc, R_d_desc):
+        """Descriptors and the training points go through
+        ``parallel/spmd.predict_sharded``; geometries are sharded here, on
+        the host, padded with copies of the first (whose descriptors are
+        finite), predicted and all-gathered."""
+        from .parallel.mesh import all_gather_rows
+        from .parallel.spmd import predict_sharded
+
+        if R_desc is not None or R is None:
+            if R_desc is None:  # train mode
+                Xq, Jcq, bs = self._R_desc_train, self._R_d_desc_train, None
+            else:
+                Xq, Jcq, bs = self._tensor(R_desc), self._tensor(R_d_desc), self.batch_size // self._n_dev
+            return predict_sharded(Xq, Jcq, self.tables, self.sig, self.std, self.c, self.n_atoms, self.mesh,
+                                   alphas_E_lin=self.alphas_E_lin, batch_size=bs)
+        info = self._info
+        R = np.asarray(R, dtype=np.float64)
+        R = R.reshape(-1, self.dim_i) if R.ndim != 1 else R[None, :]
+        B = R.shape[0]
+        loc = -(-B // info.size)
+        part = R[info.rank * loc:(info.rank + 1) * loc]
+        if part.shape[0] < loc:
+            part = np.concatenate([part, np.repeat(R[:1], loc - part.shape[0], axis=0)])
+        E, F = self._predict(part, None, None)
+        return all_gather_rows(E, info)[:B], all_gather_rows(F, info)[:B]
+
+    def _predict(self, R, R_desc, R_d_desc):
+        """(E, F) as tensors on this device, in chunks of ``batch_size`` (a
+        rank's share of it on a mesh)."""
         args = (self.tables, self.alphas_E_lin)
         scal = (self.sig, self.std, self.c)
-        bs = self.batch_size
+        bs = self.batch_size // self._n_dev
         if R is None and R_desc is None:
             # Train mode: descriptors already cached on the device.
             E, F = predict_from_tables(
@@ -323,7 +369,7 @@ class GDMLPredict:
                 for b0 in range(0, R.shape[0], bs)
             ]
             E, F = (torch.cat(x) for x in zip(*parts))
-        return (_numpy(E), _numpy(F)) if return_E else (None, _numpy(F))
+        return E, F
 
     def prepare_parallel(self, n_bulk: int = 1000, **kwargs):
         """Auto-tune ``batch_size`` for bulk throughput (API parity with the

@@ -399,14 +399,19 @@ class Analytic:
     ----------
     gdml_train: the calling trainer (kept for API parity).
     callback: optional progress callback (unused by every route).
-    mesh: multi-device solves are not ported; must be None.
+    mesh: a ``DeviceMesh`` (``parallel/mesh.py``): the solve is the sharded
+        one at any size (:meth:`_solve_sharded`), every rank calling
+        :meth:`solve` alike. None: one device.
     max_memory: budget in GB for the route choice; None takes
         :func:`memory_budget` of the inputs' device.
+    mesh_precision: the factorization on a mesh: ``'f64'``, the blocked f64
+        Cholesky of ``ops/linalg.py``; ``'pair'`` is ROADMAP item 13b.
 
     After :meth:`solve`, ``route`` names the route that solved (``'dense'``,
-    ``'grid'`` or ``'pair'``) and ``timer.durations`` holds the seconds of
-    its phases, each ended by a device synchronization: ``'assembly'`` and
-    ``'cholesky'`` on the dense route; ``'lmax'``, ``'assembly'`` and
+    ``'grid'``, ``'pair'`` or ``'mesh'``) and ``timer.durations`` holds the
+    seconds of its phases, each ended by a device synchronization:
+    ``'assembly'`` and ``'cholesky'`` on the dense route; ``'assembly'``,
+    ``'factor'`` and ``'solve'`` on the mesh; ``'lmax'``, ``'assembly'`` and
     ``'factor'`` (summed over the lam' ladder's rungs), ``'repack'`` (the
     pair route: leaf inverses and int8 slice stacks), ``'border'`` (with
     energy constraints) and ``'cg'`` past it. ``t_assemble`` is everything
@@ -417,9 +422,18 @@ class Analytic:
     """
 
     def __init__(self, gdml_train=None, callback=None, mesh=None,
-                 max_memory: float | None = None):
+                 max_memory: float | None = None, mesh_precision: str = 'f64'):
+        if mesh_precision not in ('f64', 'pair'):
+            raise ValueError("mesh_precision must be 'f64' or 'pair', got %r" % (mesh_precision,))
         if mesh is not None:
-            raise NotImplementedError('mesh= (the sharded solve) is ROADMAP queue 1 item 13, multi-GPU')
+            if mesh_precision == 'pair':
+                raise NotImplementedError("mesh_precision='pair' (the pair-precision mesh Cholesky) is ROADMAP "
+                                          'queue 1 item 13b')
+            from ..parallel.mesh import mesh_info
+
+            mesh_info(mesh)  # a DeviceMesh, with this rank in it
+        self.mesh = mesh
+        self.mesh_precision = mesh_precision
         self.gdml_train = gdml_train
         self.callback = callback
         self._max_memory = max_memory
@@ -446,6 +460,8 @@ class Analytic:
 
         n_train, dim_d = R_d_desc.shape[:2]
         n_atoms = int((1 + np.sqrt(8 * dim_d + 1)) / 2)
+        if self.mesh is not None:
+            return self._solve_sharded(R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr)
         budget = (memory_budget(device) if self._max_memory is None
                   else self._max_memory * 1024**3)
         need = Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr)
@@ -479,6 +495,28 @@ class Analytic:
                 alphas = -torch.linalg.lstsq(-K, y[:, None]).solution[:, 0]
         self.t_solve = timer.durations['cholesky']
         log.info('Solved %d-dim linear system in %.2f s', K.shape[0], self.t_solve)
+        return alphas
+
+    def _solve_sharded(self, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr):
+        """The mesh's closed-form solve (``sgdml_tpu/solvers/analytic.py:
+        456-490``): each rank assembles its row strip of the interleaved
+        kernel matrix, which the distributed blocked f64 Cholesky factors in
+        place (``parallel/spmd.py``). Returns ``alphas`` whole on every
+        rank."""
+        from ..parallel import spmd
+
+        timer = self.timer
+        self.route = 'mesh'
+        with timer.phase('assembly'):
+            K, lay = spmd.assemble_kernel_sharded(R_desc, R_d_desc, desc_perms, sig, n_atoms, self.mesh,
+                                                  use_E_cstr=use_E_cstr)
+        self.t_assemble = timer.durations['assembly']
+        log.info('Assembled %dx%d kernel (row-sharded over %d devices) in %.2f s', lay.n, lay.n, lay.n_dev,
+                 self.t_assemble)
+        alphas = spmd.solve_interleaved(K, y, lam, lay, self.mesh, timer=timer)
+        self.t_solve = timer.durations['factor'] + timer.durations['solve']
+        log.info('Solved %d-dim linear system (blocked Cholesky over %d devices) in %.2f s', lay.n, lay.n_dev,
+                 self.t_solve)
         return alphas
 
     def _setup_refinement(self, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr, lmax, tab):

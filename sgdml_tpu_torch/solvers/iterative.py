@@ -40,7 +40,18 @@ _build_factor_streamed`), ``factor_slices + 1`` bytes an element instead of
 16, so the same memory holds a larger ``k``; its CG matvec starts on the
 lowest Ozaki rung of :data:`MV_MM_LADDER` and climbs when the best residual
 stagnates. ``'auto'`` keeps the f64 factor on every device, as the JAX
-package does off a TPU. The mesh branches are ROADMAP queue 1 item 13.
+package does off a TPU.
+
+With a ``mesh`` (``parallel/mesh.py``: one process per device) the matvec
+is batch-sharded (each rank predicts its shard of the training points, K1
+on a GPU, then one all-gather), the f64 factor is column-sharded
+(:class:`ShardedFactor`: the build of ``parallel/spmd.py``, or with energy
+constraints the one-pass build cut into column shards) and applied with one
+all-reduce of ``F v`` and one all-gather of ``v - F^T w``. CG vectors are
+whole on every rank, and every decision the host takes from them (a chunk's
+stop, a residual replacement, a restart, a wall-clock limit) is taken from
+rank 0's numbers (``mesh.agree``), so that no rank leaves a collective that
+the others enter. The slice stack on a mesh is ROADMAP item 13b.
 """
 
 from __future__ import annotations
@@ -58,11 +69,13 @@ from .. import resolve_device
 from ..ops import descriptor as desc_ops
 from ..ops import ozaki
 from ..ops.kernel import assemble_kernel_columns, assemble_kernel_columns_range, assemble_kernel_E_rows
+from ..parallel import spmd
+from ..parallel.mesh import agree, all_gather_rows, all_reduce_, mesh_device, mesh_info
 from ..predict import Tables, predict_from_tables
 from ..utils.profiling import PhaseTimer
 from .analytic import memory_budget
 
-__all__ = ['Iterative', 'MV_MM_LADDER', 'MatvecTables', 'SliceFactor', 'matvec_tables']
+__all__ = ['Iterative', 'MV_MM_LADDER', 'MatvecTables', 'ShardedFactor', 'SliceFactor', 'matvec_tables']
 
 log = logging.getLogger(__name__)
 
@@ -127,22 +140,26 @@ class MatvecTables(NamedTuple):
     mu: torch.Tensor  # (D,) table mean
     Xt: torch.Tensor  # (M P, D) permuted table rows minus mu
     xt_sq: torch.Tensor  # (M P,) |Xt - mu|^2
+    mesh: object = None  # a DeviceMesh: the queries are sharded over it
 
 
-def matvec_tables(X, Jc, desc_perms) -> MatvecTables:
+def matvec_tables(X, Jc, desc_perms, mesh=None) -> MatvecTables:
     """Build the ``v``-free part of the matvec once per solve, with the same
-    operations as ``predict.center_tables``."""
+    operations as ``predict.center_tables``. With a ``mesh`` each matvec
+    predicts this rank's shard of the training points
+    (``spmd.predict_sharded``)."""
     dp = torch.as_tensor(np.asarray(desc_perms), dtype=torch.int64, device=X.device)
     Xt = X[:, dp].reshape(-1, X.shape[1])
     mu = torch.mean(Xt, dim=0)
     Xt = (Xt - mu[None, :]).contiguous()
-    return MatvecTables(X, Jc, dp, mu, Xt, torch.sum(Xt * Xt, dim=1))
+    return MatvecTables(X, Jc, dp, mu, Xt, torch.sum(Xt * Xt, dim=1), mesh)
 
 
 def _matvec_A(v, tab: MatvecTables, sig, lam, *, n_atoms, use_E_cstr, mm='native'):
     """``A v = -predict_train(v) + lam v`` on ``v``'s device: the table side
     from ``v`` (``JA`` and ``<xt, ja>``), then one ``predict_from_tables``
-    over all training points at the matvec rung ``mm``."""
+    over all training points at the matvec rung ``mm`` (on a mesh over this
+    rank's shard of them, ``spmd.predict_sharded``)."""
     m, dim_d = tab.X.shape
     if use_E_cstr:
         v_F, v_E = v[:-m], v[-m:]
@@ -152,7 +169,10 @@ def _matvec_A(v, tab: MatvecTables, sig, lam, *, n_atoms, use_E_cstr, mm='native
     JA = JA[:, tab.dp].reshape(-1, dim_d).contiguous()
     aE = None if v_E is None else torch.repeat_interleave(v_E, tab.dp.shape[0])
     tables = Tables(tab.mu, tab.Xt, JA, tab.xt_sq, torch.sum(tab.Xt * JA, dim=1))
-    E, F = predict_from_tables(tab.X, tab.Jc, tables, aE, sig, 1.0, 0.0, n_atoms=n_atoms, mm=mm)
+    if tab.mesh is None:
+        E, F = predict_from_tables(tab.X, tab.Jc, tables, aE, sig, 1.0, 0.0, n_atoms=n_atoms, mm=mm)
+    else:
+        E, F = spmd.predict_sharded(tab.X, tab.Jc, tables, sig, 1.0, 0.0, n_atoms, tab.mesh, alphas_E_lin=aE, mm=mm)
     pred = torch.cat([F.reshape(-1), -E]) if use_E_cstr else F.reshape(-1)
     return -pred + lam * v
 
@@ -161,6 +181,33 @@ def _factor_apply(F, v):
     """``v - F^T (F v)``: two matrix-vector products over the ``(k, n)``
     factor."""
     return v - torch.mv(F.T, torch.mv(F, v))
+
+
+class ShardedFactor(NamedTuple):
+    """The f64 Woodbury factor column-sharded over a mesh: rank ``g`` holds
+    columns ``[g nloc, (g + 1) nloc)`` of ``F`` (the ``(k, n)`` factor, its
+    columns zero-padded to ``nloc`` times the ranks)."""
+
+    F: torch.Tensor  # (k, nloc)
+    info: object  # parallel.mesh.MeshInfo
+
+
+def _factor_apply_sharded(F: ShardedFactor, v):
+    """``v - F^T (F v)`` for a whole ``v``: ``F v`` by one all-reduce of the
+    ranks' partial products, ``F^T w`` on each rank's columns, one
+    all-gather."""
+    n, nloc = v.shape[0], F.F.shape[1]
+    r0 = F.info.rank * nloc
+    v_loc = v[r0:r0 + nloc]
+    if v_loc.shape[0] < nloc:
+        v_loc = torch.nn.functional.pad(v_loc, (0, nloc - v_loc.shape[0]))
+    w = all_reduce_(torch.mv(F.F, v_loc), F.info)
+    return all_gather_rows(v_loc - torch.mv(F.F.T, w), F.info)[:n]
+
+
+def _flag(t, mesh) -> bool:
+    """A device boolean read on the host: rank 0's reading on a mesh."""
+    return bool(t) if mesh is None else bool(agree([float(bool(t))], mesh_info(mesh))[0])
 
 
 class SliceFactor(NamedTuple):
@@ -211,6 +258,8 @@ def _precond(F, v, lam):
     if isinstance(F, SliceFactor):
         vp = torch.nn.functional.pad(v, (0, _factor_ncols(F) - v.shape[0]))
         return _factor_apply_ozaki(F, vp)[:v.shape[0]] / lam
+    if isinstance(F, ShardedFactor):
+        return _factor_apply_sharded(F, v) / lam
     return _factor_apply(F, v) / lam
 
 
@@ -234,7 +283,7 @@ def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, ch
     thresh = rtol * b_norm
     active = torch.linalg.vector_norm(r) > thresh
     for i in range(chunk_iters):
-        if i % CG_ACTIVE_READ_ITERS == 0 and not bool(active):
+        if i % CG_ACTIVE_READ_ITERS == 0 and not _flag(active, tab.mesh):
             break
         Ap = _matvec_A(p, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr, mm=mm)
         alpha = rz / (p @ Ap)
@@ -402,7 +451,9 @@ class Iterative:
         sec_disp_str=...)``.
     max_memory: budget in GB for the inducing-point count; None takes
         ``memory_budget`` of the device at solve time (12 GB on the CPU).
-    mesh: multi-device solves are ROADMAP queue 1 item 13; must be None.
+    mesh: a ``DeviceMesh`` (``parallel/mesh.py``) to solve over, every rank
+        calling :meth:`solve` alike; the solve runs on this rank's device of
+        the mesh. None: one device.
     factor_mode: ``'f64'`` (the dense f64 factor), ``'ozaki'`` (the int8
         slice stack of the streamed build, its matvec on the Ozaki rungs of
         :data:`MV_MM_LADDER`) or ``'auto'``, which is ``'f64'`` on every
@@ -413,7 +464,8 @@ class Iterative:
         else ``'auto'``.
     seed: explicit solver seed; None derives one from the task's training
         split, so identical tasks give identical inducing sets.
-    device: where the solve runs; None takes the trainer's device, else the GPU.
+    device: where the solve runs; None takes the mesh's device, else the
+        trainer's, else the GPU.
 
     After :meth:`solve`, ``timer.durations`` holds the seconds of
     ``'leverage scores'``, ``'factor'`` and ``'cg'``, each ended by a device
@@ -423,16 +475,21 @@ class Iterative:
     def __init__(self, gdml_train=None, callback=None, max_memory: float | None = None,
                  mesh=None, factor_mode: str = 'auto', factor_slices: int | None = None,
                  seed: int | None = None, *, device=None):
-        if mesh is not None:
-            raise NotImplementedError('mesh= (the sharded CG solve) is ROADMAP queue 1 item 13, multi-GPU')
         if factor_mode not in ('auto', 'f64', 'ozaki'):
             raise ValueError("factor_mode must be 'auto', 'f64' or 'ozaki', got %r" % (factor_mode,))
+        if mesh is not None and factor_mode == 'ozaki':
+            raise NotImplementedError("factor_mode='ozaki' on a mesh (the column-sharded slice stack) is "
+                                      'ROADMAP queue 1 item 13b')
+        self.mesh = mesh
+        self._info = None if mesh is None else mesh_info(mesh)
         if factor_slices is None:
             env = os.environ.get('SGDML_FACTOR_SLICES')
             factor_slices = int(env) if env else 'auto'
         if factor_slices != 'auto' and not 3 <= factor_slices <= 10:
             raise ValueError("factor_slices must be in [3, 10] or 'auto'")
-        if device is None:
+        if mesh is not None:
+            device = mesh_device(self._info, device)
+        elif device is None:
             device = getattr(gdml_train, 'device', 'cuda')
         self.gdml_train = gdml_train
         self.callback = callback
@@ -454,7 +511,13 @@ class Iterative:
         return self.factor_mode == 'ozaki'
 
     def _budget(self) -> float:
-        return memory_budget(self.device) if self._max_memory is None else self._max_memory * 1024**3
+        """Bytes of device memory for the factor; on a mesh rank 0's, so that
+        every rank takes the same k."""
+        budget = memory_budget(self.device) if self._max_memory is None else self._max_memory * 1024**3
+        return budget if self._info is None else float(agree([budget], self._info)[0])
+
+    def _n_dev(self) -> int:
+        return 1 if self._info is None else self._info.size
 
     # -- preconditioner ----------------------------------------------------
 
@@ -466,6 +529,8 @@ class Iterative:
         col_idxs = np.asarray(col_idxs, dtype=np.int64)
         if self._use_ozaki_factor():
             return self._build_factor_streamed(X, Jc, dperms, sig, lam, col_idxs, n_atoms, use_E_cstr)
+        if self.mesh is not None and not use_E_cstr:
+            return self._build_factor_sharded(X, Jc, dperms, sig, lam, col_idxs, n_atoms)
         for reg in [0.0] + list(10.0 ** np.arange(-16, 2)):
             # The columns are made and negated in place inside the call
             # expression, so the factor build holds their only reference; on
@@ -477,7 +542,43 @@ class Iterative:
             if ok:
                 if reg > 0:
                     log.debug('Nystrom factor needed regularization %g.', reg)
+                if self.mesh is not None:
+                    # Energy constraints on a mesh: the one-pass factor, made
+                    # alike on every rank, cut into column shards.
+                    F = self._shard_factor(F)
                 return F, lev.cpu().numpy()
+        raise RuntimeError(
+            'Failed to factorize the Nystrom preconditioner despite strong '
+            'regularization. Try a larger sigma.'
+        )
+
+    def _shard_factor(self, F) -> ShardedFactor:
+        """This rank's column shard of a whole ``(k, n)`` factor: its
+        ``ceil(n / ranks)`` columns, cut first and zero-padded where the
+        factor runs out (the padded columns drop out of the apply), so that
+        no second whole copy is made."""
+        info = self._info
+        nloc = -(-F.shape[1] // info.size)
+        part = F[:, info.rank * nloc:(info.rank + 1) * nloc]
+        F_loc = F.new_zeros((F.shape[0], nloc))
+        F_loc[:, :part.shape[1]] = part
+        return ShardedFactor(F_loc, info)
+
+    def _build_factor_sharded(self, X, Jc, dperms, sig, lam, col_idxs, n_atoms):
+        """The mesh's f64 factor (``sgdml_tpu/solvers/iterative.py:945-967``):
+        row-sharded columns and the sharded build of ``parallel/spmd.py``, in
+        the regularization ladder. Returns ``(ShardedFactor, host leverage
+        scores over the padded force axis)``."""
+        for reg in [0.0] + list(10.0 ** np.arange(-16, 2)):
+            # The columns are made and negated in the call expression, so the
+            # build holds their only reference.
+            F, lev, ok = spmd.nystrom_factor_sharded(
+                spmd.assemble_kernel_columns_sharded(X, Jc, dperms, sig, n_atoms, col_idxs, self.mesh).neg_(),
+                col_idxs, lam, reg, reg, self.mesh)
+            if ok:
+                if reg > 0:
+                    log.debug('Nystrom factor needed regularization %g.', reg)
+                return ShardedFactor(F, self._info), lev.cpu().numpy()
         raise RuntimeError(
             'Failed to factorize the Nystrom preconditioner despite strong '
             'regularization. Try a larger sigma.'
@@ -644,17 +745,21 @@ class Iterative:
                 best_ns, best_k = ns, k
         return best_ns, best_k
 
-    def _factor_plan(self, n_train, n_atoms):
+    def _factor_plan(self, n_train, n_atoms, use_E_cstr=False):
         """The inducing-point cap of the solve's factor. The dense f64
         factor: 16 bytes per factor element (the one-pass build's columns and
-        ``Y`` chunks, or the factor and the ``Y`` chunks of pass 2). The slice
+        ``Y`` chunks, or the factor and the ``Y`` chunks of pass 2), over the
+        mesh's ranks where the build is sharded; with energy constraints
+        every rank builds the whole one-pass factor, so the plan is one
+        device's (the JAX package scales it by the devices there too). The slice
         stack: :meth:`_streamed_caps` at the resolved slice count, with a log
         line when a bound beyond the JAX package's plan sets k. With
         ``max_memory=None`` the budget is what the device has free now, so a
         solve reads it once."""
         budget = self._budget()
         if not self._use_ozaki_factor():
-            return min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget))
+            n_dev = 1 if use_E_cstr else self._n_dev()
+            return min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget, n_dev=n_dev))
         if self.factor_slices == 'auto':
             self._auto_ns, k = self.resolve_factor_slices(n_train, n_atoms, budget)
             if self._auto_ns != 8:
@@ -706,7 +811,13 @@ class Iterative:
 
         X, Jc = tensor(R_desc), tensor(R_d_desc)
         dperms = np.asarray(desc_perms)
-        tab = matvec_tables(X, Jc, dperms)
+        tab = matvec_tables(X, Jc, dperms, mesh=self.mesh)
+        info = self._info
+
+        def host(values):
+            """Host numbers the loop decides from: rank 0's on a mesh."""
+            values = np.asarray(values, dtype=np.float64)
+            return values if info is None else agree(values, info)
 
         def A_apply(v):
             return _matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
@@ -714,7 +825,7 @@ class Iterative:
         # Fresh solves start AT the cap (the strongest preconditioner the
         # budget affords); warm starts may begin below it and grow 1.2x per
         # stall-restart, bounded by the same cap.
-        grow_cap = n_inducing_pts = self._factor_plan(n_train, n_atoms)
+        grow_cap = n_inducing_pts = self._factor_plan(n_train, n_atoms, use_E_cstr)
 
         # Warm start (resume / sigma-grid recycling). The E-constrained
         # unknown vector is [force block | M energy block]: both blocks are
@@ -769,7 +880,7 @@ class Iterative:
             r = b - A_apply(x)
             z = precond_z(r, F)
             rz = r @ z
-            if not bool(rz > 0):  # PSD guard (see _pcg_chunk)
+            if not _flag(rz > 0, self.mesh):  # PSD guard (see _pcg_chunk)
                 z = r
                 rz = r @ r
             zero = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -782,7 +893,7 @@ class Iterative:
         state = init_state(x0, Fp)
         num_iters = num_iters0
         num_restarts = 0
-        resid = float(torch.linalg.vector_norm(state[1]))
+        resid = float(host([torch.linalg.vector_norm(state[1]).item()])[0])
         steps_hist: list = []
         max_iters = 3 * n_atoms * n_train * 10
         last_ckpt = timeit.default_timer()
@@ -799,9 +910,17 @@ class Iterative:
             state = _pcg_chunk(state, Fp, tab, sig, lam, b_norm, tol, n_atoms=n_atoms,
                                use_E_cstr=use_E_cstr, chunk_iters=CG_CHUNK_ITERS, mm=mv_mm)
             x, r, z, p, rz, it_done, hist, n_bad = state
-            # The chunk's one host read: its step count, guard trips and history.
-            head = torch.cat([it_done.to(hist.dtype)[None], n_bad.to(hist.dtype)[None], hist]).cpu().numpy()
+            # Residual replacement: measure the TRUE residual once per chunk.
+            r_true = b - A_apply(x)
+            # The chunk's one host read: its step count, guard trips, history
+            # and true residual, with the wall clock (on a mesh, rank 0's).
+            head = torch.cat([it_done.to(hist.dtype)[None], n_bad.to(hist.dtype)[None], hist,
+                              torch.linalg.vector_norm(r_true)[None]]).cpu().numpy()
+            now = timeit.default_timer()
+            head = host(np.concatenate([head, [now - t_start, now - last_ckpt]]))
             it_done, n_bad, hist_np = int(head[0]), int(head[1]), head[2:2 + int(head[0])]
+            true_resid = float(head[-3])
+            elapsed, since_ckpt = float(head[-2]), float(head[-1])
             num_iters += it_done
             iters_since_best += it_done
             if n_bad:
@@ -811,11 +930,8 @@ class Iterative:
             new_resid_series = np.concatenate([[resid], hist_np])
             resid_rec = float(new_resid_series[-1])
 
-            # Residual replacement: measure the TRUE residual once per chunk
-            # and re-anchor the recursion when it has drifted.
+            # Re-anchor the recursion at the true residual when it has drifted.
             replaced = False
-            r_true = b - A_apply(x)
-            true_resid = float(torch.linalg.vector_norm(r_true))
             if np.isfinite(true_resid):
                 drift = (abs(true_resid - resid_rec) / max(true_resid, 1e-300)
                          if np.isfinite(resid_rec) else np.inf)
@@ -826,7 +942,7 @@ class Iterative:
                 if drift > RESID_REPLACE_DRIFT or early_noconv:
                     z_new = precond_z(r_true, Fp)
                     rz_new = r_true @ z_new
-                    if not bool(rz_new > 0):  # PSD guard
+                    if not _flag(rz_new > 0, self.mesh):  # PSD guard
                         z_new = r_true
                         rz_new = r_true @ r_true
                         p = z_new  # beta = 0: restart the direction too
@@ -854,7 +970,7 @@ class Iterative:
             converged = resid <= tol * b_norm
             if converged or num_iters >= max_iters:
                 break
-            if max_seconds is not None and timeit.default_timer() - t_start > max_seconds:
+            if max_seconds is not None and elapsed > max_seconds:
                 log.warning('CG wall-clock budget (%.0f s) exhausted at iteration %d (residual %.3e vs '
                             'target %.3e); returning the unconverged solution.',
                             max_seconds, num_iters, resid, tol * b_norm)
@@ -871,7 +987,6 @@ class Iterative:
                 ratio = (-steps.clip(max=0).sum() / total) if total > 0 else 1.0
                 eff = (int(100 * ratio) - 50) * 2
 
-            elapsed = timeit.default_timer() - t_start
             rate = (num_iters - num_iters0) / max(elapsed, 1e-9)
             if self.callback is None:
                 log.info('CG: %d iters (%.2f iter/s), resid %.3e (best %.3e, target %.3e), effectiveness '
@@ -884,12 +999,12 @@ class Iterative:
                 )
 
             # Periodic checkpoint of the BEST iterate (mid-oscillation the
-            # current one can sit far above it).
-            now = timeit.default_timer()
-            if save_progr_callback is not None and now - last_ckpt > CHECKPOINT_INTERVAL_S:
+            # current one can sit far above it); on a mesh rank 0 writes it.
+            if save_progr_callback is not None and since_ckpt > CHECKPOINT_INTERVAL_S:
                 last_ckpt = now
-                self._save_checkpoint(task, X, Jc, y_std, best_x, tol, num_iters, best_resid, b_norm,
-                                      inducing_pts_idxs, save_progr_callback, mv_mm=mv_mm)
+                if info is None or info.rank == 0:
+                    self._save_checkpoint(task, X, Jc, y_std, best_x, tol, num_iters, best_resid, b_norm,
+                                          inducing_pts_idxs, save_progr_callback, mv_mm=mv_mm)
 
             # Stall: strengthen the preconditioner and restart, within the
             # same memory budget as the initial build; or, at the cap, the
@@ -922,8 +1037,7 @@ class Iterative:
                     # Top rung, already re-seeded: grind uninterrupted,
                     # within a bound.
                     if max_seconds is not None:
-                        rate_now = max((num_iters - num_iters0)
-                                       / max(timeit.default_timer() - t_start, 1e-9), 1e-9)
+                        rate_now = max((num_iters - num_iters0) / max(elapsed, 1e-9), 1e-9)
                         deep_iters = int(DEEP_STAGNATION_BUDGET_FRAC * max_seconds * rate_now)
                     else:
                         deep_iters = int(DEEP_STAGNATION_ITERS_FRAC * (num_iters - num_iters0))
@@ -961,6 +1075,10 @@ class Iterative:
             x_final, resid = best_x, best_resid
         else:
             x_final = state[0]
+        if info is not None:
+            # Every rank returns rank 0's bits.
+            torch.distributed.broadcast(x_final, src=torch.distributed.get_global_rank(info.group, 0),
+                                        group=info.group)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         timer.durations['cg'] = timeit.default_timer() - t_cg - (sum(timer.durations.values()) - t_built)
@@ -1012,26 +1130,28 @@ class Iterative:
     # -- memory models (reference: iterative.py:827-866) --------------------
 
     @staticmethod
-    def max_n_inducing_pts(n_train, n_atoms, max_memory_bytes, factor_bytes=16.0, streamed=False):
+    def max_n_inducing_pts(n_train, n_atoms, max_memory_bytes, n_dev=1, factor_bytes=16.0, streamed=False):
         """Inducing-point budget: the reference formula (iterative.py:827-844),
         capped so that the ``(k, n)`` factor's ``factor_bytes`` per element
         (16 for the one-pass f64 build's peak: columns and ``Y`` chunks
         together) stay within 40% of the budget. ``streamed``: the streamed
         slice-stack build's plan, its ``factor_bytes`` (slices + 1) per
-        element within 72% of the budget less a 1.5 GB reserve. The JAX
-        package's function (its ``n_dev`` term is item 13), so that k agrees
-        at the same budget."""
+        element within 72% of the budget less a 1.5 GB reserve.
+        ``max_memory_bytes`` is a device's; with ``n_dev`` devices the factor
+        is column-sharded, so its linear-in-k terms scale by ``n_dev``. The
+        JAX package's function, so that k agrees at the same budget."""
         sq, lin = 5, 4
         dim_i = 3 * n_atoms
+        n_dev = max(1, int(n_dev))
         if streamed:
             avail = max(0.0, 0.72 * max_memory_bytes - 1.5e9)
-            cap = avail / (min(float(factor_bytes), 16.0) * n_train * dim_i * dim_i)
+            cap = avail * n_dev / (min(float(factor_bytes), 16.0) * n_train * dim_i * dim_i)
             return max(1, min(int(cap), n_train))
         to_dof = dim_i**2 * 8
-        sq_factor = float(lin * n_train * to_dof)
+        sq_factor = lin * n_train * to_dof / n_dev
         ny_factor = sq * to_dof
         n_ind = (np.sqrt(sq_factor**2 + 4.0 * ny_factor * max_memory_bytes) - sq_factor) / (2 * ny_factor)
-        n_ind_split_cap = 0.4 * max_memory_bytes / float(factor_bytes) / (n_train * dim_i * dim_i)
+        n_ind_split_cap = 0.4 * max_memory_bytes / float(factor_bytes) * n_dev / (n_train * dim_i * dim_i)
         return max(1, min(int(n_ind), int(n_ind_split_cap), n_train))
 
     @staticmethod

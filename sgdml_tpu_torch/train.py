@@ -12,8 +12,10 @@ alpha-contracted Jacobians and the integration constant. On a GPU the
 prediction passes (every CG matvec, the integration constant) launch the
 fused (E, F) kernel.
 
-Multi-GPU training is ROADMAP queue 1 item 13 and raises
-``NotImplementedError``.
+With a ``mesh`` (``parallel/mesh.py``: one process per device, every rank
+calling :meth:`GDMLTrain.train` alike) the analytic solve is the sharded
+assembly and distributed f64 Cholesky of ``parallel/spmd.py``, and the CG
+solve shards its matvec and factor; every rank gets the whole model.
 """
 
 from __future__ import annotations
@@ -47,7 +49,9 @@ class GDMLTrain:
     max_memory: device-memory budget in GB for the solver choice, the dense
         solve and the CG preconditioner; None takes the device's free memory
         (12 GB on the CPU).
-    mesh: multi-device training is not ported; must be None.
+    mesh: a ``DeviceMesh`` to train over (see the module docstring); the
+        trainer then runs on this rank's device of the mesh, and ``device``,
+        where given, must name it. None: one device.
     device: where training runs: the GPU unless the caller asks for the CPU
         (``device='cpu'``); without a card the default raises.
 
@@ -60,10 +64,14 @@ class GDMLTrain:
     """
 
     def __init__(self, max_memory: float | None = None, mesh=None, *, device='cuda'):
-        if mesh is not None:
-            raise NotImplementedError('mesh= (sharded training) is ROADMAP queue 1 item 13, multi-GPU')
         self._max_memory = max_memory
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from .parallel.mesh import mesh_device, mesh_info
+
+            self.device = mesh_device(mesh_info(mesh), device)
         self.times: dict[str, float] = {}
 
     # ------------------------------------------------------------------
@@ -288,6 +296,10 @@ class GDMLTrain:
         if solver is None:
             budget = (memory_budget(self.device) if self._max_memory is None
                       else self._max_memory * 1024**3)
+            if self.mesh is not None:
+                from .parallel.mesh import agree, mesh_info
+
+                budget = float(agree([budget], mesh_info(self.mesh))[0])  # every rank picks alike
             use_analytic = (Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr) < budget
                             or Analytic.est_memory_grid(n_train, n_atoms) < budget)
             solver = 'analytic' if use_analytic else 'cg'
@@ -319,13 +331,13 @@ class GDMLTrain:
         solver_keys = {}
         if solver == 'analytic':
             log.info('Using analytic solver.')
-            analytic = Analytic(self, callback=callback, max_memory=self._max_memory)
+            analytic = Analytic(self, callback=callback, mesh=self.mesh, max_memory=self._max_memory)
             with timer.phase('solve (analytic: assembly + Cholesky)'):
                 alphas = analytic.solve(task, R_desc, R_d_desc, dperms, y)
             solve_times = dict(analytic.timer.durations)
         else:
             log.info('Using iterative solver (Nystrom-preconditioned CG).')
-            iterative = Iterative(self, callback=callback, max_memory=self._max_memory,
+            iterative = Iterative(self, callback=callback, max_memory=self._max_memory, mesh=self.mesh,
                                   factor_slices=factor_slices, device=self.device)
             with timer.phase('solve (iterative: Nystrom-pCG)'):
                 (alphas, solver_keys['solver_tol'], solver_keys['solver_iters'], solver_keys['solver_resid'],
@@ -364,9 +376,9 @@ class GDMLTrain:
     def _recov_int_const(self, model, task, R_desc, R_d_desc) -> float:
         """Least-squares integration constant + label self-diagnosis
         (reference: sgdml/train.py:1090-1258). The prediction on the
-        training set runs on the trainer's device: the fused (E, F) kernel
-        on a GPU."""
-        pred = GDMLPredict(model, device=self.device)
+        training set runs on the trainer's device (and mesh): the fused
+        (E, F) kernel on a GPU."""
+        pred = GDMLPredict(model, mesh=self.mesh, device=self.device)
         pred.set_R_desc(R_desc)
         pred.set_R_d_desc(R_d_desc)
 

@@ -68,14 +68,14 @@ def _dtype_name(dtype) -> str:
     return 'none' if dtype is None else str(dtype).replace('torch.', '')
 
 
-def _cache_key(n_atoms, n_train, n_perms, n_bulk, dtype, transfer_dtype, device) -> str:
+def _cache_key(n_atoms, n_train, n_perms, n_bulk, dtype, transfer_dtype, device, n_dev=1) -> str:
     # The card's name (not just 'cuda') is part of the key: a batch size
-    # tuned on one GPU model must not be replayed on another. The device
-    # count is 1: multi-GPU serving (mesh=) is not ported.
+    # tuned on one GPU model must not be replayed on another, nor one tuned
+    # for a mesh of n_dev devices on another mesh.
     device = torch.device(device)
     dev = torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'
     return '%d-%d-%d-%d-%s-%s-%dx%s' % (
-        n_atoms, n_train, n_perms, n_bulk, _dtype_name(dtype), _dtype_name(transfer_dtype), 1, dev
+        n_atoms, n_train, n_perms, n_bulk, _dtype_name(dtype), _dtype_name(transfer_dtype), n_dev, dev
     )
 
 
@@ -94,6 +94,7 @@ def prepare_parallel(predictor, n_bulk: int = 1000, n_reps: int = 3,
         predictor.dtype,
         predictor.transfer_dtype,
         predictor.device,
+        getattr(predictor, '_n_dev', 1),
     )
     cache = _load_cache() if use_cache else {}
     if key in cache:

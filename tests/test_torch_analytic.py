@@ -84,7 +84,10 @@ def test_routes_that_are_not_ported_raise():
     grid = analytic.Analytic(max_memory=1e-6)
     alphas = grid.solve({'sig': 2.0, 'lam': 1e-8}, X, Jc, dperms, y)
     assert grid.pcg_iters > 0 and torch.isfinite(alphas).all() and alphas.shape == (60,)
-    with pytest.raises(NotImplementedError, match='item 13'):
+    # The mesh's pair precision is item 13b; a mesh must be a DeviceMesh.
+    with pytest.raises(NotImplementedError, match='item 13b'):
+        analytic.Analytic(mesh=object(), mesh_precision='pair')
+    with pytest.raises(TypeError, match='DeviceMesh'):
         analytic.Analytic(mesh=object())
 
     trainer = GDMLTrain(device='cpu')
@@ -99,5 +102,5 @@ def test_routes_that_are_not_ported_raise():
     assert GDMLTrain(max_memory=1e-6, device='cpu').train(task, solver='cg')['solver_name'] == 'cg'
     with pytest.raises(ValueError):
         trainer.train(task, solver='lu')
-    with pytest.raises(NotImplementedError, match='item 13'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         GDMLTrain(mesh=object(), device='cpu')

@@ -413,21 +413,25 @@ def test_reset_removes_cache_and_built_kernels(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize('argv', [
     ['all', '{synth5}', '20', '10', '--devices', '8'],
-    ['create', '{synth5}', '20', '10', '--task_dir', 't', '--devices', '-1'],
+    ['create', '{synth5}', '20', '10', '--task_dir', 't', '--devices', '3'],
     ['train', 't', '--devices', '8'],
     ['test', 'm.npz', '{synth5}', '--devices', '2'],
     ['resume', 'm.npz', '{synth5}', '--devices', '4'],
 ])
 def test_devices_raises_before_work(data, tmp_path, monkeypatch, argv):
-    """``--devices N`` (a mesh of N GPUs) is not ported: it raises before any
-    file is read or written."""
+    """``--devices N`` in a world of another size (here no launcher: a world
+    of this process alone) raises before any file is read or written, and
+    before any process group is made."""
+    for key in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT'):
+        monkeypatch.delenv(key, raising=False)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match='item 13'):
+    with pytest.raises(ValueError, match='launched world has 1 process'):
         cli.main(['--device', 'cpu'] + [a.format(**data) for a in argv])
     assert os.listdir(tmp_path) == []
-    with pytest.raises(NotImplementedError, match='item 13'):
-        cli._make_mesh(8)
+    with pytest.raises(ValueError, match='torchrun --nproc-per-node 8'):
+        cli._make_mesh(8, 'cpu')
     assert cli._make_mesh(0) is None and cli._make_mesh(None) is None
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize('argv', [

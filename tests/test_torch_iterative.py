@@ -524,7 +524,8 @@ def test_memory_model_matches_jax():
 
 
 def test_routes_that_are_not_ported_raise(monkeypatch):
-    """The mesh (item 13) raises; the factor modes and slice counts are the
+    """The slice stack on a mesh (item 13b) raises, as a mesh that is not a
+    DeviceMesh does; the factor modes and slice counts are the
     JAX package's: 'ozaki' takes the slice stack, 'auto' the f64 factor (as
     the JAX package off a TPU), the slice count from the argument, else
     SGDML_FACTOR_SLICES, else 'auto'."""
@@ -536,7 +537,9 @@ def test_routes_that_are_not_ported_raise(monkeypatch):
     monkeypatch.setenv('SGDML_FACTOR_SLICES', '6')
     assert it_mod.Iterative(device='cpu').factor_slices == jax_it.Iterative().factor_slices == 6
     assert it_mod.Iterative(factor_slices=8, device='cpu')._ns() == 8
-    with pytest.raises(NotImplementedError, match='item 13'):
+    with pytest.raises(NotImplementedError, match='item 13b'):
+        it_mod.Iterative(mesh=object(), factor_mode='ozaki', device='cpu')
+    with pytest.raises(TypeError, match='DeviceMesh'):
         it_mod.Iterative(mesh=object(), device='cpu')
     with pytest.raises(ValueError):
         it_mod.Iterative(factor_mode='f32', device='cpu')

@@ -197,7 +197,7 @@ def test_unported_options_and_device_are_explicit(golden):
             GDMLPredict(model)  # the card by default: no silent CPU fallback
     with pytest.raises(TypeError):
         GDMLPredict(42, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         GDMLPredict(model, mesh=object(), device='cpu')
     pred = GDMLPredict(model, device='cpu')
     # The tuner is ported (tune.py): it installs a measured batch size.
