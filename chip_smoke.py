@@ -149,10 +149,34 @@ each a plain assertion that ends the run with a traceback when it fails:
    iterations and model; (d) ``GDMLPredict(mesh=)`` at phase 5's AT-AT width
    (B = 1, 512 and 10,000) against one device, both timed; (e)
    ``dryrun_multichip(1)`` and the quick start with ``--devices 1`` against
-   9a.
+   9a;
+14. the mesh's pair and int8 routes on a second one-rank NCCL world, made
+   and destroyed as phase 13's: (a) 10a's aspirin task by
+   ``Analytic(mesh=, mesh_precision='pair')`` (``train.Analytic`` wrapped
+   by ``mesh_pair_probe``): the pair Cholesky of ``ops/meshchol.py`` as
+   the preconditioner of CG on the kept f64 strip; the rung taken and no
+   f64 fallback (from the log), lam' on a rung of the ladder, the CG's
+   iterations and residual, the residual re-measured through the plain
+   matvec, the held-out MAE against 10a's, the forces against 13b's and
+   12a's models, the peak against the strip and the pair factor (14 n^2
+   bytes) plus a transient; the factor's steps timed by CUDA events, the
+   CG's iteration split into the strip matvec and the two pair triangular
+   solves (each timed alone on the CG's right-hand side, with GB/s), and
+   the time beside 13b's, 10a's and 12a's; (b) 13b's task through
+   ``solve_interleaved(layout='cyclic')`` (``ops/cyclic.py``): forces
+   against 13b's model, the factor's seconds and TFLOP/s beside 13b's; (c)
+   11c's run by ``GDMLTrain(mesh=)`` with the slice stack at 11c's budget
+   (the column-sharded streamed build of ``spmd.
+   nystrom_factor_sharded_streamed``): 11c's k, slices and stack, its
+   iterations, the re-measured residual, 8c's model, the build's sweeps,
+   and K1 held against its plain version on the solve's tables with an
+   iteration's parts (``ozaki_split``); (d) 10c's energy-constrained
+   ethanol task by the mesh pair route (against the dense model, 10c's
+   bound) and by the bordered slice stack at 6 slices, renormalized
+   (against the dense model by 8b's bounds: CG stops at tol 1e-4).
 
-Phases 4-13 are the main path: each sets the launch counts to 0 before it
-drives the path (phases 8-13 before each training run, solve or command)
+Phases 4-14 are the main path: each sets the launch counts to 0 before it
+drives the path (phases 8-14 before each training run, solve or command)
 and reads them right after. The last lines are the command's wall, the
 kernels' JSON record, the card's name and power limit, and ``{"ok": true,
 ...}``.
@@ -161,6 +185,7 @@ kernels' JSON record, the card's name and power limit, and ``{"ok": true,
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import importlib
 import json
@@ -353,6 +378,26 @@ MESH_SERVE_B = (1, 512, 10_000)
 MESH_SERVE_TOL = 1e-12
 MESH_CLI_TOL = 1e-7
 
+# Phase 14: the mesh's pair and int8 routes on a one-rank world. 14a's
+# bounds on the pair route's held-out forces against 13b's f64 sharded model
+# and against 12a's single-device pair model (max |dF| / max |F|; three
+# solves of one system, each refined to a relative residual of 1e-9, held as
+# 13b's are held to 12a's; 1.8e-9 and 1.1e-9 read on the H100), and the
+# transient on top of the strip and the pair factor (14 n^2 bytes) that its
+# peak may reach (the first block column's panel at 62,000 rows: its f64
+# copies, slices and Ozaki products; 5.71 GB read); 14b's bound on the
+# cyclic layout's forces against 13b's (the same f64 factorization at
+# another block size; 2.1e-10 read); 14d's slice count (below 8: the factor
+# is renormalized) and its bound on the pair route against the dense model
+# (10c's). 14d's slice-stack CG model stops at CG's tol 1e-4 and is held to
+# the dense model by 8b's bounds (CG_DENSE_BOUNDS).
+MESH_PAIR_F64_TOL = 1e-7
+MESH_PAIR_12A_TOL = 1e-7
+MESH_PAIR_TRANSIENT_BYTES = 8e9
+MESH_CYCLIC_TOL = 1e-9
+MESH_STACK_SLICES = 6
+MESH_ECSTR_PAIR_TOL = 1e-7
+
 # H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s),
 # dense int8 tensor-core peak (1,979 TOP/s) and HBM3 bandwidth, for the
 # bounds of K1 and of the int8 products.
@@ -360,8 +405,8 @@ H100_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
 H100_INT8_OPS = 1979e12
 
 # What a later phase holds an earlier phase's run against: phase 5's AT-AT
-# queries ('5'), 8c's aspirin recipe ('8c'), 9a's quick start ('9a') and 12a's
-# held-out forces ('12a').
+# queries ('5'), 8c's aspirin recipe ('8c'), 9a's quick start ('9a'), 11c's
+# slice-stack run ('11c'), 12a's held-out forces ('12a') and 13b's ('13b').
 RESULTS = {}
 
 
@@ -1951,8 +1996,9 @@ def phase_ozaki_ladder(device, card):
 @contextlib.contextmanager
 def ozaki_factor():
     """``train()`` builds its solver with ``factor_mode='ozaki'``; yields the
-    solvers made, each keeping the last slice stack it built (``factor``)
-    and the solver's log records."""
+    solvers made, each keeping the last slice stack it built (``factor``; on
+    a mesh its ``spmd.ShardedSliceFactor``) and the solver's and the mesh
+    layer's log records."""
     made, records = [], Records()
 
     class OzakiIterative(it_mod.Iterative):
@@ -1961,22 +2007,24 @@ def ozaki_factor():
             self.factor = None
             made.append(self)
 
-        def _build_factor_streamed(self, *args, **kw):
+        def _build_factor(self, *args, **kw):
             self.factor = None
-            self.factor, lev = super()._build_factor_streamed(*args, **kw)
+            self.factor, lev = super()._build_factor(*args, **kw)
             return self.factor, lev
 
-    logger = logging.getLogger(it_mod.__name__)
-    level = logger.level
-    logger.addHandler(records)
-    logger.setLevel(logging.INFO)
+    loggers = [logging.getLogger(mod.__name__) for mod in (it_mod, spmd)]
+    levels = [logger.level for logger in loggers]
+    for logger in loggers:
+        logger.addHandler(records)
+        logger.setLevel(logging.INFO)
     saved, train_mod.Iterative = train_mod.Iterative, OzakiIterative
     try:
         yield made, records
     finally:
         train_mod.Iterative = saved
-        logger.removeHandler(records)
-        logger.setLevel(level)
+        for logger, level in zip(loggers, levels):
+            logger.removeHandler(records)
+            logger.setLevel(level)
 
 
 def ozaki_recipe(device, r, max_seconds, slices=None):
@@ -2030,7 +2078,7 @@ def ozaki_split(label, r, o, card):
         lambda: it_mod._matvec_A(v, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=False, mm=o['rung']),
         lambda: it_mod._precond(F, v, lam))
     b_ms, b_by = bound(B, T, D, 8)
-    s_bytes = F.s.numel()
+    s_bytes = (F.F if isinstance(F, spmd.ShardedSliceFactor) else F).s.numel()
     print('    %s slice-stack iteration parts (k=%d, %d slices, stack %.2f GB): matvec at %r %.3f ms; K1 at B=%d T=%d '
           'D=%d f64 %.3f ms vs plain %.3f ms, bound %.4f ms by %s (%.1f%%); slice-stack apply %.3f ms (reads the '
           'stack twice, %.0f GB/s) (%s)' % (
@@ -2077,6 +2125,8 @@ def phase_ozaki_aspirin(device, aspirin_cg, card):
     assert mae < CG_MAE_SHARE * scale and f_rel < CG_DENSE_BOUNDS[0], (mae, scale, f_rel)
     split = ozaki_split('aspirin', r, o, card)
     split['solver_iters'] = int(model['solver_iters'])
+    RESULTS['11c'] = {key: o[key] for key in ('budget', 'k', 'ns', 'stack_gb', 'times', 'peak', 'sweeps', 'rung')}
+    RESULTS['11c'].update(iters=int(model['solver_iters']), apply_ms=split['apply_ms'])
     return o['during'], split
 
 
@@ -2692,6 +2742,7 @@ def phase_mesh_aspirin(device, mesh, grid, card):
               during, card))
     assert peak < MESH_PEAK_BYTES and rel <= MESH_RESID and d_pair <= MESH_PAIR_TOL, (peak, rel, d_pair)
     assert abs(mae - grid['mae']) <= MESH_MAE_SHARE * grid['mae'] and mae < CG_MAE_SHARE * scale, (mae, grid['mae'])
+    RESULTS['13b'] = dict(F=F, times=dict(t), flops=flops)
     return during
 
 
@@ -2831,6 +2882,337 @@ def phase_mesh(device, ethanol, grid, atat, card):
     return counts
 
 
+@contextlib.contextmanager
+def mesh_pair_probe(split=True):
+    """``train()`` builds its analytic solver with ``mesh_precision='pair'``
+    (``train.Analytic``); yields ``(probe, records)``: the solvers made, the
+    mesh layer's log records and, with ``split``, CUDA events around the
+    pair factor's steps (``meshchol._diag_factor``, ``_panel``,
+    ``_panel_operands``, ``_trailing_update``) and, where CG starts on a
+    factor that held, the device ms of its parts each alone on the CG's
+    right-hand side: the strip matvec and the two pair triangular solves."""
+    from sgdml_tpu_torch.ops import meshchol
+
+    probe = {'solvers': [], 'steps': {}, 'cg': None, 'factor': None}
+    records = Records()
+
+    class PairAnalytic(an_mod.Analytic):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, mesh_precision='pair', **kw)
+            probe['solvers'].append(self)
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            probe['steps'].setdefault(name, []).append(ev)
+            return out
+        return wrapper
+
+    def keep(Ahi, Alo, nb, mesh=None):
+        out = saved['blocked_cholesky_pair'](Ahi, Alo, nb, mesh)
+        probe['factor'] = (out[0], out[1], nb, mesh) if out[2] == 0 else None
+        return out
+
+    def pair_cg(A_apply, M_apply, b, info, max_iters):
+        if probe['factor'] is not None:
+            Lh, Ll, nb, mesh = probe['factor']
+            probe['factor'] = None
+            probe['cg'] = dict(
+                matvec_ms=cuda_ms(lambda: A_apply(b), 3),
+                forward_ms=cuda_ms(lambda: meshchol.tri_solve_pair(Lh, Ll, b, nb, mesh=mesh), 2),
+                transposed_ms=cuda_ms(lambda: meshchol.tri_solve_pair(Lh, Ll, b, nb, trans=True, mesh=mesh), 2))
+            del Lh, Ll
+        return saved['_pair_cg'](A_apply, M_apply, b, info, max_iters)
+
+    names = ('_diag_factor', '_panel', '_panel_operands', '_trailing_update')
+    saved = {name: getattr(meshchol, name) for name in names + ('blocked_cholesky_pair',)}
+    saved['_pair_cg'], saved['Analytic'] = spmd._pair_cg, train_mod.Analytic
+    logger = logging.getLogger(spmd.__name__)
+    level = logger.level
+    logger.addHandler(records)
+    logger.setLevel(logging.INFO)
+    train_mod.Analytic = PairAnalytic
+    if split:
+        for name in names:
+            setattr(meshchol, name, timed(name, saved[name]))
+        meshchol.blocked_cholesky_pair, spmd._pair_cg = keep, pair_cg
+    try:
+        yield probe, records
+    finally:
+        train_mod.Analytic, spmd._pair_cg = saved.pop('Analytic'), saved.pop('_pair_cg')
+        for name, fn in saved.items():
+            setattr(meshchol, name, fn)
+        logger.removeHandler(records)
+        logger.setLevel(level)
+
+
+def step_seconds(probe):
+    """{step: (seconds, calls)} of ``mesh_pair_probe``'s events."""
+    return {name: (sum(a.elapsed_time(b) for a, b in evs) / 1e3, len(evs)) for name, evs in probe['steps'].items()}
+
+
+def pair_route_log(records):
+    """The mesh pair solve's log: the message of the rung taken, and
+    whether it fell back to f64."""
+    taken = [m for m in records.messages if m.startswith('Mesh pair solve: lam')]
+    fallback = any('falling back to f64' in m for m in records.messages)
+    return taken, fallback
+
+
+def phase_mesh_pair(device, mesh, grid, card):
+    """14a: 10a's aspirin task (63,000 unknowns, lam 1e-10) by
+    ``Analytic(mesh=, mesh_precision='pair')`` on the one-rank mesh: the pair
+    Cholesky of a lam'-shifted pair copy as the preconditioner of CG on the
+    kept f64 strip (14 n^2 bytes at one rank)."""
+    n_atoms, _, _, _, _, m, sig, lam = GRID_ASPIRIN
+    ds, task = grid['ds'], grid['task']
+    n = m * 3 * n_atoms
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with mesh_pair_probe() as (probe, records):
+        fused_predict.reset_launches()
+        trainer = GDMLTrain(mesh=mesh, device=device)
+        model = trainer.train(task, solver='analytic')
+        peak = torch.cuda.max_memory_allocated() - base
+        R, F_ref, _ = held_out(ds, task, GRID_HELD_OUT)
+        _, F = GDMLPredict(model, mesh=mesh, device=device).predict(R)
+        during = launch_counts()
+    solver, t, cg, steps = probe['solvers'][-1], trainer.times, probe['cg'], step_seconds(probe)
+    taken, fallback = pair_route_log(records)
+    shift = solver.lam_p_used / solver.lmax
+    rel_cg = [r[3] for r in solver.rungs if r[0] == solver.lam_p_used][0]
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    rel = true_resid(model, X, Jc, dperms, y, n_atoms) / float(np.linalg.norm(y))
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    d_f64 = float(np.abs(F - RESULTS['13b']['F']).max() / np.abs(RESULTS['13b']['F']).max())
+    d_pair = float(np.abs(F - RESULTS['12a']['F']).max() / np.abs(RESULTS['12a']['F']).max())
+    it_ms = 1e3 * t['solve'] / max(solver.pcg_iters, 1)
+    solves_ms = cg['forward_ms'] + cg['transposed_ms']
+    strip_bytes, pair_half = 8.0 * n * n, 3.0 * n * n
+    nb = spmd._largest_divisor(n, spmd.NB)
+    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns) on the one-rank mesh by the pair route (nb %d): lmax %.6e, '
+          'rungs (lam\', info, CG iterations, CG relative residual) %s, lam\' %.6e = %g lmax, %d CG iterations '
+          '(cap %d), CG relative residual %.3e (gate %.0e), fell back to f64: %s; relative residual re-measured by '
+          'the plain matvec %.3e (bound %.0e); train() %.2f s = %s; the factor(s) by step (device time between CUDA '
+          'events): %d leaf Cholesky %.3f s, %d panel solves %.3f s, %d panel slicings %.3f s, %d trailing updates '
+          '%.3f s; CG %.2f s, %.3f ms an iteration: the strip matvec %.3f ms (reads the %.2f GB strip once, %.0f GB/s; '
+          'its bytes floor %.2f ms) and the two pair triangular solves %.3f + %.3f ms (read the pair factor\'s lower '
+          'half twice, %.2f GB, %.0f GB/s; floor %.2f ms); peak allocated by train() %.2f GB (14 n^2 = %.2f GB, bound '
+          '%.2f GB with the transient); held-out force MAE %.6f on %d frames (10a: %.6f, bound %.0f%%); max |dF| / '
+          'max |F| from 13b\'s f64 sharded model %.3e (bound %.0e), from 12a\'s pair-route model %.3e (bound %.0e); '
+          'train() beside this call\'s other routes of the lam 1e-10 region: the mesh f64 Cholesky (13b) %.2f s, '
+          'the grid route (10a) %.2f s, the single-device pair route (12a) %.2f s; K1 launches %s (%s)' % (
+              n_atoms, m, sig, lam, n, nb, solver.lmax,
+              [(float('%.6g' % r[0]), r[1], r[2], float('%.3g' % r[3])) for r in solver.rungs], solver.lam_p_used,
+              shift, solver.pcg_iters, spmd.PAIR_CG_ITERS, rel_cg, spmd.PAIR_CG_GATE, fallback, rel, MESH_RESID,
+              t['total'], mesh_times(t, ('descriptors', 'assembly', 'factor', 'solve', 'model creation',
+                                         'integration constant')),
+              steps['_diag_factor'][1], steps['_diag_factor'][0], steps['_panel'][1], steps['_panel'][0],
+              steps['_panel_operands'][1], steps['_panel_operands'][0], steps['_trailing_update'][1],
+              steps['_trailing_update'][0], t['solve'], it_ms, cg['matvec_ms'], strip_bytes / 1e9,
+              strip_bytes / cg['matvec_ms'] * 1e-6, strip_bytes / H100_BYTES_PER_S * 1e3, cg['forward_ms'],
+              cg['transposed_ms'], 2 * pair_half / 1e9, 2 * pair_half / solves_ms * 1e-6,
+              2 * pair_half / H100_BYTES_PER_S * 1e3, peak / 1e9, 14.0 * n * n / 1e9,
+              (14.0 * n * n + MESH_PAIR_TRANSIENT_BYTES) / 1e9, mae, len(R), grid['mae'], 100 * MESH_MAE_SHARE, d_f64,
+              MESH_PAIR_F64_TOL, d_pair, MESH_PAIR_12A_TOL, RESULTS['13b']['times']['total'],
+              grid['times']['total'], RESULTS['12a']['times']['total'], during, card))
+    assert taken and not fallback and any(abs(shift - s) <= 1e-9 * s for s in spmd.PAIR_LAM_P_SHIFTS), (taken, shift)
+    assert 0 < solver.pcg_iters <= spmd.PAIR_CG_ITERS and rel_cg <= spmd.PAIR_CG_GATE, (solver.pcg_iters, rel_cg)
+    assert rel <= MESH_RESID and peak < 14.0 * n * n + MESH_PAIR_TRANSIENT_BYTES, (rel, peak)
+    assert abs(mae - grid['mae']) <= MESH_MAE_SHARE * grid['mae'] and mae < CG_MAE_SHARE * scale, (mae, grid['mae'])
+    assert d_f64 <= MESH_PAIR_F64_TOL and d_pair <= MESH_PAIR_12A_TOL, (d_f64, d_pair)
+    return during
+
+
+def phase_mesh_cyclic(device, mesh, grid, card):
+    """14b: 13b's task through ``solve_interleaved(layout='cyclic')`` (the
+    block-cyclic f64 Cholesky of ``ops/cyclic.py``; at one rank the layout is
+    the identity and the strip is factored in place), against 13b's model."""
+    n_atoms, _, _, _, _, m, sig, lam = GRID_ASPIRIN
+    ds, task = grid['ds'], grid['task']
+    n = m * 3 * n_atoms
+    saved = spmd.solve_interleaved
+    spmd.solve_interleaved = functools.partial(saved, layout='cyclic')
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        fused_predict.reset_launches()
+        trainer = GDMLTrain(mesh=mesh, device=device)
+        model = trainer.train(task, solver='analytic')
+        peak = torch.cuda.max_memory_allocated() - base
+        R, _, _ = held_out(ds, task, GRID_HELD_OUT)
+        _, F = GDMLPredict(model, mesh=mesh, device=device).predict(R)
+        during = launch_counts()
+    finally:
+        spmd.solve_interleaved = saved
+    ref = RESULTS['13b']
+    d = float(np.abs(F - ref['F']).max() / np.abs(ref['F']).max())
+    t, t13 = trainer.times, ref['times']
+    nb = spmd._largest_divisor(n, spmd.NB)
+    print('    aspirin N=%d M=%d (%d unknowns) on the one-rank mesh by the cyclic layout (nb %d, %d block rows): train() '
+          '%.2f s = %s, the factor %.3f s, %.1f TFLOP/s on n^3/3 (13b\'s masked layout: the factor %.3f s, %.1f '
+          'TFLOP/s; train() %.2f s); peak allocated by train() %.2f GB (the strip 8 n^2 = %.2f GB); max |dF| / max |F| '
+          'from 13b\'s model %.3e (bound %.0e) on %d frames; K1 launches %s (%s)' % (
+              n_atoms, m, n, nb, -(-n // nb), t['total'],
+              mesh_times(t, ('descriptors', 'assembly', 'factor', 'solve', 'model creation', 'integration constant')),
+              t['factor'], n**3 / 3 / t['factor'] * 1e-12, t13['factor'], n**3 / 3 / t13['factor'] * 1e-12,
+              t13['total'], peak / 1e9, 8.0 * n * n / 1e9, d, MESH_CYCLIC_TOL, len(R), during, card))
+    assert d <= MESH_CYCLIC_TOL and peak < MESH_PEAK_BYTES, (d, peak)
+    return during
+
+
+def phase_mesh_stack(device, mesh, card):
+    """14c: 11c's run (8c's aspirin task, sig 15, lam 1e-8, by the int8 slice
+    stack at 11c's budget) by ``GDMLTrain(mesh=)``: the column-sharded
+    streamed build and its apply at one rank."""
+    r, r8 = RESULTS['11c'], RESULTS['8c']
+    ds, task, c8 = r8['ds'], r8['task'], r8['model']
+    n_atoms = ds['R'].shape[1]
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    with ozaki_factor() as (made, records):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_predict.reset_launches()
+        trainer = GDMLTrain(max_memory=r['budget'] / 1024**3, mesh=mesh, device=device)
+        model = trainer.train(task, solver='cg', solver_max_seconds=CG_ASPIRIN_SECONDS)
+        during, per_it = cg_launches(model['solver_iters'])
+        peak = torch.cuda.max_memory_allocated()
+    solver = made[-1]
+    build = [rec.args for rec in records.records if rec.msg.startswith('Sharded streamed slice-stack factor')][-1]
+    sweeps = dict(zip(('W', 'Gram', 'F', 'renorm'), build[-4:]))
+    k, ns, stack_gb = len(model['inducing_pts_idxs']) // (3 * n_atoms), solver._ns(), build[4]
+    iters = int(model['solver_iters'])
+    tol_b = model['solver_tol'] * model['norm_y_train']
+    resid = true_resid(model, X, Jc, dperms, y, n_atoms)
+    drift = abs(resid - model['solver_resid']) / resid
+    R, F_ref, _ = held_out(ds, task, 500)
+    _, F = GDMLPredict(model, device=device).predict(R)
+    _, F8 = GDMLPredict(c8, device=device).predict(R)
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    f_rel = float(np.abs(F - F8).mean() / np.abs(F8).mean())
+    t = trainer.times
+    print('    aspirin M=%d sig=%g lam=%g by the slice stack on the one-rank mesh at 11c\'s budget (%.1f GB): %d slices, '
+          'k=%d, local stack %.2f GB (11c: %d slices, k=%d, %.2f GB); the sharded build\'s sweeps W %.2f, Gram %.2f, F '
+          '%.2f, renormalization %.2f s (11c: %.2f, %.2f, %.2f, %.2f); %d iterations (11c: %d; bound %d%% or %d), '
+          'train() %.2f s = %s (11c: %.2f s); peak allocated %.2f GB (11c: %.2f); recorded resid %.3e, re-measured by '
+          'the plain matvec %.3e (drift %.2e; target %.3e); held-out force MAE %.5f (bound %.4f), mean |dF| / mean '
+          '|F| against 8c\'s model %.2e (bound %.0e) on %d frames; K1 %.2f launches an iteration %s (%s)' % (
+              len(task['idxs_train']), float(task['sig']), float(task['lam']), r['budget'] / 1e9, ns, k, stack_gb,
+              r['ns'], r['k'], r['stack_gb'], sweeps['W'], sweeps['Gram'], sweeps['F'], sweeps['renorm'],
+              r['sweeps']['W'], r['sweeps']['Gram'], r['sweeps']['F'], r['sweeps']['renorm'], iters, r['iters'],
+              100 * CG_ANCHOR_TOL[0], CG_ANCHOR_TOL[1], t['total'],
+              mesh_times(t, ('descriptors', 'leverage scores', 'factor', 'cg', 'integration constant')),
+              r['times']['total'], peak / 1e9, r['peak'] / 1e9, model['solver_resid'], resid, drift, tol_b, mae,
+              CG_MAE_SHARE * scale, f_rel, CG_DENSE_BOUNDS[0], len(R), per_it, during, card))
+    assert (k, ns, stack_gb) == (r['k'], r['ns'], r['stack_gb']), (k, ns, stack_gb, r)
+    assert abs(iters - r['iters']) <= max(CG_ANCHOR_TOL[0] * r['iters'], CG_ANCHOR_TOL[1]), (iters, r['iters'])
+    assert resid <= tol_b and drift <= it_mod.RESID_REPLACE_DRIFT, (resid, tol_b, drift)
+    assert mae < CG_MAE_SHARE * scale and f_rel < CG_DENSE_BOUNDS[0], (mae, f_rel)
+    o = dict(factor=solver.factor, k=k, ns=ns, rung=model.get('solver_mv_mm', 'ozaki'))
+    r8 = dict(r8, X=X, Jc=Jc, dperms=dperms, n=X.shape[0] * 3 * n_atoms)
+    split = ozaki_split('aspirin mesh', r8, o, card)
+    split['solver_iters'] = iters
+    print('    the sharded apply at one rank: %.3f ms against 11c\'s single-device apply %.3f ms (%s)' % (
+        split['apply_ms'], r['apply_ms'], card))
+    return during, split
+
+
+def phase_mesh_ecstr(device, mesh, ethanol, card):
+    """14d: 10c's energy-constrained ethanol task on the one-rank mesh by the
+    pair route and by the bordered slice stack at ``MESH_STACK_SLICES``
+    (renormalized), each against the dense model on the training geometries:
+    the only runs of the bordered apply and the sharded renormalization."""
+    ds = ethanol[0]
+    m, _, lam, _ = GRID_ECSTR
+    n_atoms = ds['R'].shape[1]
+    task = GDMLTrain(device=device).create_task(ds, m, ds, 100, sig=ETHANOL[5], lam=lam, use_sym=False,
+                                               use_E_cstr=True, rng=np.random.RandomState(ETHANOL[3]))
+    dense = GDMLTrain(device=device).train(task)
+    R = task['R_train'].reshape(m, -1)
+    Ed, Fd = GDMLPredict(dense, device=device).predict(R)
+    counts = dict.fromkeys(launch_counts(), 0)
+    with mesh_pair_probe(split=False) as (probe, records):
+        fused_predict.reset_launches()
+        trainer = GDMLTrain(mesh=mesh, device=device)
+        pair = trainer.train(task, solver='analytic')
+        during = launch_counts()
+    counts = {key: counts[key] + during[key] for key in counts}
+    solver, (taken, fallback) = probe['solvers'][-1], pair_route_log(records)
+    Ep, Fp = GDMLPredict(pair, device=device).predict(R)
+    p_rel = float(np.linalg.norm(Fp - Fd) / np.linalg.norm(Fd))
+    with ozaki_factor() as (made, records):
+        fused_predict.reset_launches()
+        stack_trainer = GDMLTrain(mesh=mesh, device=device)
+        stack = stack_trainer.train(task, solver='cg', factor_slices=MESH_STACK_SLICES,
+                                    solver_max_seconds=CG_ASPIRIN_SECONDS)
+        during = launch_counts()
+    counts = {key: counts[key] + during[key] for key in counts}
+    F_stack = made[-1].factor
+    build = [rec.args for rec in records.records if rec.msg.startswith('Sharded streamed slice-stack factor')][-1]
+    Es, Fs = GDMLPredict(stack, device=device).predict(R)
+    s_rel = float(np.abs(Fs - Fd).mean() / np.abs(Fd).mean())
+    e_rel = float(np.abs((Es - Es.mean()) - (Ed - Ed.mean())).mean() / np.abs(Ed - Ed.mean()).mean())
+    conv = stack['solver_resid'] <= stack['solver_tol'] * stack['norm_y_train']
+    print('    ethanol M=%d lam=%g with energy constraints (%d unknowns) on the one-rank mesh: the pair route (%d '
+          'rung(s), lam\' %.4e, %d CG iterations, fell back to f64: %s, train() %.3f s) against the dense model: '
+          'training forces %.2e relative (bound %.0e), energies %.2e; the bordered slice stack (%d slices, k=%d, '
+          'border F_E %s, renormalization %.3f s, %d iterations, converged %s, train() %.3f s) against the dense model: '
+          'mean |dF| / mean |F| %.2e (bound %.0e), centered energies %.2e (bound %.0e); K1 launches %s (%s)' % (
+              m, lam, m * (3 * n_atoms + 1), len(solver.rungs), solver.lam_p_used, solver.pcg_iters, fallback,
+              trainer.times['total'], p_rel, MESH_ECSTR_PAIR_TOL, float(np.abs(Ep - Ed).max() / np.abs(Ed).max()),
+              made[-1]._ns(), len(stack['inducing_pts_idxs']) // (3 * n_atoms), tuple(F_stack.F_E.shape), build[-1],
+              stack['solver_iters'], conv, stack_trainer.times['total'], s_rel, CG_DENSE_BOUNDS[0], e_rel,
+              CG_DENSE_BOUNDS[1], counts, card))
+    assert taken and not fallback and 'alphas_E' in pair and p_rel < MESH_ECSTR_PAIR_TOL, (taken, fallback, p_rel)
+    assert made[-1]._ns() == MESH_STACK_SLICES and F_stack.F_E is not None and build[-1] > 0, build
+    assert conv and 'alphas_E' in stack and s_rel < CG_DENSE_BOUNDS[0] and e_rel < CG_DENSE_BOUNDS[1], (
+        conv, s_rel, e_rel)
+    return counts
+
+
+def phase_mesh_routes(device, ethanol, grid, card):
+    """14: the mesh's pair and int8 routes on a one-rank NCCL world made here
+    (no launcher) and destroyed at the end, as phase 13's; K1 runs in the
+    integration constants, the mesh serving, the slice stack's CG matvecs and
+    the validations."""
+    t0 = time.perf_counter()
+    assert not torch.distributed.is_initialized()
+    mesh_mod.init_distributed(world_size=1, rank=0, device=device)
+    counts = dict.fromkeys(launch_counts(), 0)
+    split = None
+    try:
+        mesh = mesh_mod.default_mesh(1, device=device)
+        torch.distributed.barrier()
+        secs = {}
+        for name, run in (('14a', lambda: phase_mesh_pair(device, mesh, grid, card)),
+                          ('14b', lambda: phase_mesh_cyclic(device, mesh, grid, card)),
+                          ('14c', lambda: phase_mesh_stack(device, mesh, card)),
+                          ('14d', lambda: phase_mesh_ecstr(device, mesh, ethanol, card))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t_run = time.perf_counter()
+            during = run()
+            if isinstance(during, tuple):
+                during, split = during
+            secs[name] = time.perf_counter() - t_run
+            counts = {k: counts[k] + during[k] for k in counts}
+    finally:
+        torch.distributed.destroy_process_group()
+    assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
+    print('[14 mesh routes] one-rank %s world: aspirin (%d unknowns) by the mesh pair route without the f64 fallback; '
+          'the cyclic layout = 13b\'s model; the sharded slice stack = 11c (k, slices, stack) and 8c\'s model; '
+          'energy constraints by the pair route and the bordered, renormalized stack = the dense model; seconds %s; '
+          'launches %s; %.1f s (%s)' % (
+              'NCCL' if device == 'cuda' else 'gloo', GRID_ASPIRIN[5] * 3 * GRID_ASPIRIN[0],
+              {k: round(v, 1) for k, v in secs.items()}, counts, time.perf_counter() - t0, card))
+    return counts, split
+
+
 def bound(B, T, D, itemsize):
     """(ms, 'bytes' or 'operations'): the least time of one contraction on
     an H100 SXM: 8 B T D operations at 67 TFLOP/s (FP64 tensor core and FP32
@@ -2881,7 +3263,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mesh_counts = phase_mesh(device, ethanol, grid, atat, smi)
-    main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts]
+    gc.collect()
+    torch.cuda.empty_cache()
+    routes_counts, stack_split = phase_mesh_routes(device, ethanol, grid, smi)
+    splits.append(stack_split)
+    main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts,
+                  routes_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]

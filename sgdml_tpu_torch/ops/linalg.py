@@ -23,7 +23,9 @@ one is smaller.
 
 The triangular solves substitute block by block on a replicated right-hand
 side, with one all-reduce a block (the diagonal block and the strips'
-partial products). Without a mesh every function works on one tensor, and
+partial products); the factor may be one f64 tensor or an (f32, bf16)
+pair (``ops/meshchol.py``), each block of a pair joined to f64 as it is
+read. Without a mesh every function works on one tensor, and
 :func:`cho_solve_blocked` pads to a multiple of ``nb`` with an identity
 extension, as the JAX package does.
 """
@@ -33,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel.mesh import all_gather_rows, all_reduce_, mesh_info
+from .pairchol import pair_to_f64
 
 __all__ = ['blocked_cholesky', 'blocked_tri_solve', 'cho_solve_blocked']
 
@@ -53,13 +56,21 @@ def _strip(A, mesh):
     return info, info.rank * rloc
 
 
-def _rows_of(A, r0, k0, k1, width, extra=0):
-    """A ``(k1 - k0, width + extra)`` buffer holding this strip's rows of
-    ``[k0, k1)`` in its first ``width`` columns (zeros elsewhere), and the
-    strip's local row range of them."""
+def _rows_of(A, r0, k0, k1, width, extra=0, dtype=None):
+    """A ``(k1 - k0, width + extra)`` zero buffer (of ``A``'s dtype unless
+    given) for this strip's rows of ``[k0, k1)``, and the global range of
+    the rows the strip holds."""
     lo, hi = max(k0, r0), min(k1, r0 + A.shape[0])
-    buf = A.new_zeros((k1 - k0, width + extra))
+    buf = A.new_zeros((k1 - k0, width + extra), dtype=dtype)
     return buf, lo, hi
+
+
+def _block(L, rows, cols):
+    """``L[rows, cols]`` of a factor held as one tensor or as a ``(hi, lo)``
+    pair, joined to f64."""
+    if isinstance(L, tuple):
+        return pair_to_f64(L[0][rows, cols], L[1][rows, cols])
+    return L[rows, cols]
 
 
 def _factor_(A, nb: int, mesh=None):
@@ -119,11 +130,12 @@ def blocked_cholesky(A, nb: int, mesh=None):
 
 def blocked_tri_solve(L, b, nb: int, trans: bool = False, mesh=None):
     """Solve ``L y = b`` (``L^T y = b`` with ``trans``) by block substitution;
-    ``L`` lower triangular, ``b`` ``(n,)`` or ``(n, K)``. With a ``mesh``,
-    ``L`` is this rank's row strip, ``b`` is whole on every rank, and so is
-    the result."""
-    info, r0 = _strip(L, mesh)
-    rloc, n = L.shape
+    ``L`` lower triangular, one tensor or an ``(hi, lo)`` pair (then ``b``
+    is f64), ``b`` ``(n,)`` or ``(n, K)``. With a ``mesh``, ``L`` is this
+    rank's row strip, ``b`` is whole on every rank, and so is the result."""
+    Ls = L[0] if isinstance(L, tuple) else L
+    info, r0 = _strip(Ls, mesh)
+    rloc, n = Ls.shape
     vec = b.ndim == 1
     b = b[:, None] if vec else b
     kk = b.shape[1]
@@ -133,16 +145,16 @@ def blocked_tri_solve(L, b, nb: int, trans: bool = False, mesh=None):
         k1 = min(n, k0 + nb)
         bk = k1 - k0
         # [Lkk | partial sums of the known part], each strip's rows summed.
-        buf, lo, hi = _rows_of(L, r0, k0, k1, bk, kk)
+        buf, lo, hi = _rows_of(Ls, r0, k0, k1, bk, kk, dtype=b.dtype)
         if lo < hi:
-            buf[lo - k0:hi - k0, :bk] = L[lo - r0:hi - r0, k0:k1]
+            buf[lo - k0:hi - k0, :bk] = _block(L, slice(lo - r0, hi - r0), slice(k0, k1))
         if not trans:
             if lo < hi and k0 > 0:
-                buf[lo - k0:hi - k0, bk:] = L[lo - r0:hi - r0, :k0] @ y[:k0]
+                buf[lo - k0:hi - k0, bk:] = _block(L, slice(lo - r0, hi - r0), slice(0, k0)) @ y[:k0]
         else:
             a = max(k1, r0)
             if a < r0 + rloc:
-                buf[:, bk:] += L[a - r0:, k0:k1].T @ y[a:r0 + rloc]
+                buf[:, bk:] += _block(L, slice(a - r0, rloc), slice(k0, k1)).T @ y[a:r0 + rloc]
         if info is not None:
             all_reduce_(buf, info)
         Lkk, s = buf[:, :bk], buf[:, bk:]

@@ -211,15 +211,21 @@ def _gemm_nt(sa, sb):
                                    precision_levels=ozaki.DEFAULT_SLICES)
 
 
-def _panel_refine_pair(l_hi, l_split, a_hi, a_lo):
-    """``X = A L_jj^{-T}`` at pair accuracy by refined f32 substitution,
-    written into ``(a_hi, a_lo)``. ``l_split`` is ``_split7(L_jj)``."""
+def _panel_solve_pair(l_hi, l_split, a_hi, a_lo):
+    """``X = A L_jj^{-T}`` in f64 at pair accuracy by f32 substitution and
+    ``N_REFINE`` Ozaki-residual refinements. ``l_split`` is the
+    :func:`_split7` of ``L_jj``."""
     a64 = pair_to_f64(a_hi, a_lo)
     x64 = _rsolve_f32(l_hi, a_hi).to(_F64)
     for _ in range(N_REFINE):
         r64 = a64 - _gemm_nt(_split7(*pair_split(x64, _F32)), l_split)
         x64 += _rsolve_f32(l_hi, r64.to(_F32)).to(_F64)
-    _write_pair(a_hi, a_lo, x64)
+    return x64
+
+
+def _panel_refine_pair(l_hi, l_split, a_hi, a_lo):
+    """:func:`_panel_solve_pair` written into ``(a_hi, a_lo)``."""
+    _write_pair(a_hi, a_lo, _panel_solve_pair(l_hi, l_split, a_hi, a_lo))
 
 
 def _trailing_update_pair(c_hi, c_lo, sa, sb):

@@ -305,7 +305,7 @@ def _pair_M_apply(sstrips, Dinv, G, Ls, n, m, use_E_cstr):
     return _border_M_apply(M_ff, G, Ls, n_f) if use_E_cstr else M_ff
 
 
-def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters):
+def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters, flag=bool):
     """One chunk of at most ``max_iters`` conjugate-gradient iterations on
     the f64 system, preconditioned by ``M_apply``.
 
@@ -315,8 +315,9 @@ def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters):
     ``while_loop`` tests it, so ``it`` counts the iterations that loop
     takes (a step that makes the residual non-finite is committed and
     ends the chunk, as there). The host reads ``active`` every
-    ``CG_ACTIVE_READ_ITERS`` iterations and ends an inactive chunk there.
-    Returns ``(state, |r|)``.
+    ``CG_ACTIVE_READ_ITERS`` iterations and ends an inactive chunk there;
+    ``flag`` reads it (on a mesh rank 0's reading, so that every rank stops
+    alike). Returns ``(state, |r|)``.
     """
     from .iterative import CG_ACTIVE_READ_ITERS
 
@@ -326,7 +327,7 @@ def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters):
     rn = torch.linalg.vector_norm(r)
     active = (rn > thresh) & torch.isfinite(rn)
     for i in range(max_iters):
-        if i % CG_ACTIVE_READ_ITERS == 0 and not bool(active):
+        if i % CG_ACTIVE_READ_ITERS == 0 and not flag(active):
             break
         Ap = A_apply(p)
         alpha = rz / (p @ Ap)
@@ -405,20 +406,26 @@ class Analytic:
     max_memory: budget in GB for the route choice; None takes
         :func:`memory_budget` of the inputs' device.
     mesh_precision: the factorization on a mesh: ``'f64'``, the blocked f64
-        Cholesky of ``ops/linalg.py``; ``'pair'`` is ROADMAP item 13b.
+        Cholesky of ``ops/linalg.py``; ``'pair'``, the pair-precision
+        Cholesky of ``ops/meshchol.py`` as the preconditioner of CG on the
+        f64 strip, along a lam' ladder (``spmd.solve_interleaved``).
 
     After :meth:`solve`, ``route`` names the route that solved (``'dense'``,
     ``'grid'``, ``'pair'`` or ``'mesh'``) and ``timer.durations`` holds the
     seconds of its phases, each ended by a device synchronization:
     ``'assembly'`` and ``'cholesky'`` on the dense route; ``'assembly'``,
-    ``'factor'`` and ``'solve'`` on the mesh; ``'lmax'``, ``'assembly'`` and
+    ``'factor'`` and ``'solve'`` on the mesh (with ``'pair'`` the factor
+    summed over the rungs, the solve the CG, and ``timer.counts['rungs']``
+    the rungs tried); ``'lmax'``, ``'assembly'`` and
     ``'factor'`` (summed over the lam' ladder's rungs), ``'repack'`` (the
     pair route: leaf inverses and int8 slice stacks), ``'border'`` (with
     energy constraints) and ``'cg'`` past it. ``t_assemble`` is everything
     before the solve proper and ``t_solve`` the rest. The grid and pair
     routes also set ``lmax``, ``rungs`` (``(lam', info)`` of each rung
     tried; ``info`` 0 where the factor held), ``lam_p_used`` and
-    ``pcg_iters``.
+    ``pcg_iters``, and so does the mesh's pair route (its ``rungs`` as
+    ``solve_interleaved``'s ``stats`` hold them; ``lam_p_used`` None where it
+    fell back to f64).
     """
 
     def __init__(self, gdml_train=None, callback=None, mesh=None,
@@ -426,9 +433,6 @@ class Analytic:
         if mesh_precision not in ('f64', 'pair'):
             raise ValueError("mesh_precision must be 'f64' or 'pair', got %r" % (mesh_precision,))
         if mesh is not None:
-            if mesh_precision == 'pair':
-                raise NotImplementedError("mesh_precision='pair' (the pair-precision mesh Cholesky) is ROADMAP "
-                                          'queue 1 item 13b')
             from ..parallel.mesh import mesh_info
 
             mesh_info(mesh)  # a DeviceMesh, with this rank in it
@@ -500,9 +504,10 @@ class Analytic:
     def _solve_sharded(self, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr):
         """The mesh's closed-form solve (``sgdml_tpu/solvers/analytic.py:
         456-490``): each rank assembles its row strip of the interleaved
-        kernel matrix, which the distributed blocked f64 Cholesky factors in
-        place (``parallel/spmd.py``). Returns ``alphas`` whole on every
-        rank."""
+        kernel matrix, which ``spmd.solve_interleaved`` solves at
+        ``mesh_precision``: the distributed blocked f64 Cholesky factors it
+        in place, or the pair route keeps it as CG's system. Returns
+        ``alphas`` whole on every rank."""
         from ..parallel import spmd
 
         timer = self.timer
@@ -513,10 +518,15 @@ class Analytic:
         self.t_assemble = timer.durations['assembly']
         log.info('Assembled %dx%d kernel (row-sharded over %d devices) in %.2f s', lay.n, lay.n, lay.n_dev,
                  self.t_assemble)
-        alphas = spmd.solve_interleaved(K, y, lam, lay, self.mesh, timer=timer)
+        stats = {}
+        alphas = spmd.solve_interleaved(K, y, lam, lay, self.mesh, precision=self.mesh_precision, timer=timer,
+                                        stats=stats)
+        if self.mesh_precision == 'pair':
+            self.lmax, self.rungs = stats['lmax'], stats['rungs']
+            self.lam_p_used, self.pcg_iters = stats.get('lam_p'), stats.get('iters')
         self.t_solve = timer.durations['factor'] + timer.durations['solve']
-        log.info('Solved %d-dim linear system (blocked Cholesky over %d devices) in %.2f s', lay.n, lay.n_dev,
-                 self.t_solve)
+        log.info('Solved %d-dim linear system (%s blocked Cholesky over %d devices) in %.2f s', lay.n,
+                 self.mesh_precision, lay.n_dev, self.t_solve)
         return alphas
 
     def _setup_refinement(self, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr, lmax, tab):

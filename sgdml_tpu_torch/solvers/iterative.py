@@ -47,11 +47,15 @@ is batch-sharded (each rank predicts its shard of the training points, K1
 on a GPU, then one all-gather), the f64 factor is column-sharded
 (:class:`ShardedFactor`: the build of ``parallel/spmd.py``, or with energy
 constraints the one-pass build cut into column shards) and applied with one
-all-reduce of ``F v`` and one all-gather of ``v - F^T w``. CG vectors are
-whole on every rank, and every decision the host takes from them (a chunk's
-stop, a residual replacement, a restart, a wall-clock limit) is taken from
-rank 0's numbers (``mesh.agree``), so that no rank leaves a collective that
-the others enter. The slice stack on a mesh is ROADMAP item 13b.
+all-reduce of ``F v`` and one all-gather of ``v - F^T w``; the slice stack
+is column-sharded too (``spmd.ShardedSliceFactor``: each rank streams its
+own points' chunks into its block of the stack, ``spmd.
+nystrom_factor_sharded_streamed``), with or without energy constraints,
+which border it as a replicated f64 block. CG vectors are whole on every
+rank, and every decision the host takes from them (a chunk's stop, a
+residual replacement, a restart, a wall-clock limit) is taken from rank 0's
+numbers (``mesh.agree``), so that no rank leaves a collective that the
+others enter.
 """
 
 from __future__ import annotations
@@ -234,17 +238,30 @@ def _factor_ncols(F):
     return F.sig.shape[0] * F.width if isinstance(F, SliceFactor) else F.shape[1]
 
 
-def _gram_apply(F: SliceFactor, v):
-    """``F^T (F v)`` from the slice stack for ``v`` of :func:`_factor_ncols`
-    entries: both directions are exact int8 level sums recombined in f64
-    (``ozaki.matvec_sliced_long`` and ``_t``)."""
+def _stack_matvec(F: SliceFactor, v):
+    """``F v`` from the slice stack for ``v`` of :func:`_factor_ncols`
+    entries, over the stack's padded rows (the padding rows give 0): exact
+    int8 level sums recombined in f64 (``ozaki.matvec_sliced_long``)."""
     n_ch = F.sig.shape[0]
     stride = F.s.shape[2] // n_ch
     vs = v.new_zeros((n_ch, stride))
     vs[:, :F.width] = v.view(n_ch, F.width)
-    w = ozaki.matvec_sliced_long(F.s, F.sig, vs.view(-1), chunk=stride)
+    return ozaki.matvec_sliced_long(F.s, F.sig, vs.view(-1), chunk=stride)
+
+
+def _stack_matvec_t(F: SliceFactor, w):
+    """``F^T w`` from the slice stack for ``w`` over its padded rows
+    (``ozaki.matvec_sliced_long_t``): :func:`_factor_ncols` entries."""
+    n_ch = F.sig.shape[0]
+    stride = F.s.shape[2] // n_ch
     u = ozaki.matvec_sliced_long_t(F.s, F.sig, w, chunk=stride)
     return u.view(n_ch, stride)[:, :F.width].reshape(-1)
+
+
+def _gram_apply(F: SliceFactor, v):
+    """``F^T (F v)`` from the slice stack (:func:`_stack_matvec` and
+    :func:`_stack_matvec_t`)."""
+    return _stack_matvec_t(F, _stack_matvec(F, v))
 
 
 def _factor_apply_ozaki(F: SliceFactor, v):
@@ -260,6 +277,11 @@ def _precond(F, v, lam):
         return _factor_apply_ozaki(F, vp)[:v.shape[0]] / lam
     if isinstance(F, ShardedFactor):
         return _factor_apply_sharded(F, v) / lam
+    if isinstance(F, spmd.ShardedSliceFactor):
+        if F.F_E is not None:  # the bordered apply pads the force part itself
+            return spmd.ozaki_factor_apply_sharded_bordered(F, v) / lam
+        vp = torch.nn.functional.pad(v, (0, F.info.size * _factor_ncols(F.F) - v.shape[0]))
+        return spmd.ozaki_factor_apply_sharded(F, vp)[:v.shape[0]] / lam
     return _factor_apply(F, v) / lam
 
 
@@ -378,13 +400,6 @@ def _nystrom_factor_from_cols(C_psd, cols, lam, reg_w, reg_i):
 # -- the streamed slice-stack build (sgdml_tpu/solvers/iterative.py:556-803) --
 
 
-def _largest_divisor(n: int, cap: int) -> int:
-    for d in range(min(cap, n), 0, -1):
-        if n % d == 0:
-            return d
-    return 1
-
-
 def _gram_accum_y(gram, Lw, C):
     """``gram += Y Y^T`` for one assembly chunk, ``Y = L_W^{-1} C^T``, the
     Gram as an 8-slice Ozaki product. The triangular solve whitens the chunk
@@ -477,9 +492,6 @@ class Iterative:
                  seed: int | None = None, *, device=None):
         if factor_mode not in ('auto', 'f64', 'ozaki'):
             raise ValueError("factor_mode must be 'auto', 'f64' or 'ozaki', got %r" % (factor_mode,))
-        if mesh is not None and factor_mode == 'ozaki':
-            raise NotImplementedError("factor_mode='ozaki' on a mesh (the column-sharded slice stack) is "
-                                      'ROADMAP queue 1 item 13b')
         self.mesh = mesh
         self._info = None if mesh is None else mesh_info(mesh)
         if factor_slices is None:
@@ -525,8 +537,16 @@ class Iterative:
         """Assemble PSD columns on the device and build the Woodbury factor,
         with an escalating regularization ladder (reference behavior:
         iterative.py:414-471): the slice stack by the streamed build in
-        ``'ozaki'`` mode. Returns ``(F, host leverage scores)``."""
+        ``'ozaki'`` mode, on a mesh the sharded streamed build (its energy
+        rows as the replicated border ``F_E``; ``sgdml_tpu/solvers/
+        iterative.py:921-943``). Returns ``(F, host leverage scores)``."""
         col_idxs = np.asarray(col_idxs, dtype=np.int64)
+        if self._use_ozaki_factor() and self.mesh is not None:
+            C_E = None
+            if use_E_cstr:
+                C_E = assemble_kernel_E_rows(X, Jc, dperms, sig, n_atoms, col_idxs).neg_()
+            return spmd.nystrom_factor_sharded_streamed(X, Jc, dperms, sig, lam, col_idxs, n_atoms, self.mesh,
+                                                        n_slices=self._ns(), C_E_psd=C_E)
         if self._use_ozaki_factor():
             return self._build_factor_streamed(X, Jc, dperms, sig, lam, col_idxs, n_atoms, use_E_cstr)
         if self.mesh is not None and not use_E_cstr:
@@ -616,7 +636,7 @@ class Iterative:
         kcols = len(cols)
         pt_ch = max(1, _SOLVE_CHUNK // dim_i)
         if use_E_cstr:
-            pt_ch = _largest_divisor(m, pt_ch)
+            pt_ch = spmd._largest_divisor(m, pt_ch)
         n_ch = -(-m // pt_ch)
         rows_ch = pt_ch * dim_i
         tail = []  # the energy rows' chunks
@@ -711,19 +731,21 @@ class Iterative:
         return np.sort(idxs)
 
     @staticmethod
-    def _streamed_caps(n_train, n_atoms, budget, ns):
+    def _streamed_caps(n_train, n_atoms, budget, ns, n_dev=1):
         """The caps on k of the streamed ``ns``-slice stack: ``'plan'``, the
-        JAX package's (:meth:`max_n_inducing_pts` with ``streamed=True``);
-        then two bounds on ``kcols = 3 N k`` that a 16 GB TPU never met:
-        ``'blocks'``, the build's two ``(kcols, kcols)`` f64 factors within
-        the 28% of the budget beside the stack, and ``'int32'``, the
-        transposed apply's exact-int32 sum over the stack's rows
-        (``ozaki.matvec_sliced_long_t`` raises past
+        JAX package's (:meth:`max_n_inducing_pts` with ``streamed=True``,
+        the stack column-sharded over ``n_dev`` devices); then two bounds on
+        ``kcols = 3 N k`` that a 16 GB TPU never met, each a device's (the
+        ``(kcols, kcols)`` blocks are replicated, and the transposed apply
+        still sums over ``kcols`` rows): ``'blocks'``, the build's two
+        ``(kcols, kcols)`` f64 factors within the 28% of the budget beside
+        the stack, and ``'int32'``, the transposed apply's exact-int32 sum
+        over the stack's rows (``ozaki.matvec_sliced_long_t`` raises past
         ``ozaki.max_contraction_dim(8)``)."""
         dim_i = 3 * n_atoms
         return {
-            'plan': min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget, factor_bytes=ns + 1.0,
-                                                              streamed=True)),
+            'plan': min(n_train, Iterative.max_n_inducing_pts(n_train, n_atoms, budget, n_dev=n_dev,
+                                                              factor_bytes=ns + 1.0, streamed=True)),
             'blocks': max(1, int(np.sqrt(_BLOCK_SHARE * budget / (_BLOCKS_BESIDE_STACK * 8.0))) // dim_i),
             'int32': max(1, ozaki.max_contraction_dim(8) // dim_i),
         }
@@ -732,7 +754,8 @@ class Iterative:
         """The slice count whose budget affords the LARGEST inducing-point
         count k; ties go to 8 slices (cleaner spectrum, no renormalization).
         Returns ``(n_slices, k_cap)``. ``budget`` in bytes defaults to the
-        solver's (``max_memory``, else ``memory_budget`` of its device).
+        solver's (``max_memory``, else ``memory_budget`` of its device); on
+        a mesh the stack is column-sharded over its devices.
 
         On a 16 GB TPU the fresh 8-slice k=11 AT-AT solve extrapolated to
         ~76k CG iterations while the 6-slice k=15 one converged in 14k: fresh
@@ -740,7 +763,7 @@ class Iterative:
         budget = self._budget() if budget is None else budget
         best_ns, best_k = 8, -1
         for ns in (8, 6):
-            k = min(Iterative._streamed_caps(n_train, n_atoms, budget, ns).values())
+            k = min(Iterative._streamed_caps(n_train, n_atoms, budget, ns, self._n_dev()).values())
             if k > best_k:
                 best_ns, best_k = ns, k
         return best_ns, best_k
@@ -752,8 +775,10 @@ class Iterative:
         mesh's ranks where the build is sharded; with energy constraints
         every rank builds the whole one-pass factor, so the plan is one
         device's (the JAX package scales it by the devices there too). The slice
-        stack: :meth:`_streamed_caps` at the resolved slice count, with a log
-        line when a bound beyond the JAX package's plan sets k. With
+        stack: :meth:`_streamed_caps` at the resolved slice count, over the
+        mesh's devices with or without energy constraints (their border is a
+        replicated ``(k, M)`` block), with a log line when a bound beyond the
+        JAX package's plan sets k. With
         ``max_memory=None`` the budget is what the device has free now, so a
         solve reads it once."""
         budget = self._budget()
@@ -764,8 +789,9 @@ class Iterative:
             self._auto_ns, k = self.resolve_factor_slices(n_train, n_atoms, budget)
             if self._auto_ns != 8:
                 log.info('Auto-selected the %d-slice preconditioner factor (k cap %d vs %d at 8 slices).',
-                         self._auto_ns, k, min(Iterative._streamed_caps(n_train, n_atoms, budget, 8).values()))
-        caps = Iterative._streamed_caps(n_train, n_atoms, budget, self._ns())
+                         self._auto_ns, k,
+                         min(Iterative._streamed_caps(n_train, n_atoms, budget, 8, self._n_dev()).values()))
+        caps = Iterative._streamed_caps(n_train, n_atoms, budget, self._ns(), self._n_dev())
         k = min(caps.values())
         if k < caps['plan']:
             why = {'blocks': 'its two (kcols, kcols) f64 factors within %.0f%% of the %.2f GB budget' % (

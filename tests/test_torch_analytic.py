@@ -2,7 +2,8 @@
 the JAX package: the Cholesky rung, the LU rung on a system that is not
 positive definite, the whole solve, the grid route past the dense bound
 (tests/test_torch_analytic_grid.py holds it to the JAX package) and the
-route that is not ported (multi-GPU)."""
+mesh's pair route on a one-rank world (``tests/test_torch_meshchol.py``
+holds it to the JAX package on four ranks)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +16,8 @@ from sgdml_tpu_torch.ops import descriptor as desc_ops
 from sgdml_tpu_torch.predict import desc_perm_table
 from sgdml_tpu_torch.solvers import analytic
 from sgdml_tpu_torch.train import GDMLTrain
+
+from torch_mesh_worker import one_rank_world
 
 
 def _system(n=40, seed=0, psd=True):
@@ -84,11 +87,18 @@ def test_routes_that_are_not_ported_raise():
     grid = analytic.Analytic(max_memory=1e-6)
     alphas = grid.solve({'sig': 2.0, 'lam': 1e-8}, X, Jc, dperms, y)
     assert grid.pcg_iters > 0 and torch.isfinite(alphas).all() and alphas.shape == (60,)
-    # The mesh's pair precision is item 13b; a mesh must be a DeviceMesh.
-    with pytest.raises(NotImplementedError, match='item 13b'):
-        analytic.Analytic(mesh=object(), mesh_precision='pair')
-    with pytest.raises(TypeError, match='DeviceMesh'):
-        analytic.Analytic(mesh=object())
+    # The mesh's pair precision constructs and runs on a one-rank world (the
+    # dense solve's coefficients to 1e-6 at this lam); a mesh must be a
+    # DeviceMesh.
+    dense = analytic.Analytic().solve({'sig': 2.0, 'lam': 1e-8}, X, Jc, dperms, y)
+    with one_rank_world() as mesh:
+        pair = analytic.Analytic(mesh=mesh, mesh_precision='pair')
+        alphas = pair.solve({'sig': 2.0, 'lam': 1e-8}, X, Jc, dperms, y)
+    assert pair.route == 'mesh' and pair.lam_p_used is not None and pair.pcg_iters > 0
+    assert float((alphas - dense).abs().max() / dense.abs().max()) < 1e-6
+    for precision in ('f64', 'pair'):
+        with pytest.raises(TypeError, match='DeviceMesh'):
+            analytic.Analytic(mesh=object(), mesh_precision=precision)
 
     trainer = GDMLTrain(device='cpu')
     np.random.seed(0)

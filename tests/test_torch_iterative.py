@@ -27,6 +27,8 @@ from sgdml_tpu_torch.solvers import iterative as it_mod
 from sgdml_tpu_torch.solvers.analytic import Analytic
 from sgdml_tpu_torch.train import GDMLTrain
 
+from torch_mesh_worker import one_rank_world
+
 N_ATOMS = 6
 LOGGER = 'sgdml_tpu_torch.solvers.iterative'
 PERMS = {1: np.arange(N_ATOMS)[None], 2: np.stack([np.arange(N_ATOMS), np.r_[1, 0, 2, 3, 4, 5]])}
@@ -524,11 +526,12 @@ def test_memory_model_matches_jax():
 
 
 def test_routes_that_are_not_ported_raise(monkeypatch):
-    """The slice stack on a mesh (item 13b) raises, as a mesh that is not a
-    DeviceMesh does; the factor modes and slice counts are the
-    JAX package's: 'ozaki' takes the slice stack, 'auto' the f64 factor (as
-    the JAX package off a TPU), the slice count from the argument, else
-    SGDML_FACTOR_SLICES, else 'auto'."""
+    """The slice stack on a mesh constructs and runs (a one-rank world: the
+    column-sharded stack, with the single device's inducing points and
+    iterations within 3); a mesh that is not a DeviceMesh raises; the factor
+    modes and slice counts are the JAX package's: 'ozaki' takes the slice
+    stack, 'auto' the f64 factor (as the JAX package off a TPU), the slice
+    count from the argument, else SGDML_FACTOR_SLICES, else 'auto'."""
     monkeypatch.delenv('SGDML_FACTOR_SLICES', raising=False)
     for mode in ('auto', 'f64', 'ozaki'):
         ours, ref = it_mod.Iterative(factor_mode=mode, device='cpu'), jax_it.Iterative(factor_mode=mode)
@@ -537,7 +540,16 @@ def test_routes_that_are_not_ported_raise(monkeypatch):
     monkeypatch.setenv('SGDML_FACTOR_SLICES', '6')
     assert it_mod.Iterative(device='cpu').factor_slices == jax_it.Iterative().factor_slices == 6
     assert it_mod.Iterative(factor_slices=8, device='cpu')._ns() == 8
-    with pytest.raises(NotImplementedError, match='item 13b'):
+    task = _task(generate_md_dataset(n_atoms=N_ATOMS, n_frames=60, seed=5), 12, 3, lam=1e-6)
+    X, Jc, dperms, y, _ = _system(task)
+    one = it_mod.Iterative(factor_mode='ozaki', device='cpu').solve(task, X, Jc, dperms, y, 1.0)
+    with one_rank_world() as mesh:
+        solver = it_mod.Iterative(mesh=mesh, factor_mode='ozaki', device='cpu')
+        alphas, _, iters, _, _, idxs, conv = solver.solve(task, X, Jc, dperms, y, 1.0)
+    assert conv and one[6] and abs(iters - one[2]) <= 3
+    np.testing.assert_array_equal(idxs, one[5])
+    assert float((alphas - one[0]).norm() / one[0].norm()) < 1e-2
+    with pytest.raises(TypeError, match='DeviceMesh'):
         it_mod.Iterative(mesh=object(), factor_mode='ozaki', device='cpu')
     with pytest.raises(TypeError, match='DeviceMesh'):
         it_mod.Iterative(mesh=object(), device='cpu')

@@ -125,11 +125,15 @@ def test_dryrun_multichip_four_ranks(tmp_path):
 
 
 def test_engines_take_a_device_mesh_only():
-    """A ``mesh=`` that is not a DeviceMesh raises TypeError; the item-13b
-    routes on a mesh raise NotImplementedError (checked before the mesh)."""
+    """A ``mesh=`` that is not a DeviceMesh raises TypeError, for every
+    route on a mesh: the f64 ones and the pair and slice-stack ones (which
+    run on gloo worlds in tests/test_torch_meshchol.py and
+    test_torch_mesh_ozaki.py)."""
     with pytest.raises(TypeError, match='DeviceMesh'):
         GDMLTrain(mesh=object(), device='cpu')
-    with pytest.raises(TypeError, match='DeviceMesh'):
-        Iterative(mesh=object(), device='cpu')
-    with pytest.raises(TypeError, match='DeviceMesh'):
-        Analytic(mesh=object())
+    for mode in ('auto', 'f64', 'ozaki'):
+        with pytest.raises(TypeError, match='DeviceMesh'):
+            Iterative(mesh=object(), factor_mode=mode, device='cpu')
+    for precision in ('f64', 'pair'):
+        with pytest.raises(TypeError, match='DeviceMesh'):
+            Analytic(mesh=object(), mesh_precision=precision)

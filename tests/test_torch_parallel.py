@@ -196,8 +196,3 @@ def test_mesh_inducing_budget_scales_with_devices(n_dev):
         assert Iterative.max_n_inducing_pts(*args, n_dev=n_dev) == JaxIterative.max_n_inducing_pts(*args, n_dev=n_dev)
     assert Iterative.max_n_inducing_pts(3000, 60, budget, n_dev=8) > Iterative.max_n_inducing_pts(3000, 60, budget)
 
-
-def test_item_13b_routes_raise():
-    for kw in ({'precision': 'pair'}, {'layout': 'cyclic'}):
-        with pytest.raises(NotImplementedError, match='item 13b'):
-            spmd.solve_interleaved(None, None, LAM, None, None, **kw)

@@ -12,6 +12,7 @@ numpy and ``sgdml_tpu_torch``: a rank never imports JAX.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import time
@@ -44,6 +45,20 @@ def run_world(scenario: str, world: int, tmp_path, deadline: float = JOIN_DEADLI
                 p.kill()
     return [dict(np.load(os.path.join(tmp_path, '%s-%d.npz' % (scenario, r)), allow_pickle=True))
             for r in range(world)]
+
+
+@contextlib.contextmanager
+def one_rank_world():
+    """A gloo world of this process alone (its store in the process), for the
+    duration of the block; yields its one-rank CPU mesh."""
+    from sgdml_tpu_torch.parallel.mesh import default_mesh, init_distributed
+
+    assert not torch.distributed.is_initialized()
+    init_distributed(world_size=1, rank=0, device='cpu', timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
+    try:
+        yield default_mesh(1, device='cpu')
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def _rank_main(rank, world, store, scenario, out_dir, kwargs):
@@ -192,3 +207,135 @@ def scenario_dryrun(out_dir):
     from sgdml_tpu_torch.parallel.dryrun import dryrun_multichip
 
     return {'df': np.asarray(dryrun_multichip(torch.distributed.get_world_size(), device='cpu'))}
+
+
+# -- tests/test_torch_meshchol.py --------------------------------------------
+
+
+def scenario_meshchol(out_dir):
+    """The pair Cholesky and its solves on row strips (a 1-D mesh of all
+    ranks), the interleaved solve with ``precision='pair'`` at two block
+    sizes (``spmd.NB`` at 1024, whose largest divisor of the 360 rows is
+    360, and at 45), and ``Analytic(mesh_precision='pair')`` with and
+    without energy constraints."""
+    from sgdml_tpu_torch.ops import meshchol
+    from sgdml_tpu_torch.ops.pairchol import pair_split, pair_to_f64
+    from sgdml_tpu_torch.parallel import spmd
+    from sgdml_tpu_torch.parallel.mesh import default_mesh, mesh_info
+    from sgdml_tpu_torch.solvers.analytic import Analytic
+
+    inp = np.load(os.path.join(out_dir, 'meshchol_inputs.npz'))
+    mesh = default_mesh(device='cpu')
+    info = mesh_info(mesh)
+    out = {}
+    for i in range(int(inp['n_cases'])):
+        A, nb, B = inp['A%d' % i], int(inp['nb%d' % i]), torch.as_tensor(inp['B%d' % i])
+        rloc = A.shape[0] // info.size
+        hi, lo = pair_split(torch.as_tensor(A[info.rank * rloc:(info.rank + 1) * rloc]))
+        Lh, Ll, bad = meshchol.blocked_cholesky_pair(hi, lo, nb, mesh=mesh)
+        out['info%d' % i] = np.asarray(bad)
+        out['L%d' % i] = _gather_strip(pair_to_f64(Lh, Ll), mesh)
+        out['x%d' % i] = meshchol.cho_solve_pair(Lh, Ll, B[:, 0], nb, mesh=mesh).numpy()
+        out['Y%d' % i] = meshchol.tri_solve_pair(Lh, Ll, B, nb, mesh=mesh).numpy()
+        out['Z%d' % i] = meshchol.tri_solve_pair(Lh, Ll, B, nb, trans=True, mesh=mesh).numpy()
+
+    X, Jc = torch.as_tensor(inp['X']), torch.as_tensor(inp['Jc'])
+    dperms, n_atoms, sig, lam = inp['dperms'], 5, 5.0, 1e-10
+    for nb in (spmd.NB, 45):
+        spmd.NB = nb
+        K_loc, lay = spmd.assemble_kernel_sharded(X, Jc, dperms, sig, n_atoms, mesh)
+        stats = {}
+        key = 'pair_%s' % nb
+        out[key] = spmd.solve_interleaved(K_loc, inp['y'], lam, lay, mesh, precision='pair', stats=stats).numpy()
+        out[key + '_rung'] = np.asarray(stats['lam_p'] / stats['lmax'])
+        out[key + '_lmax'] = np.asarray(stats['lmax'])
+        out[key + '_fallback'] = np.asarray(stats['fallback'])
+    for e in (False, True):
+        y = inp['y_E'] if e else inp['y']
+        solver = Analytic(mesh=mesh, mesh_precision='pair')
+        out['analytic_%d' % e] = solver.solve({'sig': sig, 'lam': 1e-8, 'use_E_cstr': e}, X, Jc, dperms, y).numpy()
+        out['analytic_%d_rungs' % e] = np.asarray(solver.timer.counts['rungs'])
+        out['analytic_%d_iters' % e] = np.asarray(solver.pcg_iters)
+    return out
+
+
+# -- tests/test_torch_cyclic.py ----------------------------------------------
+
+
+def scenario_cyclic(out_dir):
+    """The block-cyclic factor and solve on contiguous row strips (a 1-D mesh
+    of all ranks), and the interleaved solve with ``layout='cyclic'``
+    against the masked one, at ``spmd.NB`` and at 30 (12 blocks)."""
+    from sgdml_tpu_torch.ops import cyclic
+    from sgdml_tpu_torch.parallel import spmd
+    from sgdml_tpu_torch.parallel.mesh import default_mesh, mesh_info
+
+    inp = np.load(os.path.join(out_dir, 'cyclic_inputs.npz'))
+    mesh = default_mesh(device='cpu')
+    info = mesh_info(mesh)
+    out = {}
+    for i in range(int(inp['n_cases'])):
+        A, nb = inp['A%d' % i], int(inp['nb%d' % i])
+        rloc = A.shape[0] // info.size
+        L_loc = cyclic.blocked_cholesky_cyclic(torch.as_tensor(A[info.rank * rloc:(info.rank + 1) * rloc]), nb,
+                                               mesh=mesh)
+        out['L%d' % i] = _gather_strip(L_loc, mesh)
+    A, b = inp['A_pad'], torch.as_tensor(inp['b_pad'])
+    rloc = A.shape[0] // info.size
+    out['x_pad'] = cyclic.cho_solve_cyclic(torch.as_tensor(A[info.rank * rloc:(info.rank + 1) * rloc]), b, 8,
+                                           mesh=mesh).numpy()
+    X, Jc = torch.as_tensor(inp['X']), torch.as_tensor(inp['Jc'])
+    for layout in ('masked', 'cyclic'):
+        K_loc, lay = spmd.assemble_kernel_sharded(X, Jc, inp['dperms'], 5.0, 5, mesh)
+        out[layout] = spmd.solve_interleaved(K_loc, inp['y'], 1e-10, lay, mesh, layout=layout).numpy()
+    spmd.NB = 30
+    K_loc, lay = spmd.assemble_kernel_sharded(X, Jc, inp['dperms'], 5.0, 5, mesh)
+    out['cyclic_nb30'] = spmd.solve_interleaved(K_loc, inp['y'], 1e-10, lay, mesh, layout='cyclic').numpy()
+    return out
+
+
+# -- tests/test_torch_mesh_ozaki.py ------------------------------------------
+
+
+def scenario_mesh_ozaki(out_dir):
+    """The column-sharded streamed slice-stack factor (force-only and
+    bordered, 8 and 6 slices) and its applies, the mesh CG with
+    ``factor_mode='ozaki'`` on the JAX tests' two tasks, and the mesh plan."""
+    from sgdml_tpu_torch.parallel import spmd
+    from sgdml_tpu_torch.parallel.mesh import all_gather_rows, default_mesh, mesh_info
+    from sgdml_tpu_torch.solvers.iterative import Iterative
+    from sgdml_tpu_torch.utils import io
+
+    inp = np.load(os.path.join(out_dir, 'mesh_ozaki_inputs.npz'))
+    mesh = default_mesh(device='cpu')
+    info = mesh_info(mesh)
+    X, Jc, dperms = torch.as_tensor(inp['X']), torch.as_tensor(inp['Jc']), inp['dperms']
+    out = {}
+    for ns in (8, 6):
+        for e in (False, True):
+            tag = '%s%d' % ('e' if e else 'f', ns)
+            cols = inp['cols_e'] if e else inp['cols']
+            C_E = torch.as_tensor(inp['C_E']) if e else None
+            F, lev = spmd.nystrom_factor_sharded_streamed(X, Jc, dperms, 6.0, 1e-10, cols, 5, mesh, n_slices=ns,
+                                                          C_E_psd=C_E)
+            out[tag + '_sig'] = all_gather_rows(F.F.sig, info).numpy()
+            out[tag + '_lev'] = lev
+            if e:
+                out[tag + '_FE'] = F.F_E.numpy()
+                out[tag + '_apply'] = spmd.ozaki_factor_apply_sharded_bordered(F, torch.as_tensor(inp['v_e'])).numpy()
+            else:
+                out[tag + '_apply'] = spmd.ozaki_factor_apply_sharded(F, torch.as_tensor(inp['v_pad'])).numpy()
+            out[tag + '_stack_cols'] = np.asarray(F.F.s.shape[2])
+    for name in ('F', 'E'):
+        task = io.load_dict(os.path.join(out_dir, 'ozaki_task_%s.npz' % name))
+        sys_ = np.load(os.path.join(out_dir, 'ozaki_system_%s.npz' % name))
+        res = Iterative(mesh=mesh, factor_mode='ozaki', device='cpu').solve(
+            task, sys_['X'], sys_['Jc'], sys_['dperms'], sys_['y'], float(sys_['y_std']))
+        out['cg_%s_alphas' % name] = res[0].numpy()
+        out['cg_%s_iters' % name] = np.asarray(res[2])
+        out['cg_%s_idxs' % name] = res[5]
+        out['cg_%s_conv' % name] = np.asarray(res[6])
+    solver = Iterative(mesh=mesh, factor_mode='ozaki', max_memory=15.5, device='cpu')
+    out['plan'] = np.asarray([solver._factor_plan(3000, 60, use_E_cstr=e) for e in (False, True)])
+    out['plan_ns'] = np.asarray(solver._ns())
+    return out
