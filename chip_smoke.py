@@ -84,9 +84,11 @@ each a plain assertion that ends the run with a traceback when it fails:
    compared with;
 10. the analytic solver's f32 block-grid route on the card (``GDMLTrain(
    device='cuda').train(task)`` past the dense bound), each run held on the
-   grid route by ``grid_probe`` (``Analytic.est_memory_pair`` reads as
-   infinite: their lam is below 1e-7 lmax, where ``solve`` takes the pair
-   route of phase 12), which asserts the route: (a) the aspirin recipe of
+   grid route by ``grid_probe`` (``Analytic.est_memory_inplace`` and
+   ``est_memory_pair`` read as infinite: ``solve`` takes the in-place f64
+   route of phase 15 where it fits, and their lam is below 1e-7 lmax, where
+   the JAX package's rule takes the pair route of phase 12), which asserts
+   the route: (a) the aspirin recipe of
    ``bench_large.py`` ``bench_aspirin_analytic`` (63,000 unknowns) with
    ``solver=None`` (and that it is in the pair region), the residual
    re-measured through the plain contraction, the held-out force MAE, lmax,
@@ -121,9 +123,12 @@ each a plain assertion that ends the run with a traceback when it fails:
    same shape, held against its plain version on the solve's tables, and
    the slice-stack apply);
 12. the analytic solver's pair-precision route (``ops/pairchol.py``,
-   ``Analytic._solve_pair_pcg``), not held: (a) phase 10a's task through
-   ``train()`` with ``solver=None`` must take the pair route without falling
-   back (``pair_probe`` asserts it): lmax, the rungs and lam', the
+   ``Analytic._solve_pair_pcg``), each run held off the in-place f64 route
+   of phase 15 by ``pair_probe`` (``Analytic.est_memory_inplace`` reads as
+   infinite), so that the JAX package's pair-or-grid rule decides: (a)
+   phase 10a's task through ``train()`` with ``solver=None`` must take the
+   pair route without falling back (``pair_probe`` asserts it): lmax, the
+   rungs and lam', the
    refinement iterations, the residual re-measured through the plain
    contraction, the held-out force MAE, seconds by phase with the factor's
    trailing updates, panel refinements and leaf Cholesky timed by CUDA
@@ -173,10 +178,21 @@ each a plain assertion that ends the run with a traceback when it fails:
    iteration's parts (``ozaki_split``); (d) 10c's energy-constrained
    ethanol task by the mesh pair route (against the dense model, 10c's
    bound) and by the bordered slice stack at 6 slices, renormalized
-   (against the dense model by 8b's bounds: CG stops at tol 1e-4).
+   (against the dense model by 8b's bounds: CG stops at tol 1e-4);
+15. the in-place f64 route that ``Analytic.solve`` takes on one card past
+   the dense bound (``ops/linalg.cholesky_``), not held: (a) 10a's task
+   through ``GDMLTrain(device='cuda').train(task)`` with ``solver=None``
+   and no budget patch must take it (``inplace_probe``: ``route ==
+   'inplace'``, no ``'lmax'`` phase, no fallback in the solver's log):
+   seconds by phase, the factor's TFLOP/s on n^3/3, the peak against ``8
+   n^2`` and ``est_memory_inplace`` (it must stay within the estimate), the
+   residual re-measured through K1 (13b's bound), the held-out MAE against
+   10a's and the forces against 13b's model, with ``train()`` beside 10a's,
+   12a's and 13b's; (b) the same recipe at M=1400 (88,200 unknowns, ``8 n^2``
+   = 62.2 GB), the same checks but 13b's.
 
-Phases 4-14 are the main path: each sets the launch counts to 0 before it
-drives the path (phases 8-14 before each training run, solve or command)
+Phases 4-15 are the main path: each sets the launch counts to 0 before it
+drives the path (phases 8-15 before each training run, solve or command)
 and reads them right after. The last lines are the command's wall, the
 kernels' JSON record, the card's name and power limit, and ``{"ok": true,
 ...}``.
@@ -397,6 +413,15 @@ MESH_PAIR_TRANSIENT_BYTES = 8e9
 MESH_CYCLIC_TOL = 1e-9
 MESH_STACK_SLICES = 6
 MESH_ECSTR_PAIR_TOL = 1e-7
+
+# Phase 15: the in-place f64 route that single-card ``solve`` takes past the
+# dense bound. 15a trains 10a's task; 15b the same recipe at 2,000 frames
+# and M=1400 (88,200 unknowns: 8 n^2 = 62.2 GB, 24 n^2 = 186.7 GB), near the
+# top of the route's window on 80 GB. 15a's bound on its forces against
+# 13b's model (the same arithmetic on the one-rank mesh; 14b's layout landed
+# 2.1e-10 away); 15a and 15b are held by 13b's residual bound and 10a's MAE.
+INPLACE_TOP = (21, 2000, 10, 1, 200, 1400, 20.0, 1e-10)
+INPLACE_13B_TOL = 1e-9
 
 # H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s),
 # dense int8 tensor-core peak (1,979 TOP/s) and HBM3 bandwidth, for the
@@ -908,6 +933,16 @@ def true_resid(model, X, Jc, dperms, y, n_atoms):
     return float(torch.linalg.vector_norm(r))
 
 
+def k1_resid(model, X, Jc, dperms, y, n_atoms):
+    """``|y - A x| / |y|`` of a force-only model, re-measured from its alphas
+    through the solvers' matvec (K1 on the card)."""
+    x = -torch.as_tensor(model['alphas_F'], dtype=torch.float64, device=X.device)
+    r = torch.as_tensor(y, device=X.device) - it_mod._matvec_A(
+        x, it_mod.matvec_tables(X, Jc, dperms), float(model['sig']), float(model['lam']), n_atoms=n_atoms,
+        use_E_cstr=False)
+    return float(torch.linalg.vector_norm(r)) / float(np.linalg.norm(y))
+
+
 def check_columns(label, r, sig, n_atoms):
     """Kernel columns at ``CG_COLUMNS_CHECKED`` of a solve's inducing
     indices (the factor's input) against ``K e_j`` by the plain matvec."""
@@ -1159,13 +1194,16 @@ def phase_cg(device, ethanol, card):
 @contextlib.contextmanager
 def grid_probe():
     """Hold ``train()`` on the grid route and watch it: ``Analytic.
-    est_memory_pair`` reads as infinite inside the block, so the solver's
-    pair region (lam < 1e-7 lmax, phase 12) takes the grid route; each
+    est_memory_inplace`` and ``est_memory_pair`` read as infinite inside the
+    block, so a system past the dense bound leaves the in-place f64 route
+    (phase 15) and the solver's pair region (lam < 1e-7 lmax, phase 12) takes
+    the grid route; each
     ``chol_grid`` call's side, ``info`` and device seconds (synchronized
     before and after), the last factor that held, the ``Analytic`` instance
     that solved, and the solver's log lines at INFO."""
     probe = {'chol': [], 'factor': None, 'solver': None, 'log': Records()}
-    chol, solve, pair_need = blockchol.chol_grid, Analytic._solve_grid_pcg, Analytic.est_memory_pair
+    chol, solve = blockchol.chol_grid, Analytic._solve_grid_pcg
+    needs = Analytic.est_memory_inplace, Analytic.est_memory_pair
 
     def timed_chol(G):
         torch.cuda.synchronize()
@@ -1186,12 +1224,13 @@ def grid_probe():
     logger.addHandler(probe['log'])
     logger.setLevel(logging.INFO)
     blockchol.chol_grid, Analytic._solve_grid_pcg = timed_chol, watched
+    Analytic.est_memory_inplace = staticmethod(lambda *args: math.inf)
     Analytic.est_memory_pair = staticmethod(lambda n_train, n_atoms: math.inf)
     try:
         yield probe
     finally:
         blockchol.chol_grid, Analytic._solve_grid_pcg = chol, solve
-        Analytic.est_memory_pair = staticmethod(pair_need)
+        Analytic.est_memory_inplace, Analytic.est_memory_pair = (staticmethod(need) for need in needs)
         logger.removeHandler(probe['log'])
         logger.setLevel(level)
 
@@ -2185,13 +2224,16 @@ def pair_probe(n):
     ``probe_vector(n, ...)`` (made when the factor returns, before the repack
     consumes it; the seconds it takes, which train() counts in its factor
     phase), the int8 strips and leaf stacks the repack made, the ``Analytic``
-    instance that solved, and the solver's log lines at INFO."""
+    instance that solved, and the solver's log lines at INFO.
+    ``Analytic.est_memory_inplace`` reads as infinite inside the block, so a
+    system past the dense bound leaves the in-place f64 route (phase 15)
+    for the JAX package's pair-or-grid rule."""
     probe = {'events': {'leaf': [], 'panel': [], 'update': []}, 'chol': [], 'llt': None, 'v': None,
              'llt_s': 0.0, 'strips': None, 'leaves': None, 'solver': None, 'log': Records()}
     names = ('_diag_chol_pair', '_panel_refine_pair', '_trailing_update_pair', 'chol_grid_pair', 'int8_strips',
              'slice_leaf_inverses')
     saved = {name: getattr(pairchol, name) for name in names}
-    solve = Analytic._solve_pair_pcg
+    solve, inplace_need = Analytic._solve_pair_pcg, Analytic.est_memory_inplace
 
     def timed(kind, fn):
         def run(*args):
@@ -2244,12 +2286,14 @@ def pair_probe(n):
     pairchol.int8_strips = kept('strips', saved['int8_strips'])
     pairchol.slice_leaf_inverses = kept('leaves', saved['slice_leaf_inverses'])
     Analytic._solve_pair_pcg = watched
+    Analytic.est_memory_inplace = staticmethod(lambda *args: math.inf)
     try:
         yield probe
     finally:
         for name, fn in saved.items():
             setattr(pairchol, name, fn)
         Analytic._solve_pair_pcg = solve
+        Analytic.est_memory_inplace = staticmethod(inplace_need)
         logger.removeHandler(probe['log'])
         logger.setLevel(level)
 
@@ -2421,8 +2465,10 @@ def pair_products(sstrips, leaves, card):
 
 
 def phase_pair_aspirin(device, grid, card):
-    """12a: 10a's task through ``train()`` with solver=None, not held: it
-    must take the pair route and not fall back, converge (the residual
+    """12a: 10a's task through ``train()`` with solver=None, held off the
+    in-place f64 route that ``solve`` takes there (phase 15) by
+    ``pair_probe``, so that the JAX package's rule decides: it must take the
+    pair route and not fall back, converge (the residual
     re-measured through the plain matvec), reach 10a's MAE bound within
     ``est_memory_pair``, and take a lower lam' and fewer refinement
     iterations than 10a's grid route in this run; the kept factor's error on
@@ -2441,7 +2487,8 @@ def phase_pair_aspirin(device, grid, card):
     RESULTS['12a'] = dict(F=F, times=dict(trainer.times))
     n_pad, _, t_fac = probe['chol'][-1]
     steps = factor_steps(probe)
-    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; est_memory_pair %.2f GB): solver=None took the pair route; '
+    print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; est_memory_pair %.2f GB): solver=None, held off the '
+          'in-place f64 route, took the pair route; '
           'lmax %.6e, rungs lam\'/info %s, lam\' %.6e (the grid route in 10a: %.6e, %.0fx); %d refinement '
           'iterations (10a: %d); relative residual re-measured by the plain matvec %.3e (bound %.0e); train() %.2f s '
           '= descriptors %.3f + lmax %.3f + assembly %.2f + factor %.2f + repack %.2f + refinement CG %.2f (%.1f '
@@ -2475,8 +2522,9 @@ def phase_pair_aspirin(device, grid, card):
 
 
 def phase_pair_ecstr(device, ethanol, card):
-    """12b: 10c's energy-constrained ethanol task at its budget, not held:
-    the pair route against the dense model (10c's bound)."""
+    """12b: 10c's energy-constrained ethanol task at its budget, held off the
+    in-place f64 route by ``pair_probe``: the pair route against the dense
+    model (10c's bound)."""
     ds = ethanol[0]
     m, gb, lam, bound_rel = GRID_ECSTR
     n_atoms = ds['R'].shape[1]
@@ -2511,7 +2559,8 @@ def phase_pair(device, ethanol, grid, card):
     during = phase_pair_ecstr(device, ethanol, card)
     counts = {k: counts[k] + during[k] for k in counts}
     assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
-    print('[12 pair] aspirin (63,000 unknowns) trained by the pair route with solver=None below the grid route\'s lam\' '
+    print('[12 pair] aspirin (63,000 unknowns) trained by the pair route with solver=None (held off the in-place route) '
+          'below the grid route\'s lam\' '
           'and iterations; the pair route agrees with the dense model under energy constraints; launches %s; %.1f s' % (
               counts, time.perf_counter() - t0))
     return counts, split
@@ -2720,10 +2769,7 @@ def phase_mesh_aspirin(device, mesh, grid, card):
     during = launch_counts()
     mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
     X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
-    x = -torch.as_tensor(model['alphas_F'], dtype=torch.float64, device=device)
-    r = torch.as_tensor(y, device=device) - it_mod._matvec_A(x, it_mod.matvec_tables(X, Jc, dperms), sig, lam,
-                                                            n_atoms=n_atoms, use_E_cstr=False)
-    rel = float(torch.linalg.vector_norm(r)) / float(np.linalg.norm(y))
+    rel = k1_resid(model, X, Jc, dperms, y, n_atoms)
     F_pair = RESULTS['12a']['F']
     d_pair = float(np.abs(F - F_pair).max() / np.abs(F_pair).max())
     t = trainer.times
@@ -3213,6 +3259,117 @@ def phase_mesh_routes(device, ethanol, grid, card):
     return counts, split
 
 
+@contextlib.contextmanager
+def inplace_probe():
+    """Watch ``train()``'s analytic solve: the ``Analytic`` instance that
+    ran the in-place route (``Analytic._solve_inplace`` wrapped; its
+    ``route`` says whether it solved there) and the solver's log lines at
+    INFO. Nothing is held: ``solve`` picks its route by the budget."""
+    probe = {'solver': None, 'log': Records()}
+    solve = Analytic._solve_inplace
+
+    def watched(self, *args, **kw):
+        probe['solver'] = self
+        return solve(self, *args, **kw)
+
+    logger = logging.getLogger(an_mod.__name__)
+    level = logger.level
+    logger.addHandler(probe['log'])
+    logger.setLevel(logging.INFO)
+    Analytic._solve_inplace = watched
+    try:
+        yield probe
+    finally:
+        Analytic._solve_inplace = solve
+        logger.removeHandler(probe['log'])
+        logger.setLevel(level)
+
+
+def inplace_run(label, device, ds, task, card, ref_mae=None):
+    """``GDMLTrain(device=).train(task)`` with solver=None and no budget
+    patch, which must take the in-place f64 route (no ``'lmax'`` phase, no
+    fallback in the solver's log) within ``est_memory_inplace`` and fit
+    the system to ``MESH_RESID`` through the K1 matvec; its held-out force
+    MAE must stay under 8c's bound (and within ``MESH_MAE_SHARE`` of
+    ``ref_mae``, 10a's, on the same task). Returns the held-out forces, the
+    launches and the seconds by phase."""
+    n_atoms, m = task['R_train'].shape[1], task['R_train'].shape[0]
+    n = m * 3 * n_atoms
+    need = Analytic.est_memory_inplace(m, n_atoms, False, len(task['perms']))
+    budget = memory_budget(device)
+    assert need <= budget < Analytic.est_memory_requirement(m, n_atoms), (need, budget)
+    trainer = GDMLTrain(device=device)
+    with inplace_probe() as probe:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fused_predict.reset_launches()
+        model = trainer.train(task)
+        peak = torch.cuda.max_memory_allocated() - base
+        R, F_ref, _ = held_out(ds, task, GRID_HELD_OUT)
+        _, F = GDMLPredict(model, device=device).predict(R)
+        during = launch_counts()
+    solver, t = probe['solver'], trainer.times
+    fell_back = [msg for msg in probe['log'].messages if 'falling back' in msg]
+    assert model['solver_name'] == 'analytic' and solver is not None and solver.route == 'inplace', (
+        solver and solver.route)
+    assert not fell_back and 'lmax' not in t and {'assembly', 'factor', 'solve'} <= set(t), (fell_back, t)
+    X, Jc, dperms, y, _ = cg_system(ds, task, n_atoms, device)
+    rel = k1_resid(model, X, Jc, dperms, y, n_atoms)
+    mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
+    print('    %s aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; budget %.2f GB; the dense route needs %.1f GB): '
+          'solver=None took the in-place f64 route (nb %d, no fallback); train() %.2f s = %s; the factor %.1f '
+          'TFLOP/s on n^3/3; peak allocated by train() %.2f GB (8 n^2 = %.2f GB, est_memory_inplace %.2f GB, '
+          'the card %.1f GB); relative residual re-measured by the K1 matvec %.3e (bound %.0e); held-out force MAE '
+          '%.6f on %d frames (force scale %.4f, bound %.4f%s); K1 launches %s (%s)' % (
+              label, n_atoms, m, float(task['sig']), float(task['lam']), n, budget / 1e9,
+              Analytic.est_memory_requirement(m, n_atoms) / 1e9, an_mod.INPLACE_BLOCK, t['total'],
+              mesh_times(t, ('descriptors', 'assembly', 'factor', 'solve', 'model creation',
+                             'integration constant')),
+              n**3 / 3 / t['factor'] * 1e-12, peak / 1e9, 8.0 * n * n / 1e9, need / 1e9,
+              torch.cuda.get_device_properties(device).total_memory / 1e9, rel, MESH_RESID, mae, len(R), scale,
+              CG_MAE_SHARE * scale, '' if ref_mae is None else '; 10a: %.6f, bound %.0f%%' % (
+                  ref_mae, 100 * MESH_MAE_SHARE), during, card))
+    assert peak <= need and rel <= MESH_RESID and mae < CG_MAE_SHARE * scale, (peak, need, rel, mae)
+    if ref_mae is not None:
+        assert abs(mae - ref_mae) <= MESH_MAE_SHARE * ref_mae, (mae, ref_mae)
+    return F, during, dict(t)
+
+
+def phase_inplace(device, grid, card):
+    """15: the in-place f64 route of single-card ``solve`` past the dense
+    bound, not held: (a) 10a's task (63,000 unknowns, lam 1e-10) through
+    ``train()`` with solver=None, against 10a's MAE and 13b's model, with
+    ``train()`` beside 10a's, 12a's and 13b's; (b) the same recipe at
+    M=1400 (``INPLACE_TOP``, 88,200 unknowns), where memory is tight. K1
+    runs in the integration constants and the held-out predictions."""
+    t0 = time.perf_counter()
+    F, counts, t = inplace_run('15a', device, grid['ds'], grid['task'], card, ref_mae=grid['mae'])
+    F_13b = RESULTS['13b']['F']
+    d_13b = float(np.abs(F - F_13b).max() / np.abs(F_13b).max())
+    print('    15a train() %.2f s; 10a (the grid route, held) %.2f s, 12a (the pair route, held) %.2f s, 13b (the '
+          'one-rank mesh f64 Cholesky) %.2f s, in this call; max |dF| / max |F| from 13b\'s model %.3e (bound %.0e) '
+          '(%s)' % (t['total'], grid['times']['total'], RESULTS['12a']['times']['total'],
+                    RESULTS['13b']['times']['total'], d_13b, INPLACE_13B_TOL, card))
+    assert d_13b <= INPLACE_13B_TOL, d_13b
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_atoms, n_frames, seed, split, n_valid, m, sig, lam = INPLACE_TOP
+    t_data = time.perf_counter()
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
+    task = GDMLTrain(device=device).create_task(ds, m, ds, n_valid, sig=sig, lam=lam, use_sym=False,
+                                               rng=np.random.RandomState(split))
+    t_data = time.perf_counter() - t_data
+    _, during, t_top = inplace_run('15b', device, ds, task, card)
+    counts = {k: counts[k] + during[k] for k in counts}
+    assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
+    print('[15 in-place] aspirin by the in-place f64 route that solver=None takes past the dense bound: M=%d '
+          '(%d unknowns) in %.2f s, = 13b\'s model; M=%d (%d unknowns) in %.2f s (data %.1f s); launches %s; '
+          '%.1f s' % (GRID_ASPIRIN[5], GRID_ASPIRIN[5] * 3 * GRID_ASPIRIN[0], t['total'], m, m * 3 * n_atoms,
+                      t_top['total'], t_data, counts, time.perf_counter() - t0))
+    return counts
+
+
 def bound(B, T, D, itemsize):
     """(ms, 'bytes' or 'operations'): the least time of one contraction on
     an H100 SXM: 8 B T D operations at 67 TFLOP/s (FP64 tensor core and FP32
@@ -3267,8 +3424,11 @@ def main():
     torch.cuda.empty_cache()
     routes_counts, stack_split = phase_mesh_routes(device, ethanol, grid, smi)
     splits.append(stack_split)
+    gc.collect()
+    torch.cuda.empty_cache()
+    inplace_counts = phase_inplace(device, grid, smi)
     main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts,
-                  routes_counts]
+                  routes_counts, inplace_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]

@@ -72,6 +72,7 @@ __all__ = [
     'hessian_tile_compressed',
     'perm_incidence',
     'perm_tables',
+    'tile_peak_bytes',
 ]
 
 _SQRT5 = math.sqrt(5.0)
@@ -329,11 +330,17 @@ def _value_tile(Xi, Xt, sig):
     return -Mat52Coeffs.value(_u5(d), sig)
 
 
+def _pair_bytes(n_atoms: int, dtype_bytes: int) -> int:
+    """A tile's bytes per (row, column) pair: five ``9 N^2`` planes and
+    eight D-vectors."""
+    dim_d = (n_atoms * (n_atoms - 1)) // 2
+    return (5 * 9 * n_atoms * n_atoms + 8 * dim_d) * dtype_bytes
+
+
 def _tile_sizes(m: int, n_atoms: int, budget: int, dtype_bytes: int):
     """(tile_i, tile_j) whose tile keeps each intermediate near ``budget``
     bytes: a few ``9 N^2`` planes and D-vectors per (row, column) pair."""
-    dim_d = (n_atoms * (n_atoms - 1)) // 2
-    per_pair = (5 * 9 * n_atoms * n_atoms + 8 * dim_d) * dtype_bytes
+    per_pair = _pair_bytes(n_atoms, dtype_bytes)
     pairs = max(1, budget // per_pair)
     tile = max(1, int(math.sqrt(pairs)))
     return min(m, tile), min(m, max(1, pairs // tile))
@@ -349,6 +356,13 @@ def default_tile_sizes(m: int, n_atoms: int, n_perms: int, dtype_bytes: int = 8)
     """
     del n_perms
     return _tile_sizes(m, n_atoms, TILE_BUDGET_BYTES, dtype_bytes)
+
+
+def tile_peak_bytes(m: int, n_atoms: int, n_perms: int, dtype_bytes: int = 8) -> int:
+    """Bytes that bound one :func:`assemble_kernel` tile's intermediates at
+    :func:`default_tile_sizes`: the per-pair estimate over the tile's pairs."""
+    ti, tj = default_tile_sizes(m, n_atoms, n_perms, dtype_bytes)
+    return ti * tj * _pair_bytes(n_atoms, dtype_bytes)
 
 
 def assemble_kernel(

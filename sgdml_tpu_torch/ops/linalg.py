@@ -27,7 +27,8 @@ partial products); the factor may be one f64 tensor or an (f32, bf16)
 pair (``ops/meshchol.py``), each block of a pair joined to f64 as it is
 read. Without a mesh every function works on one tensor, and
 :func:`cho_solve_blocked` pads to a multiple of ``nb`` with an identity
-extension, as the JAX package does.
+extension, as the JAX package does; :func:`cholesky_` factors one tensor in
+place (the single-card analytic solve's in-place route).
 """
 
 from __future__ import annotations
@@ -37,7 +38,13 @@ import torch
 from ..parallel.mesh import all_gather_rows, all_reduce_, mesh_info
 from .pairchol import pair_to_f64
 
-__all__ = ['blocked_cholesky', 'blocked_tri_solve', 'cho_solve_blocked']
+__all__ = ['NotPositiveDefiniteError', 'blocked_cholesky', 'blocked_tri_solve', 'cho_solve_blocked', 'cholesky_']
+
+
+class NotPositiveDefiniteError(RuntimeError):
+    """A leading diagonal block of the blocked Cholesky is not positive
+    definite: what a caller may catch without catching every
+    ``RuntimeError`` (an out-of-memory error among them)."""
 
 
 def _strip(A, mesh):
@@ -80,7 +87,7 @@ def _factor_(A, nb: int, mesh=None):
     With a ``mesh``, ``A`` is this rank's row strip ``(rloc, n)`` (``n =
     rloc * ranks``) and every rank of the mesh calls it. Raises
     ``RuntimeError`` where a diagonal block is not positive definite (the
-    same block on every rank).
+    same block on every rank): :class:`NotPositiveDefiniteError`.
     """
     info, r0 = _strip(A, mesh)
     rloc, n = A.shape
@@ -93,8 +100,8 @@ def _factor_(A, nb: int, mesh=None):
             all_reduce_(Akk, info)
         Lkk, bad = torch.linalg.cholesky_ex(Akk)
         if int(bad):
-            raise RuntimeError('blocked Cholesky: the matrix is not positive definite (leading minor of order %d)'
-                               % (k0 + int(bad)))
+            raise NotPositiveDefiniteError(
+                'blocked Cholesky: the matrix is not positive definite (leading minor of order %d)' % (k0 + int(bad)))
         if lo < hi:
             A[lo - r0:hi - r0, k0:k1] = Lkk[lo - k0:hi - k0]
         p0 = max(k1, r0) - r0  # this strip's first row below the block
@@ -126,6 +133,16 @@ def blocked_cholesky(A, nb: int, mesh=None):
     where a diagonal block is not positive definite (the same block on
     every rank)."""
     return _factor_(A if mesh is not None else A.clone(), nb, mesh)
+
+
+def cholesky_(A, nb: int):
+    """Factor the square SPD ``A = L L^T`` in place, block column by block
+    column; returns ``A``, which then holds ``L`` (zeros above the
+    diagonal). Besides ``A`` it holds the panel solve's fresh ``(n - nb,
+    nb)`` output and the ``(nb, nb)`` diagonal block and its factor at once.
+    Raises :class:`NotPositiveDefiniteError` at the first diagonal block that
+    is not positive definite, with ``A`` consumed up to that block."""
+    return _factor_(A, nb)
 
 
 def blocked_tri_solve(L, b, nb: int, trans: bool = False, mesh=None):

@@ -4,14 +4,21 @@ on the device (reference behavior: sgdml/solvers/analytic.py:49-151).
 The assembled kernel K is negated to make the system convex, shifted by
 the ridge ``lam`` on its diagonal and factorized. A failed factorization
 shows as ``info != 0`` from ``torch.linalg.cholesky_ex``, read once after
-the factor (once per block column on the grid route). Two routes, chosen
-by the device-memory budget:
+the factor (once per block column on the blocked routes). Four routes on
+one device, chosen by the device-memory budget:
 
 * **dense f64** (the system's ``24 n^2`` bytes fit): ``K`` is negated and
   shifted in place, so the factor is the only second ``n^2`` buffer. The
   ladder mirrors the reference: Cholesky -> LU -> least squares (for
   non-square systems).
-* **f32 block-grid packed + refinement CG** (past the dense bound): the
+* **in-place f64** (past the dense bound, where ``est_memory_inplace``,
+  ``8 n^2`` bytes and a working set, fits): the same ``K``, negated and
+  shifted in place, factored in place block column by block column by
+  ``ops/linalg.cholesky_`` (the blocked right-looking Cholesky that
+  ``parallel/spmd.solve_interleaved`` runs at one rank) and solved by two
+  block substitutions. A factor that fails has consumed ``K``, so there is
+  no LU rung: the solve logs a warning and takes the pair-or-grid rule.
+* **f32 block-grid packed + refinement CG** (past both f64 routes): the
   force block of ``A = -K + lam' I`` is assembled straight into the f32
   block-grid triangle of ``ops/blockchol.py`` (``3 n^2`` bytes with
   transients, ``est_memory_grid``), factorized by a blocked Cholesky, and
@@ -23,7 +30,7 @@ by the device-memory budget:
   factorization to hold, which bounds the preconditioned condition number
   by ``lam'/lam``. Energy constraints add a dense border through an exact
   Schur-complement preconditioner.
-* **pair precision + refinement CG** (past the dense bound, where ``lam <
+* **pair precision + refinement CG** (past both f64 routes, where ``lam <
   1e-7 lmax`` and ``est_memory_pair`` fits): the same refinement CG with
   the (f32, bf16) pair-precision factor of ``ops/pairchol.py``, assembled in
   f64 and factorized with exact int8 Ozaki updates at the pair-storage
@@ -33,9 +40,14 @@ by the device-memory budget:
   down before a finite iterate, it falls back to the grid route (logged).
 
 Same routes and results as ``sgdml_tpu.solvers.analytic`` on one device,
-where H100 measurements re-decided one TPU rule: dense f64 stays the route
+where H100 measurements re-decided two TPU rules. Dense f64 stays the route
 wherever it fits (the JAX package leaves it past 8,192 unknowns because the
-TPU emulates f64). Past it, the pair-or-grid rule is the JAX package's.
+TPU emulates f64). Past the dense bound the f64 system is factored in place
+wherever that fits (the JAX package sends every system past ``24 n^2`` to
+the pair or grid route, a rule written for a 16 GB chip that emulates f64;
+it runs the in-place arithmetic only on a mesh): at aspirin M=1000 on an
+H100 the in-place route trained in about a twentieth of the pair route's
+time (PERF.md). Past both, the pair-or-grid rule is the JAX package's.
 """
 
 from __future__ import annotations
@@ -46,10 +58,10 @@ import timeit
 import numpy as np
 import torch
 
-from ..ops import blockchol, pairchol
+from ..ops import blockchol, linalg, pairchol
 from ..ops.kernel import (
     _grad_row_tile, _perms_key, _tile_constants, _value_tile, assemble_kernel, assemble_kernel_grid,
-    assemble_kernel_grid_pair, expand_perm_jacobian, perm_tables,
+    assemble_kernel_grid_pair, default_tile_sizes, expand_perm_jacobian, perm_tables, tile_peak_bytes,
 )
 from ..utils.profiling import PhaseTimer
 
@@ -75,6 +87,8 @@ LAM_P_SHIFTS = (0.0, 3e-7, 3e-6, 3e-5, 3e-4, 3e-3)
 PAIR_TARGET_BLOCK = 4096
 PAIR_LAM_P_SHIFTS = (0.0, 3e-9, 3e-8, 3e-7, 3e-6)
 PAIR_REGION = 1e-7
+# The in-place f64 route's block: the mesh's (parallel/spmd.NB).
+INPLACE_BLOCK = 1024
 BORDER_TILE = 64  # energy columns a tile of the border assembly
 
 _F32, _F64 = torch.float32, torch.float64
@@ -411,10 +425,12 @@ class Analytic:
         f64 strip, along a lam' ladder (``spmd.solve_interleaved``).
 
     After :meth:`solve`, ``route`` names the route that solved (``'dense'``,
-    ``'grid'``, ``'pair'`` or ``'mesh'``) and ``timer.durations`` holds the
-    seconds of its phases, each ended by a device synchronization:
-    ``'assembly'`` and ``'cholesky'`` on the dense route; ``'assembly'``,
-    ``'factor'`` and ``'solve'`` on the mesh (with ``'pair'`` the factor
+    ``'inplace'``, ``'grid'``, ``'pair'`` or ``'mesh'``) and
+    ``timer.durations`` holds the seconds of its phases, each ended by a
+    device synchronization: ``'assembly'`` and ``'cholesky'`` on the dense
+    route; ``'assembly'``, ``'factor'`` and ``'solve'`` on the in-place route
+    (a failed in-place factor leaves its two phases to the route that
+    follows) and on the mesh (with ``'pair'`` the factor
     summed over the rungs, the solve the CG, and ``timer.counts['rungs']``
     the rungs tried); ``'lmax'``, ``'assembly'`` and
     ``'factor'`` (summed over the lam' ladder's rungs), ``'repack'`` (the
@@ -446,16 +462,22 @@ class Analytic:
 
     def solve(self, task, R_desc, R_d_desc, desc_perms, y):
         """Solve ``(-K + lam I) x = y`` and return ``alphas = -x`` as a
-        tensor on the inputs' device: densely when the system's ``24 n^2``
-        bytes fit the budget; past that, by the pair route where ``lam <
-        1e-7 lmax`` and :meth:`est_memory_pair` fits the budget, else by the
-        f32 grid route (``sgdml_tpu/solvers/analytic.py:393-416``).
+        tensor on the inputs' device, by the first route that fits the
+        budget (``max_memory``, else :func:`memory_budget`):
+
+        1. densely, where the system's ``24 n^2`` bytes
+           (:meth:`est_memory_requirement`, the reference's) fit;
+        2. by the in-place f64 factor (:meth:`_solve_inplace`), where
+           :meth:`est_memory_inplace` fits;
+        3. by the JAX package's rule past the dense bound
+           (``sgdml_tpu/solvers/analytic.py:393-416``): the pair route where
+           ``lam < 1e-7 lmax`` and :meth:`est_memory_pair` fits, else the
+           f32 grid route. A failed in-place factor takes this step too,
+           with a warning.
 
         R_desc: ``(M, D)``, R_d_desc: ``(M, D, 3)`` tensors on the device.
         desc_perms: ``(P, D)`` host ints. y: ``(n,)`` labels.
         """
-        from .iterative import matvec_tables
-
         sig = float(np.squeeze(task['sig']))
         lam = float(np.squeeze(task['lam']))
         use_E_cstr = bool(task.get('use_E_cstr', False))
@@ -470,16 +492,13 @@ class Analytic:
                   else self._max_memory * 1024**3)
         need = Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr)
         if need > budget:
-            # Both routes refine on the f64 inputs and their matvec tables:
-            # made once here, where lmax picks the route.
-            X, Jc = R_desc.to(_F64), R_d_desc.to(_F64)
-            with timer.phase('lmax'):
-                tab = matvec_tables(X, Jc, desc_perms)
-                lmax = _lmax_power(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
-            route = (self._solve_pair_pcg
-                     if lam < PAIR_REGION * lmax and Analytic.est_memory_pair(n_train, n_atoms) <= budget
-                     else self._solve_grid_pcg)
-            return route(task, X, Jc, desc_perms, y, sig, lam, n_atoms, lmax=lmax, tab=tab)
+            n_perms = np.asarray(desc_perms).shape[0]
+            if Analytic.est_memory_inplace(n_train, n_atoms, use_E_cstr, n_perms) <= budget:
+                alphas = self._solve_inplace(R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr)
+                if alphas is not None:
+                    return alphas
+            return self._solve_pair_or_grid(task, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr,
+                                            budget)
 
         self.route = 'dense'
         with timer.phase('assembly'):
@@ -500,6 +519,61 @@ class Analytic:
         self.t_solve = timer.durations['cholesky']
         log.info('Solved %d-dim linear system in %.2f s', K.shape[0], self.t_solve)
         return alphas
+
+    def _solve_pair_or_grid(self, task, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr, budget):
+        """The JAX package's rule past the dense bound: lmax by power
+        iteration, then the pair route where ``lam < PAIR_REGION lmax`` and
+        :meth:`est_memory_pair` fits ``budget``, else the grid route."""
+        from .iterative import matvec_tables
+
+        # Both routes refine on the f64 inputs and their matvec tables: made
+        # once here, where lmax picks the route.
+        X, Jc = R_desc.to(_F64), R_d_desc.to(_F64)
+        with self.timer.phase('lmax'):
+            tab = matvec_tables(X, Jc, desc_perms)
+            lmax = _lmax_power(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
+        route = (self._solve_pair_pcg
+                 if lam < PAIR_REGION * lmax and Analytic.est_memory_pair(X.shape[0], n_atoms) <= budget
+                 else self._solve_grid_pcg)
+        return route(task, X, Jc, desc_perms, y, sig, lam, n_atoms, lmax=lmax, tab=tab)
+
+    def _solve_inplace(self, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr):
+        """Past the dense bound, where :meth:`est_memory_inplace` fits: the
+        dense route's ``K`` (energy rows included), negated and shifted in
+        place (:func:`_neg_shift_`), factored in place in blocks of
+        :data:`INPLACE_BLOCK` (``linalg.cholesky_``: the arithmetic of
+        ``spmd.solve_interleaved`` at one rank, with no mesh) and solved by
+        two block substitutions (``linalg.blocked_tri_solve``). The factor is
+        dropped before ``alphas = -x`` is returned, so that nothing after the
+        solve runs beside it. Where a diagonal block is not positive definite
+        the factor has consumed ``K``: it is freed, a warning is logged and
+        None is returned (the caller takes the pair-or-grid rule)."""
+        timer = self.timer
+        with timer.phase('assembly'):
+            K = assemble_kernel(R_desc, R_d_desc, desc_perms, sig, n_atoms, use_E_cstr=use_E_cstr)
+        self.t_assemble = timer.durations['assembly']
+        log.info('Assembled %dx%d kernel in %.2f s', K.shape[0], K.shape[1], self.t_assemble)
+        n = K.shape[0]
+        nb = min(INPLACE_BLOCK, n)
+        failure = None
+        with timer.phase('factor'):
+            try:
+                linalg.cholesky_(_neg_shift_(K, lam), nb)
+            except linalg.NotPositiveDefiniteError as err:
+                failure = str(err)
+        if failure is not None:
+            del K  # outside the handler, whose traceback holds the factor's frame
+            log.warning('In-place f64 Cholesky failed (%s at lam=%g); falling back to the pair or grid route.',
+                        failure, lam)
+            return None
+        y = torch.as_tensor(y, dtype=K.dtype, device=K.device)
+        with timer.phase('solve'):
+            x = linalg.blocked_tri_solve(K, linalg.blocked_tri_solve(K, y, nb), nb, trans=True)
+        del K
+        self.route = 'inplace'
+        self.t_solve = timer.durations['factor'] + timer.durations['solve']
+        log.info('Solved %d-dim linear system (in-place f64 blocked Cholesky, nb %d) in %.2f s', n, nb, self.t_solve)
+        return -x
 
     def _solve_sharded(self, R_desc, R_d_desc, desc_perms, y, sig, lam, n_atoms, use_E_cstr):
         """The mesh's closed-form solve (``sgdml_tpu/solvers/analytic.py:
@@ -719,6 +793,33 @@ class Analytic:
         sgdml/solvers/analytic.py:153-159)."""
         n = n_train * 3 * n_atoms + (n_train if use_E_cstr else 0)
         return 3 * n**2 * 8 + n * 8
+
+    @staticmethod
+    def est_memory_inplace(n_train, n_atoms, use_E_cstr=False, n_perms=1):
+        """Bytes needed on the device for the in-place f64 route
+        (:meth:`_solve_inplace`): ``K`` (``8 n^2``) and the solve's four
+        vectors (the labels, the two substitutions' outputs, ``alphas``),
+        plus the larger of the two working sets that ``K`` holds in turn:
+
+        * the assembly (``ops/kernel.assemble_kernel``): one tile's
+          intermediates at the default tile sizes
+          (``kernel.tile_peak_bytes``); the descriptors, the Jacobians and
+          their ``n_perms`` permuted copies; with energy constraints, the row
+          and column tiles' expanded ``(D, 3N)`` Jacobians;
+        * the factor (``ops/linalg.cholesky_``): the panel solve's fresh
+          ``(n - nb, nb)`` output, the ``(nb, nb)`` diagonal block, its
+          factor and one more ``nb^2`` for the library's workspace.
+        """
+        dim_i = 3 * n_atoms
+        dim_d = n_atoms * (n_atoms - 1) // 2
+        n = n_train * dim_i + (n_train if use_E_cstr else 0)
+        nb = min(INPLACE_BLOCK, n)
+        assembly = tile_peak_bytes(n_train, n_atoms, n_perms) + (n_perms + 1) * n_train * dim_d * 4 * 8
+        if use_E_cstr:
+            tile_i, tile_j = default_tile_sizes(n_train, n_atoms, n_perms)
+            assembly += (tile_i + tile_j) * n_perms * dim_d * dim_i * 8
+        factor = ((n - nb) * nb + 3 * nb * nb) * 8
+        return 8 * n * n + 4 * 8 * n + max(assembly, factor)
 
     @staticmethod
     def est_memory_grid(n_train, n_atoms):

@@ -6,8 +6,9 @@ with MD5 provenance and stratified train/validation splits; model dicts hold
 everything inference needs, in the file layout both packages read. Training
 runs in float64 on the trainer's device (the GPU unless the caller asks for
 the CPU): descriptors, then the analytic solver (the dense kernel assembly
-and its Cholesky solve, or past the dense bound the f32 block-grid Cholesky
-and an f64 refinement CG) or the Nystrom-preconditioned CG solver, the
+and its Cholesky solve; past the dense bound the same kernel factored in
+place, or past that the f32 block-grid or pair-precision Cholesky and an f64
+refinement CG) or the Nystrom-preconditioned CG solver, the
 alpha-contracted Jacobians and the integration constant. On a GPU the
 prediction passes (every CG matvec, the integration constant) launch the
 fused (E, F) kernel.
@@ -57,10 +58,11 @@ class GDMLTrain:
 
     After :meth:`train`, ``times`` holds its seconds by phase and
     ``'total'``; the analytic solve is split as ``Analytic.timer`` splits it
-    (dense: ``'assembly'`` and ``'cholesky'``; grid: ``'lmax'``,
+    (dense: ``'assembly'`` and ``'cholesky'``; in-place f64 and the mesh:
+    ``'assembly'``, ``'factor'`` and ``'solve'``; grid: ``'lmax'``,
     ``'assembly'``, ``'factor'``, ``'border'`` with energy constraints, and
-    ``'cg'``), the CG solve into ``'leverage scores'``, ``'factor'`` and
-    ``'cg'``.
+    ``'cg'``; pair: the grid's and ``'repack'``), the CG solve into
+    ``'leverage scores'``, ``'factor'`` and ``'cg'``.
     """
 
     def __init__(self, max_memory: float | None = None, mesh=None, *, device='cuda'):
@@ -279,7 +281,8 @@ class GDMLTrain:
         Solver selection follows the JAX package's (itself the reference's
         memory heuristic, sgdml/train.py:949-971): the analytic solver when
         the dense system's ``24 n^2`` bytes or the f32 grid route's ``3 n^2``
-        fit the budget (it takes the dense route where that fits),
+        fit the budget (it takes the dense route where that fits, the
+        in-place f64 route past it where that fits; ``Analytic.solve``),
         Nystrom-preconditioned CG otherwise. Pass ``solver='analytic'`` or
         ``'cg'`` to override. ``solver_max_seconds`` bounds the CG wall clock (an
         unconverged model is returned, and flagged); ``save_progr_callback``

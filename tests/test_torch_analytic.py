@@ -82,7 +82,7 @@ def test_routes_that_are_not_ported_raise():
     ds = generate_md_dataset(n_atoms=4, n_frames=30, seed=0)
     X, Jc = desc_ops.descriptor_batch(torch.as_tensor(ds['R'][:5]), 4)
     dperms = desc_perm_table(np.arange(4)[None])
-    # Past the dense bound the solve takes the f32 grid route (item 12a).
+    # Past the dense and the in-place bounds the solve takes the f32 grid route.
     y = np.random.default_rng(2).normal(size=60)
     grid = analytic.Analytic(max_memory=1e-6)
     alphas = grid.solve({'sig': 2.0, 'lam': 1e-8}, X, Jc, dperms, y)
@@ -103,12 +103,15 @@ def test_routes_that_are_not_ported_raise():
     trainer = GDMLTrain(device='cpu')
     np.random.seed(0)
     task = trainer.create_task(ds, 5, ds, 5, sig=2.0, use_sym=False)
-    # The f32 grid route fits 5e-5 GB here, the dense route does not:
-    # solver=None takes it, as the JAX package does; solver='analytic' takes
-    # it even below its bound, and solver='cg' is CG.
+    # The f32 grid route fits 5e-5 GB here, the dense and the in-place f64
+    # routes do not: solver=None takes the analytic solver's grid route, as
+    # the JAX package does; solver='analytic' takes it even below its bound,
+    # and solver='cg' is CG.
+    assert analytic.Analytic.est_memory_inplace(5, 4) > 5e-5 * 1024**3 > analytic.Analytic.est_memory_grid(5, 4)
     for max_memory, solver in ((5e-5, None), (1e-6, 'analytic')):
-        model = GDMLTrain(max_memory=max_memory, device='cpu').train(task, solver=solver)
-        assert model['solver_name'] == 'analytic' and 'solver_iters' not in model
+        trainer = GDMLTrain(max_memory=max_memory, device='cpu')
+        model = trainer.train(task, solver=solver)
+        assert model['solver_name'] == 'analytic' and 'solver_iters' not in model and 'lmax' in trainer.times
     assert GDMLTrain(max_memory=1e-6, device='cpu').train(task, solver='cg')['solver_name'] == 'cg'
     with pytest.raises(ValueError):
         trainer.train(task, solver='lu')

@@ -274,6 +274,7 @@ def test_train_in_the_grid_region_matches_jax(use_E_cstr):
     n = 24 * 3 * N_ATOMS + (24 if use_E_cstr else 0)
     assert an.Analytic.est_memory_requirement(24, N_ATOMS, use_E_cstr) > 1e-3 * 1024**3
     assert an.Analytic.est_memory_grid(24, N_ATOMS) < 1e-3 * 1024**3 < an.Analytic.est_memory_pair(24, N_ATOMS)
+    assert 1e-3 * 1024**3 < an.Analytic.est_memory_inplace(24, N_ATOMS, use_E_cstr)  # not the in-place route
     model = trainer.train(task)
     ref = JaxTrain(max_memory=1e-3).train(task)
     assert model['solver_name'] == ref['solver_name'] == 'analytic' and 'solver_iters' not in model

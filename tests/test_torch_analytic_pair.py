@@ -203,6 +203,7 @@ def test_train_in_the_pair_region_matches_jax(monkeypatch):
     trainer = GDMLTrain(max_memory=1e-3, device='cpu')
     task = trainer.create_task(ds, 24, ds, 8, sig=SIG, use_sym=False, rng=np.random.RandomState(5))
     assert an.Analytic.est_memory_requirement(24, N_ATOMS) > 1e-3 * 1024**3
+    assert an.Analytic.est_memory_inplace(24, N_ATOMS) > 1e-3 * 1024**3  # not the in-place route
     model = trainer.train(task)
     ref = JaxTrain(max_memory=1e-3).train(task)
     assert routes == ['pair'] and 'repack' in trainer.times
