@@ -35,10 +35,12 @@ each a plain assertion that ends the run with a traceback when it fails:
 4. the golden model (trained by the original sGDML) through
    ``GDMLPredict(device='cuda')`` against the reference's predictions;
 5. serving at full AT-AT width (N=60, M=3000, D=1770) through
-   ``GDMLPredict.predict`` for requests of 1, 17, 512 and 10,000 geometries
-   in f64 and f32, each against the plain path, and geometries per second;
-6. 200 NVE steps and 50 Langevin steps of MD on the golden model, one K1
-   launch per force evaluation;
+   ``GDMLPredict.predict`` for requests of 1, 3, 17, 512, 1000 and 10,000
+   geometries in f64 and f32 (from the buckets' CUDA graphs), each against
+   the plain path, and geometries per second;
+6. 200 NVE steps and 50 Langevin steps of MD on the golden model, a block
+   graph replayed a step, one K1 launch per force evaluation (the graphs'
+   replays counted);
 7. training on the card through ``GDMLTrain(device='cuda')``: (a) the dense
    kernel assembly against the reference's golden kernels and against the
    CPU plain path at a ragged shape with two permutations; (b) the
@@ -82,8 +84,10 @@ each a plain assertion that ends the run with a traceback when it fails:
    f64 and f32, its ladder, and a second call served from the cache; (e) the
    ASE calculator through the stand-in for ASE of the CPU tests
    (``tests/ase_standin.py``), 100 calls against ``GDMLPredict`` within
-   1e-12. Launches are counted over the CLI's commands, the tuner's first
-   calls and the calculator's calls, not over the library runs they are
+   1e-12, then against a calculator whose bucket runs eagerly (the same
+   bits), the microseconds of a call of each timed in turns. Launches are
+   counted over the CLI's commands, the tuner's first calls and the
+   calculator's first 100 calls, not over the library runs they are
    compared with;
 10. the analytic solver's f32 block-grid route on the card (``GDMLTrain(
    device='cuda').train(task)`` past the dense bound), each run held on the
@@ -200,11 +204,28 @@ each a plain assertion that ends the run with a traceback when it fails:
    ``aspirin_analytic``, ``atat``, ``atat3000``, ``atat3000_mesh``,
    ``ozaki_mesh``), the CG modes but aspirin cut by ``BENCH_SMOKE_ENV``
    and the mesh modes on a one-rank NCCL world that the program makes and
-   destroys; each prints its JSON line, and each must have launched K1.
+   destroys; each prints its JSON line, and each must have launched K1;
+17. (run right after phase 6) the JAX package's one-geometry programs as
+   CUDA graphs (``utils/graphs.py``), each held against the private eager
+   oracle (a ``GDMLPredict`` or ``MDEngine`` with ``_graphs`` False, which
+   runs the same bodies eagerly on the card): (a) serving at phase 5's AT-AT
+   width and at ethanol width (N = 9, M = 1000) for requests of 1, 3, 17,
+   512, 1000 and 10,000 geometries in f64 and f32, graph against eager bit
+   for bit (ethanol also against the plain path), a call's arrays unchanged
+   by the next call, the buckets recaptured after ``set_alphas`` and
+   answering with the new coefficients (against eager and the plain path),
+   the captures' count, milliseconds and pool, and ms a request eager
+   against graph at B = 1, 17 and 512 in turns; (b) MD on the golden model
+   and on ``bench_large md``'s model with ``snapshot_every`` 1 and 100: NVE
+   and Langevin (the same seed) from the graphs against the eager loop bit
+   for bit, the drift under phase 6's bound, each Langevin program call's
+   noise a new draw, the captures' milliseconds and pool, and NVE steps per
+   second eager against graph in turns (3 each).
 
-Phases 4-16 are the main path: each sets the launch counts to 0 before it
-drives the path (phases 8-16 before each training run, solve, command or
-program) and reads them right after. The last lines are the command's
+Phases 4-17 are the main path: each sets the launch counts to 0 before it
+drives the path (phases 8-17 before each training run, solve, command,
+program or request) and reads them right after. A launch inside a CUDA
+graph counts at each replay, as the same launch run eagerly would. The last lines are the command's
 wall, the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, ...}``.
 """
@@ -247,6 +268,7 @@ from sgdml_tpu_torch.solvers import analytic as an_mod
 from sgdml_tpu_torch.solvers import iterative as it_mod
 from sgdml_tpu_torch.solvers.analytic import Analytic, memory_budget
 from sgdml_tpu_torch.train import GDMLTrain
+from sgdml_tpu_torch.utils import graphs as graphs_mod
 from sgdml_tpu_torch.utils import io
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -280,6 +302,18 @@ SWEEP_D, SWEEP_T, SWEEP_B = (10, 36, 105, 210, 435), (30, 100, 200, 400, 1000), 
 # plain path so that the energy drift of 200 steps stays far under the
 # bound (1.6e-5 of the mean kinetic energy there).
 MD_DT, MD_KT, MD_STEPS, MD_DRIFT = 0.02, 0.05, 200, 1e-3
+
+# Phase 17, the one-geometry programs as CUDA graphs: the serving requests
+# held graph against eager at AT-AT and ethanol width (ethanol: N = 9, M =
+# 1000, as phase 3's shape), those timed eager against graph (mean of
+# GRAPH_TIMED_REPS requests an arm, in turns), and the MD runs on the golden
+# model and bench_large md's (N = 9, M = 200): (snapshot_every, steps), each
+# Langevin with friction 0.1 at MD_KT, and GRAPH_MD_TURNS timed runs an arm.
+GRAPH_SERVE_B = (1, 3, 17, 512, 1000, 10_000)
+GRAPH_TIMED_B = (1, 17, 512)
+GRAPH_TIMED_REPS = 20
+GRAPH_MD = ((1, 200), (100, 2000))
+GRAPH_MD_TURNS = 3
 
 # Phase 7: the ragged assembly check (N atoms, M points: multiples of no
 # tile); the ethanol recipe of bench.py (N, frames, data seed, split seed,
@@ -675,7 +709,15 @@ def atat_model(n_atoms, n_train, R_train, z, device, seed=0):
     }
 
 
-def phase_serving(device, card, n_atoms=60, n_train=3000, requests=(1, 17, 512, 10_000),
+def plain_predict(pred, Rb):
+    """The plain path (descriptors and the plain contraction) on ``pred``'s
+    tables: the oracle of K1 and of the serving graphs."""
+    Xq, Jcq = desc_ops.descriptor_batch(Rb, pred.n_atoms)
+    return _predict_from_tables_body(
+        Xq, Jcq, pred.tables, pred.alphas_E_lin, pred.sig, pred.std, pred.c, n_atoms=pred.n_atoms)
+
+
+def phase_serving(device, card, n_atoms=60, n_train=3000, requests=GRAPH_SERVE_B,
                   timed=(512, 10_000)):
     t0 = time.perf_counter()
     ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_train + max(requests), seed=0)
@@ -686,11 +728,7 @@ def phase_serving(device, card, n_atoms=60, n_train=3000, requests=(1, 17, 512, 
         n_atoms, n_train, desc_ops.descriptor_dim(n_atoms), model['sig'], time.perf_counter() - t0))
 
     preds = {dt: GDMLPredict(model, dtype=dt, device=device) for dt in (torch.float64, torch.float32)}
-
-    def plain(pred, Rb):
-        Xq, Jcq = desc_ops.descriptor_batch(Rb, n_atoms)
-        return _predict_from_tables_body(
-            Xq, Jcq, pred.tables, pred.alphas_E_lin, pred.sig, pred.std, pred.c, n_atoms=n_atoms)
+    plain = plain_predict
 
     # The main path: the counts are read from 0 over exactly these requests.
     fused_predict.reset_launches()
@@ -727,6 +765,7 @@ def phase_serving(device, card, n_atoms=60, n_train=3000, requests=(1, 17, 512, 
     print('[5 serving] AT-AT width: %d requests in f64 and f32 agree with the plain path; '
           'launches %s' % (2 * len(requests), counts))
     RESULTS['5'] = R_q
+    RESULTS['5 train'] = R[:n_train]
     return counts, model
 
 
@@ -736,11 +775,10 @@ def phase_md(device):
     drifts = {}
     for dev in ('cpu', device):
         eng = MDEngine(model, device=dev)
-        masses = eng.masses.cpu().numpy()
-        v0 = np.random.default_rng(0).normal(size=(len(masses), 3)) * np.sqrt(MD_KT / masses)[:, None]
-        v0 -= (masses[:, None] * v0).sum(0) / masses.sum()
+        v0 = md_velocities(eng)
         fused_predict.reset_launches()
-        R, V, E_pot, E_kin = eng.run_nve(r0, v0, MD_DT, MD_STEPS)
+        with graph_probe() as captures:
+            R, V, E_pot, E_kin = eng.run_nve(r0, v0, MD_DT, MD_STEPS)
         E_tot = E_pot + E_kin
         drift = np.abs(E_tot - E_tot[0]).max() / E_kin.mean()
         drifts[dev] = drift
@@ -749,6 +787,7 @@ def phase_md(device):
     # One launch per force evaluation: the first, one per step, one per snapshot.
     nve = dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
     assert nve['one_pass'] == nve['total'] == 1 + 2 * MD_STEPS and nve['pass_a'] == 0, nve
+    assert len(captures) == 1, captures  # the run's one block graph, replayed for every step but the first
     eng = MDEngine(model, device=device)
     fused_predict.reset_launches()
     R, V, E_pot, E_kin = eng.run_langevin(r0, np.zeros_like(r0), MD_DT, 50, friction=0.1, kT=MD_KT, seed=0)
@@ -757,8 +796,246 @@ def phase_md(device):
     counts = {k: nve[k] + v for k, v in dict(fused_predict.PATH_LAUNCHES,
                                              total=fused_predict.LAUNCHES).items()}
     print('[6 md] NVE %d steps dt=%g: drift / mean kinetic energy %.2e on cpu, %.2e on %s '
-          '(bound %.0e); Langevin 50 steps finite; one K1 launch per force evaluation; '
-          'launches %s' % (MD_STEPS, MD_DT, drifts['cpu'], drifts[device], device, MD_DRIFT, counts))
+          '(bound %.0e), a block graph replayed a step (captured in %.1f ms); Langevin 50 steps finite; '
+          'one K1 launch per force evaluation, replays counted; launches %s' % (
+              MD_STEPS, MD_DT, drifts['cpu'], drifts[device], device, MD_DRIFT, 1e3 * captures[0]['s'], counts))
+    return counts
+
+
+def md_velocities(eng):
+    """Phase 6's initial velocities: Maxwell-Boltzmann at MD_KT from a
+    numpy seed, without the centre of mass's motion."""
+    masses = eng.masses.cpu().numpy()
+    v0 = np.random.default_rng(0).normal(size=(len(masses), 3)) * np.sqrt(MD_KT / masses)[:, None]
+    return v0 - (masses[:, None] * v0).sum(0) / masses.sum()
+
+
+def pool_mb(pool):
+    """MB of device memory that the CUDA graph pool ``pool`` holds."""
+    return sum(seg['total_size'] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg['segment_pool_id']) == tuple(pool)) / 2**20
+
+
+@contextlib.contextmanager
+def graph_probe():
+    """Record each capture of ``utils/graphs.Program`` in the block: its host
+    seconds and, right after it, the MB of its pool."""
+    records, capture = [], graphs_mod.Program._capture
+
+    def probe(self):
+        capture(self)
+        records.append({'s': self.capture_s, 'pool_mb': pool_mb(self.pool)})
+
+    graphs_mod.Program._capture = probe
+    try:
+        yield records
+    finally:
+        graphs_mod.Program._capture = capture
+
+
+@contextlib.contextmanager
+def noise_draws():
+    """Keep a copy of each ``Tensor.normal_`` draw in the block (the
+    Langevin noise that each program call draws before it runs)."""
+    draws, normal_ = [], torch.Tensor.normal_
+
+    def spy(self, *args, **kwargs):
+        out = normal_(self, *args, **kwargs)
+        draws.append(self.clone())
+        return out
+
+    torch.Tensor.normal_ = spy
+    try:
+        yield draws
+    finally:
+        torch.Tensor.normal_ = normal_
+
+
+@contextlib.contextmanager
+def eager_oracle(engine):
+    """``engine`` (an ``MDEngine``) with its blocks run eagerly on the card
+    for the block: the private oracle of its graphs."""
+    graphs_on = engine._graphs
+    engine._graphs = False
+    try:
+        yield engine
+    finally:
+        engine._graphs = graphs_on
+
+
+def eager_twin(model, **kwargs):
+    """A ``GDMLPredict`` whose buckets run eagerly on the card: the private
+    oracle of the serving graphs (made so before its first request)."""
+    pred = GDMLPredict(model, **kwargs)
+    pred._graphs = False
+    return pred
+
+
+def in_turns(a, b, turns):
+    """Host seconds of ``a()`` and ``b()`` each ``turns`` times, in the order
+    a b b a a b ..., each ending in a synchronize; returns both lists."""
+    times = ([], [])
+    for i in range(2 * turns):
+        which = (i + i // 2) % 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (a, b)[which]()
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+    return times
+
+
+def graph_md(label, eng, r0, v0, dt, drift_of):
+    """17b: NVE and Langevin from the graphs against the eager oracle at each
+    (snapshot_every, steps) of GRAPH_MD; returns the launch counts of the
+    graph runs and a line of numbers for each."""
+    counts, lines = dict.fromkeys(launch_counts(), 0), []
+    for every, steps in GRAPH_MD:
+        n_snap = steps // every
+        fused_predict.reset_launches()
+        with graph_probe() as caps:
+            out = eng.run_nve(r0, v0, dt, steps, snapshot_every=every)
+        nve = launch_counts()
+        with eager_oracle(eng):
+            ref = eng.run_nve(r0, v0, dt, steps, snapshot_every=every)
+        assert all(np.array_equal(a, b) for a, b in zip(out, ref)), (label, every, 'NVE graph != eager')
+        assert nve['total'] == 1 + n_snap * (every + 1), (label, every, nve)
+        drift = drift_of(out[2] + out[3], out[3])
+        assert np.isfinite(out[0]).all() and drift < MD_DRIFT, (label, every, drift)
+        fused_predict.reset_launches()
+        with noise_draws() as draws:
+            lg = eng.run_langevin(r0, v0, dt, steps, friction=0.1, kT=MD_KT, seed=0, snapshot_every=every)
+        lgv = launch_counts()
+        with eager_oracle(eng):
+            lr = eng.run_langevin(r0, v0, dt, steps, friction=0.1, kT=MD_KT, seed=0, snapshot_every=every)
+        assert all(np.array_equal(a, b) for a, b in zip(lg, lr)), (label, every, 'Langevin graph != eager')
+        assert len(draws) == n_snap and all(not torch.equal(x, y) for x, y in zip(draws, draws[1:])), (
+            label, every, len(draws))
+        counts = {k: counts[k] + nve[k] + lgv[k] for k in counts}
+        lines.append('%s snapshot_every=%d, %d steps: NVE and Langevin from the graphs = the eager loop bit for bit; '
+                     'drift %.2e (bound %.0e); %d Langevin draws, each new; %d graph(s), capture %s ms, pool %s MB'
+                     % (label, every, steps, drift, MD_DRIFT, len(draws), len(caps),
+                        '/'.join('%.1f' % (1e3 * c['s']) for c in caps),
+                        '/'.join('%.1f' % c['pool_mb'] for c in caps)))
+    return counts, lines
+
+
+def graph_md_rates(label, eng, r0, v0, dt, every, steps, card):
+    """Steps per second of NVE, eager and from the graphs, in turns."""
+    def run():
+        eng.run_nve(r0, v0, dt, steps, snapshot_every=every)
+
+    def run_eager():
+        with eager_oracle(eng):
+            run()
+
+    t_e, t_g = in_turns(run_eager, run, GRAPH_MD_TURNS)
+    return '%s NVE snapshot_every=%d, %d steps: eager %s steps/s, graphs %s steps/s (in turns, %s)' % (
+        label, every, steps, ', '.join('%.1f' % (steps / t) for t in t_e),
+        ', '.join('%.1f' % (steps / t) for t in t_g), card)
+
+
+def graph_serving(label, model, R_train, R_q, device, plain_check, card):
+    """17a: each request of GRAPH_SERVE_B from the bucket graphs against the
+    eager buckets (bit for bit) and, with ``plain_check``, the plain path;
+    no aliasing between two calls; the stale-table check after
+    ``set_alphas``; the captures; then ms a request, eager against graph."""
+    counts, lines = dict.fromkeys(launch_counts(), 0), []
+    n_atoms = model['z'].shape[0]
+    for dtype in (torch.float64, torch.float32):
+        pred = GDMLPredict(model, dtype=dtype, device=device)
+        twin = eager_twin(model, dtype=dtype, device=device)
+        with graph_probe() as caps:
+            for B in GRAPH_SERVE_B:
+                fused_predict.reset_launches()
+                E, F = pred.predict(R_q[:B])
+                during = launch_counts()
+                counts = {k: counts[k] + during[k] for k in counts}
+                E_e, F_e = twin.predict(R_q[:B])
+                assert during['total'] > 0 and E.shape == (B,) and np.isfinite(F).all(), (label, B, during)
+                assert np.array_equal(E, E_e) and np.array_equal(F, F_e), (label, NAME[dtype], B, 'graph != eager')
+                if plain_check:
+                    E_p, F_p = plain_predict(pred, torch.as_tensor(R_q[:B], dtype=dtype, device=device))
+                    errs = rel_err(torch.as_tensor(E), E_p.cpu()), rel_err(torch.as_tensor(F), F_p.cpu())
+                    assert max(errs) <= TOL[dtype], (label, NAME[dtype], B, errs)
+            n_buckets, cap_ms = len(pred._buckets), 1e3 * sum(c['s'] for c in caps)
+            pool = pool_mb(pred._pool) if pred._pool is not None else 0.0
+        assert len(caps) == n_buckets, (label, len(caps), n_buckets)
+        # Two calls in a row: the first call's arrays are not the second's.
+        E1, F1 = pred.predict(R_q[:17])
+        kept = E1.copy(), F1.copy()
+        E2, _ = pred.predict(R_q[17:34])
+        assert np.array_equal(E1, kept[0]) and np.array_equal(F1, kept[1]) and not np.array_equal(E1, E2), label
+        # New coefficients: the buckets are dropped, captured again, and answer with them.
+        _, Jc = desc_ops.descriptor_batch(torch.as_tensor(R_train, dtype=torch.float64, device=device), n_atoms)
+        alphas = np.random.default_rng(7).normal(size=np.asarray(model['alphas_F']).shape)
+        alphas *= np.abs(np.asarray(model['alphas_F'])).max() / np.abs(alphas).max()
+        for p in (pred, twin):
+            p.set_R_d_desc(Jc)
+            p.set_alphas(alphas)
+        assert pred._buckets == {}, label
+        E3, F3 = pred.predict(R_q[:17])
+        E3_e, F3_e = twin.predict(R_q[:17])
+        E3_p, F3_p = plain_predict(pred, torch.as_tensor(R_q[:17], dtype=dtype, device=device))
+        stale = rel_err(torch.as_tensor(E3), E3_p.cpu()), rel_err(torch.as_tensor(F3), F3_p.cpu())
+        assert np.array_equal(E3, E3_e) and np.array_equal(F3, F3_e) and max(stale) <= TOL[dtype], (label, stale)
+        assert np.abs(F3 - F1).max() > 1e-3 * np.abs(F1).max(), label  # the new coefficients reached the answer
+        lines.append('%s %s: B = %s from the graphs = eager bit for bit%s; no aliasing; after set_alphas the '
+                     'graphs are recaptured and follow (err %.1e, %.1e); %d bucket graphs captured in %.1f ms, '
+                     'pool %.1f MB' % (label, NAME[dtype], ', '.join(map(str, GRAPH_SERVE_B)),
+                                       ' and within %.0e of the plain path' % TOL[dtype] if plain_check else '',
+                                       *stale, n_buckets, cap_ms, pool))
+        for B in GRAPH_TIMED_B:
+            t_e, t_g = in_turns(lambda: [twin.predict(R_q[:B]) for _ in range(GRAPH_TIMED_REPS)],
+                                lambda: [pred.predict(R_q[:B]) for _ in range(GRAPH_TIMED_REPS)], 3)
+            lines.append('%s %s B=%d: ms a request host to host, eager %s, graphs %s (in turns, %s)' % (
+                label, NAME[dtype], B, ', '.join('%.4f' % (1e3 * t / GRAPH_TIMED_REPS) for t in t_e),
+                ', '.join('%.4f' % (1e3 * t / GRAPH_TIMED_REPS) for t in t_g), card))
+    return counts, lines
+
+
+
+def phase_graphs(device, atat, card):
+    """17: the JAX package's one-geometry programs as CUDA graphs. (a)
+    Serving at phase 5's AT-AT width and at ethanol width (N = 9, M = 1000);
+    (b) MD on the golden model (phase 6's recipe) and on bench_large md's
+    (N = 9, M = 200, dt 0.01, at rest), each NVE and Langevin against the
+    eager oracle, then steps per second eager against graph. The launch
+    counts are set to 0 before each graph run and read after it."""
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def add(part):
+        nonlocal counts
+        counts = {k: counts[k] + part[0][k] for k in counts}
+        for line in part[1]:
+            print('    ' + line)
+
+    add(graph_serving('AT-AT', atat, RESULTS['5 train'], RESULTS['5'], device, False, card))
+    m_eth = 1000
+    ds = generate_md_dataset(n_atoms=9, n_frames=m_eth + max(GRAPH_SERVE_B), seed=0)
+    R = ds['R'].reshape(len(ds['R']), -1)
+    ethanol = atat_model(9, m_eth, R[:m_eth], ds['z'], device)
+    add(graph_serving('ethanol', ethanol, R[:m_eth], R[m_eth:], device, True, card))
+
+    model = io.load_dict(os.path.join(GOLDEN, 'model_ref.npz'))
+    r0 = np.load(os.path.join(GOLDEN, 'train_predict_ref.npz'))['R_test'][0]
+    eng = MDEngine(model, device=device)
+    v0 = md_velocities(eng)
+    add(graph_md('golden', eng, r0, v0, MD_DT,  # phase 6's drift: over the mean kinetic energy
+                 lambda E_tot, E_kin: np.abs(E_tot - E_tot[0]).max() / E_kin.mean()))
+    rates = [graph_md_rates('golden', eng, r0, v0, MD_DT, 1, MD_STEPS, card)]
+    ds = generate_md_dataset(n_atoms=9, n_frames=600, seed=0)
+    _, bench_model, _ = bench_large._train(ds, 200, sig=10.0, solver='analytic', device=device)
+    eng = MDEngine(bench_model, device=device)
+    r0, v0 = ds['R'][0], np.zeros_like(ds['R'][0])
+    add(graph_md('bench md', eng, r0, v0, 0.01,  # bench_md's drift: over the largest kinetic energy
+                 lambda E_tot, E_kin: np.abs(E_tot - E_tot[0]).max() / np.abs(E_kin).max()))
+    rates.append(graph_md_rates('bench md', eng, r0, v0, 0.01, 100, 2000, card))
+    add((dict.fromkeys(counts, 0), rates))
+    assert counts['total'] > 0, counts
+    print('[17 graphs] serving buckets and MD blocks replayed from CUDA graphs agree with the eager path bit for '
+          'bit; launches %s; %.1f s (%s)' % (counts, time.perf_counter() - t0, card))
     return counts
 
 
@@ -1908,6 +2185,23 @@ def cli_ase(device, card):
           'F %.2e of max |value| from GDMLPredict times the unit factors (bound 1e-12); K1 launches %s (%s)' % (
               ASE_CALLS, us, e_rel, f_rel, during, card))
     assert e_rel <= 1e-12 and f_rel <= 1e-12 and during['total'] == ASE_CALLS, (e_rel, f_rel, during)
+    # The same calls from a calculator whose bucket runs eagerly: the same
+    # bits, and the microseconds of a call of each, in turns.
+    with ase_standin.installed():
+        twin = importlib.reload(ase_calc).SGDMLCalculator(model, device=device)
+    twin.gdml_predict._graphs = False
+    results = {}
+
+    def calls(c):
+        for i in range(ASE_CALLS):
+            c.calculate(atoms[i % len(atoms)])
+            results.setdefault(id(c), []).append(c.results['forces'])
+
+    t_e, t_g = in_turns(lambda: calls(twin), lambda: calls(calc), 2)
+    assert all(np.array_equal(a, b) for a, b in zip(results[id(twin)], results[id(calc)])), 'calculator graph != eager'
+    print('    ASE calculator us a call, eager %s, graphs %s (in turns; the same bits) (%s)' % (
+        ', '.join('%.1f' % (t / ASE_CALLS * 1e6) for t in t_e), ', '.join('%.1f' % (t / ASE_CALLS * 1e6) for t in t_g),
+        card))
     return during
 
 
@@ -2375,6 +2669,7 @@ def pair_split(label, sstrips, leaves, X, Jc, dperms, sig, lam, n_atoms, iters, 
     A_apply = an_mod._matvec_op(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=False)
     M_apply = an_mod._pair_M_apply(sstrips, leaves, None, None, n, 0, False)
     eager = lambda: pairchol.solve_strips_int8(sstrips, leaves, v)  # noqa: E731
+    M_apply(v)  # the first call runs eagerly; the capture follows it
     graphed = M_apply(v)
     assert torch.equal(graphed, eager()), 'the strip solve replayed from its CUDA graph differs from the eager one'
     mv_ms, solve_ms = time_pair(lambda: A_apply(v), lambda: M_apply(v))
@@ -3505,7 +3800,7 @@ def main():
         return
     max_abs, times = phase_kernel_vs_plain(device)
     serving_counts, atat = phase_serving(device, smi)
-    main_path = [phase_golden(device), serving_counts, phase_md(device)]
+    main_path = [phase_golden(device), serving_counts, phase_md(device), phase_graphs(device, atat, smi)]
     train_counts, ethanol = phase_train(device, smi)
     cg_counts, splits, aspirin_cg, atat_cg = phase_cg(device, ethanol, smi)
     cli_counts = phase_cli(device, ethanol, atat, splits[1]['solver_iters'], smi)

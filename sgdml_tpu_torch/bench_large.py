@@ -318,7 +318,8 @@ def bench_md(device, n_frames=600, m_train=200, n_steps=2000):
     dt = timeit.default_timer() - t0  # numpy snapshots: the loop has ended on the device
     E_tot = E_pot + E_kin
     return {
-        'config': 'NVE MD on the device, a host loop of device steps (N=9, trained model)',
+        'config': 'NVE MD on the device, %s (N=9, trained model)' % (
+            'each block of 100 steps a replayed CUDA graph' if engine._graphs else 'a host loop of device steps'),
         'md_steps_per_sec': n_steps / dt,
         'energy_drift': float(np.abs(E_tot - E_tot[0]).max()),
         'kinetic_scale': float(np.abs(E_kin).max()),

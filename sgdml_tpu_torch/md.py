@@ -1,9 +1,19 @@
 """Molecular dynamics on trained (s)GDML models, on one device.
 
-The trajectory stays on the device: positions, velocities and forces are
-tensors, and each step is a handful of device operations around one
-(E, F) prediction (the fused kernel on a GPU). Only the snapshots come back
-to the host, once, at the end.
+The trajectory stays on the device. Positions, velocities and forces are
+static tensors that each block of steps updates in place; each snapshot is
+written into a trajectory allocated on the device up front, at a slot index
+that the device itself advances; the trajectory comes back to the host once,
+at the end. A step is a few dozen small device operations around one (E, F)
+prediction (the fused kernel on a GPU).
+
+Enqueued one by one from the host, those operations set the pace of a step.
+So on a GPU a block (``snapshot_every`` steps and the snapshot; at most
+``GRAPH_MAX_STEPS`` steps to a graph) is captured once as a CUDA graph
+(``utils/graphs.py``) and replayed: the counterpart of the JAX package's
+one compiled scan (``sgdml_tpu/md.py:_run_nve``, ``_run_langevin``), with
+one graph launch a block from the host. On the CPU the same block body
+runs eagerly.
 
 Integrators: velocity Verlet (NVE) and Langevin (NVT, BAOAB splitting).
 """
@@ -19,9 +29,15 @@ from . import resolve_device
 from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
 from .predict import build_tables, center_tables, predict_from_tables
+from .utils import graphs
 from .utils.io import ATOMIC_MASSES
 
-__all__ = ['MDEngine']
+__all__ = ['GRAPH_MAX_STEPS', 'MDEngine']
+
+# Steps in one captured graph. A block of more steps replays a graph of this
+# many steps, then one of the rest with the snapshot: a graph's capture time
+# and size grow with its steps (PERF.md, section 6).
+GRAPH_MAX_STEPS = 100
 
 
 class MDEngine:
@@ -52,6 +68,10 @@ class MDEngine:
         self.tables = center_tables(*build_tables(w['R_desc'], w['R_d_desc_alpha'], w['desc_perms']))
         self.masses = torch.as_tensor(masses, dtype=dtype, device=self.device)
         self.dtype = dtype
+        # On a GPU the blocks replay CUDA graphs captured on this stream;
+        # with False they run eagerly there (chip_smoke.py's private oracle).
+        self._graphs = self.device.type == 'cuda'
+        self._stream = torch.cuda.Stream(self.device) if self._graphs else None
 
     def energy_forces(self, r):
         """(E, F(N,3)) for a single geometry ``r (N, 3)`` tensor."""
@@ -63,28 +83,76 @@ class MDEngine:
         return E[0], F[0].reshape(self.n_atoms, 3)
 
     def _state(self, x):
+        """A fresh ``(N, 3)`` tensor of ``x`` (never the caller's memory: the
+        trajectory updates it in place)."""
         x = np.asarray(x).reshape(self.n_atoms, 3)
-        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        return torch.tensor(x, dtype=self.dtype, device=self.device)
 
-    def _trajectory(self, r0, v0, n_steps, snapshot_every, substep):
-        """Run ``n_steps // snapshot_every`` snapshots of ``snapshot_every``
-        substeps each; return numpy (R (S,N,3), V, E_pot (S,), E_kin)."""
-        r, v = self._state(r0), self._state(v0)
-        _, f = self.energy_forces(r)
-        snaps = []
-        for _ in range(n_steps // snapshot_every):
-            for _ in range(snapshot_every):
-                r, v, f = substep(r, v, f)
-            E, _ = self.energy_forces(r)
-            ke = 0.5 * torch.sum(self.masses[:, None] * v * v)
-            snaps.append((r, v, E, ke))
-        return tuple(torch.stack(x).cpu().numpy() for x in zip(*snaps))
+    def _trajectory(self, r0, v0, n_steps, snapshot_every, substep, noise=None, gen=None):
+        """Run ``n_steps // snapshot_every`` blocks of ``snapshot_every``
+        substeps and a snapshot; return numpy (R (S,N,3), V, E_pot (S,),
+        E_kin).
+
+        ``substep(r, v, f, i)`` is the ``i``-th substep of a program's run of
+        them. With ``noise`` (a static ``(k, N, 3)`` buffer), each program
+        call first draws its substeps' rows of it from ``gen``, eagerly: a
+        graph replays its kernels, not its draws, so a captured draw would
+        give every block the same noise.
+        """
+        n, dev = self.n_atoms, self.device
+        n_snap = n_steps // snapshot_every
+        per = min(snapshot_every, GRAPH_MAX_STEPS)
+        n_full, rest = divmod(snapshot_every, per)
+        if not rest:
+            n_full, rest = n_full - 1, per
+        with graphs.on_stream(self._stream):
+            r, v = self._state(r0), self._state(v0)
+            f = self.energy_forces(r)[1]
+            traj = (torch.empty((n_snap, n, 3), dtype=self.dtype, device=dev),
+                    torch.empty((n_snap, n, 3), dtype=self.dtype, device=dev),
+                    torch.empty(n_snap, dtype=self.dtype, device=dev),
+                    torch.empty(n_snap, dtype=self.dtype, device=dev))
+            slot = torch.zeros(1, dtype=torch.int64, device=dev)
+            pool = torch.cuda.graph_pool_handle() if self._graphs else None
+
+            def program(k, snapshot):
+                def body():
+                    rk, vk, fk = r, v, f
+                    for i in range(k):
+                        rk, vk, fk = substep(rk, vk, fk, i)
+                    r.copy_(rk)
+                    v.copy_(vk)
+                    f.copy_(fk)
+                    if snapshot:
+                        E, _ = self.energy_forces(r)
+                        ke = 0.5 * torch.sum(self.masses[:, None] * v * v)
+                        for out, x in zip(traj, (r, v, E, ke)):
+                            out.index_copy_(0, slot, x[None])
+                        slot.add_(1)
+
+                run = graphs.Program(body, self._graphs, pool)
+                if noise is None:
+                    return run
+
+                def drawn():
+                    noise[:k].normal_(generator=gen)
+                    run()
+
+                return drawn
+
+            full = program(per, False) if n_full else None
+            last = program(rest, True)
+            for _ in range(n_snap):
+                for _ in range(n_full):
+                    full()
+                last()
+            return tuple(x.cpu().numpy() for x in traj)
 
     def run_nve(self, r0, v0, dt, n_steps, snapshot_every: int = 1):
         """NVE (velocity Verlet). Returns (R (S,N,3), V, E_pot (S,), E_kin)."""
         inv_m = 1.0 / self.masses[:, None]
 
-        def substep(r, v, f):
+        def substep(r, v, f, i):
             v_half = v + 0.5 * dt * f * inv_m
             r = r + dt * v_half
             _, f = self.energy_forces(r)
@@ -98,22 +166,24 @@ class MDEngine:
         snapshot_every: int = 1,
     ):
         """Langevin (BAOAB) thermostatted dynamics on the device. The noise
-        comes from a ``torch.Generator`` on the device seeded with ``seed``;
-        its numbers differ from ``jax.random``'s."""
+        comes from a ``torch.Generator`` on the device seeded with ``seed``,
+        drawn for each program's substeps before it runs; its numbers differ
+        from ``jax.random``'s."""
         inv_m = 1.0 / self.masses[:, None]
         c1 = math.exp(-friction * dt)
         sigma_v = torch.sqrt(kT * (1 - c1**2) / self.masses)[:, None]
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        noise = torch.empty((min(snapshot_every, GRAPH_MAX_STEPS), self.n_atoms, 3), dtype=self.dtype,
+                            device=self.device)
 
-        def substep(r, v, f):
+        def substep(r, v, f, i):
             v = v + 0.5 * dt * f * inv_m
             r = r + 0.5 * dt * v
-            noise = torch.randn(r.shape, generator=gen, dtype=r.dtype, device=r.device)
-            v = c1 * v + sigma_v * noise
+            v = c1 * v + sigma_v * noise[i]
             r = r + 0.5 * dt * v
             _, f = self.energy_forces(r)
             v = v + 0.5 * dt * f * inv_m
             return r, v, f
 
-        return self._trajectory(r0, v0, n_steps, snapshot_every, substep)
+        return self._trajectory(r0, v0, n_steps, snapshot_every, substep, noise, gen)

@@ -21,6 +21,7 @@ axis.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -32,8 +33,8 @@ from .kernel import Mat52Coeffs
 
 __all__ = [
     'K_STEP', 'LAUNCHES', 'ONE_PASS_MAX_STEPS', 'PATH_LAUNCHES', 'TILE',
-    'fused_predict_tables', 'fused_predict_tables_reference', 'forces',
-    'forces_reference', 'one_pass', 'planes', 'planes_reference',
+    'count_replay', 'fused_predict_tables', 'fused_predict_tables_reference', 'forces',
+    'forces_reference', 'one_pass', 'planes', 'planes_reference', 'recording_launches',
     'reset_launches', 'route', 'split_k', 'two_pass',
 ]
 
@@ -60,9 +61,12 @@ _MIN_SPLIT_STEPS = 8
 # Kernel launches in this process. LAUNCHES counts calls of the contraction
 # that launched either route; PATH_LAUNCHES counts each kernel's launches, in
 # the wrapper that launches it and nowhere else, so that a run can show which
-# kernels its path went through.
+# kernels its path went through. A launch enqueued while a CUDA graph is
+# captured does not run then but at each replay: the capture records it
+# (``recording_launches``) and each replay counts it (``count_replay``).
 LAUNCHES = 0
 PATH_LAUNCHES = {'one_pass': 0, 'pass_a': 0, 'pass_b': 0}
+_RECORDING = []  # the counts of the graph being captured
 
 
 def reset_launches():
@@ -71,6 +75,52 @@ def reset_launches():
     LAUNCHES = 0
     for key in PATH_LAUNCHES:
         PATH_LAUNCHES[key] = 0
+
+
+def _add(counts):
+    """Add ``counts`` (``{'total': n, 'one_pass': n, ...}``) to the launch
+    counts."""
+    global LAUNCHES
+    LAUNCHES += counts.get('total', 0)
+    for key in PATH_LAUNCHES:
+        PATH_LAUNCHES[key] += counts.get(key, 0)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record, and do not count, the launches made in the block, which
+    captures a CUDA graph: its kernels run at each replay, not now. Yields
+    the recorded counts; :func:`count_replay` counts them at each replay."""
+    recorded = {}
+    _RECORDING.append(recorded)
+    try:
+        yield recorded
+    finally:
+        _RECORDING.pop()
+
+
+def count_replay(recorded):
+    """Count the launches of one replay of a graph whose capture recorded
+    ``recorded``."""
+    _add(recorded)
+
+
+def _count(counts, capturing):
+    """Count the launches ``counts`` just enqueued, or record them while a
+    graph is captured (``capturing``). A capture outside
+    :func:`recording_launches`, or a recording without one, raises: the
+    graph's replays would go uncounted, or launches that ran would."""
+    if capturing != bool(_RECORDING):
+        raise RuntimeError(
+            'K1 launched %s a CUDA graph capture %s fused_predict.recording_launches(): its launches '
+            'would be miscounted' % (('inside', 'outside') if capturing else ('outside', 'inside'))
+        )
+    if not capturing:
+        _add(counts)
+        return
+    recorded = _RECORDING[-1]
+    for key, n in counts.items():
+        recorded[key] = recorded.get(key, 0) + n
 
 
 def _cdiv(a, b):
@@ -226,37 +276,37 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _call(lib, stem, paths, x, *args):
+def _call(lib, stem, paths, x, *args, contraction=False):
     """Call ``lib.<stem>_f32`` or ``_f64`` (by x's dtype); count one launch
-    of each kernel in ``paths``."""
+    of each kernel in ``paths``, and one of the contraction (``LAUNCHES``)
+    with ``contraction``."""
     err = getattr(lib, stem + ('_f64' if x.dtype == torch.float64 else '_f32'))(*args)
     if err != 0:
         raise RuntimeError(
             'fused_predict kernel (%s) launch failed: CUDA error %d (%s)'
             % ('+'.join(paths), err, lib.sgdml_cuda_error_string(err).decode())
         )
-    for path in paths:
-        PATH_LAUNCHES[path] += 1
+    counts = dict.fromkeys(paths, 1)
+    if contraction:
+        counts['total'] = 1
+    _count(counts, torch.cuda.is_current_stream_capturing())
 
 
 # The route launchers take checked CUDA tensors, the library and the (device
 # index, stream) pair, and allocate only their outputs and scratch.
 
 def _launch_one_pass(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig):
-    global LAUNCHES
     (B, D), T = Xq.shape, Xt.shape[0]
     E = torch.empty(B, dtype=Xq.dtype, device=Xq.device)
     F_d = torch.empty(B, D, dtype=Xq.dtype, device=Xq.device)
     _call(lib, 'sgdml_fused_predict', ('one_pass',), Xq, Xq.data_ptr(), Xt.data_ptr(),
           JA.data_ptr(), xt_sq.data_ptr(), tja.data_ptr(), _ptr(aE), float(sig), B, T, D,
-          E.data_ptr(), F_d.data_ptr(), *dev)
-    LAUNCHES += 1
+          E.data_ptr(), F_d.data_ptr(), *dev, contraction=True)
     return E, F_d
 
 
 def _launch_two_pass(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig):
     """Pass A then pass B in one call, their scratch in one allocation."""
-    global LAUNCHES
     (B, D), T = Xq.shape, Xt.shape[0]
     n_t = _cdiv(T, TILE)
     splits, per = split_k(B, D, T, _sm_count(dev[0]))
@@ -266,8 +316,7 @@ def _launch_two_pass(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig):
     F_d = torch.empty(B, D, dtype=Xq.dtype, device=Xq.device)
     _call(lib, 'sgdml_two_pass', ('pass_a', 'pass_b'), Xq, Xq.data_ptr(), Xt.data_ptr(),
           JA.data_ptr(), xt_sq.data_ptr(), tja.data_ptr(), _ptr(aE), float(sig), B, T, D,
-          splits, per, scratch.data_ptr(), E.data_ptr(), F_d.data_ptr(), *dev)
-    LAUNCHES += 1
+          splits, per, scratch.data_ptr(), E.data_ptr(), F_d.data_ptr(), *dev, contraction=True)
     return E, F_d
 
 

@@ -16,6 +16,14 @@ once, when the tables are built. On a CUDA device the contraction is one
 hand-written kernel (``ops/fused_predict.py``) whose ``(B, T)`` planes never
 leave the chip; on the CPU it is the plain PyTorch version. Cartesian forces
 come from the incidence-factorized Jacobian transpose.
+
+Geometries are served in buckets, as the JAX package serves them: a request
+of B geometries is padded, by repeats of its last geometry, to a multiple of
+a power-of-two bucket (``GDMLPredict._bucket``, ``_pad``), and each bucket of
+descriptors + prediction (``_predict_geoms``) runs over static tensors. On a
+GPU each bucket is a CUDA graph, captured at its first use and replayed
+(``utils/graphs.py``): the counterpart of the JAX package's one compiled
+program per bucket.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
 from .ops import fused_predict, ozaki
 from .ops._precision import _true_f32
-from .utils import io
+from .utils import graphs, io
 
 __all__ = [
     'GDMLPredict',
@@ -187,6 +195,37 @@ def _numpy(x):
     return None if x is None else x.cpu().numpy()
 
 
+class _Bucket:
+    """One bucket of the geometry path: a static ``(bucket, 3N)`` input in
+    the transfer dtype (fed from a pinned host buffer on a GPU) and the
+    program of :func:`_predict_geoms` over it, on the tables and
+    coefficients of the predictor when the bucket was made."""
+
+    def __init__(self, pred, bucket, graph, pool):
+        dtype, cuda = pred.transfer_dtype or pred.dtype, pred.device.type == 'cuda'
+        self.x = torch.empty((bucket, pred.dim_i), dtype=dtype, device=pred.device)
+        self.host = torch.empty(self.x.shape, dtype=dtype, pin_memory=True) if cuda else None
+        self.copied = torch.cuda.Event() if cuda else None
+        # The body holds neither the bucket nor the predictor: no reference
+        # cycle keeps a graph for the garbage collector to free later.
+        x, args = self.x, (pred.tables, pred.alphas_E_lin, pred.lat_and_inv, pred.sig, pred.std, pred.c)
+        kwargs = dict(n_atoms=pred.n_atoms, out_dtype=pred.transfer_dtype)
+        self.run = graphs.Program(lambda: _predict_geoms(x, *args, **kwargs), graph, pool)
+
+    def __call__(self, R):
+        """(E, F) of ``R (bucket, 3N)`` (numpy), static after the first call:
+        copy them out before the next."""
+        src = torch.from_numpy(R)
+        if self.host is None:
+            self.x.copy_(src)
+        else:
+            self.copied.synchronize()  # the last copy out of the host buffer is done
+            self.host.copy_(src)
+            self.x.copy_(self.host, non_blocking=True)
+            self.copied.record()
+        return self.run()
+
+
 class GDMLPredict:
     """Load a trained (s)GDML model and predict energies and forces.
 
@@ -199,7 +238,9 @@ class GDMLPredict:
     model: model dict, GDMLModel or path.
     dtype: computation dtype (``torch.float64`` default for parity;
         ``torch.float32`` is the fast path).
-    batch_size: geometries per device call; requests are chunked by it.
+    batch_size: geometries per device call. A request of B geometries is
+        padded to a multiple of its bucket: ``batch_size``, or for smaller B
+        the next power of two (``_bucket``).
     transfer_dtype: optional narrower ``torch.dtype`` for host<->device
         copies of geometries and results (compute stays in ``dtype``).
     mesh: a ``DeviceMesh`` (``parallel/mesh.py``) for data-parallel serving,
@@ -233,6 +274,12 @@ class GDMLPredict:
         self.dim_i = 3 * self.n_atoms
         self.dtype = dtype
         self.transfer_dtype = transfer_dtype
+        # Without a mesh, a GPU serves geometries by CUDA graphs, captured on
+        # this stream into one pool (the batch size's setter makes the
+        # buckets); with False they run eagerly there (chip_smoke.py's
+        # private oracle).
+        self._graphs = self.device.type == 'cuda' and mesh is None
+        self._stream = torch.cuda.Stream(self.device) if self._graphs else None
         if batch_size is None:
             batch_size = _auto_batch_size(self.device)
         self.batch_size = -(-int(batch_size) // self._n_dev) * self._n_dev
@@ -254,6 +301,21 @@ class GDMLPredict:
         self._Xt, JA = build_tables(w['R_desc'], w['R_d_desc_alpha'], self._desc_perms)
         self.tables = center_tables(self._Xt, JA)
 
+    @property
+    def batch_size(self) -> int:
+        """Geometries per device call; setting it drops the bucket graphs."""
+        return self._batch_size
+
+    @batch_size.setter
+    def batch_size(self, value):
+        self._batch_size = int(value)
+        self._drop_buckets()
+
+    def _drop_buckets(self):
+        """Forget the buckets and their graphs, which read the tables and
+        coefficients by address: every change of those replaces them."""
+        self._buckets, self._pool = {}, None
+
     def _tensor(self, x, dtype=None):
         dtype = dtype or self.dtype
         if isinstance(x, torch.Tensor):
@@ -267,6 +329,7 @@ class GDMLPredict:
         self._R_desc_train = self._tensor(R_desc)
         self._Xt, _ = build_tables(self._R_desc_train, self._R_desc_train, self._desc_perms)
         self.tables = center_tables(self._Xt, self.tables.JA)
+        self._drop_buckets()
 
     def set_R_d_desc(self, R_d_desc):
         """Store training compressed Jacobians ``(M, D, 3)`` -- required
@@ -284,6 +347,7 @@ class GDMLPredict:
         self.tables = center_tables(self._Xt, JA)
         if alphas_E is not None:
             self.alphas_E_lin = torch.repeat_interleave(self._tensor(alphas_E), self.n_perms)
+        self._drop_buckets()
 
     # -- main API ----------------------------------------------------------
 
@@ -330,46 +394,81 @@ class GDMLPredict:
         part = R[info.rank * loc:(info.rank + 1) * loc]
         if part.shape[0] < loc:
             part = np.concatenate([part, np.repeat(R[:1], loc - part.shape[0], axis=0)])
-        E, F = self._predict(part, None, None)
+        # Each rank takes its share of the JAX package's bucket for B.
+        E, F = self._predict_geometries(part, self._bucket(B) // info.size)
         return all_gather_rows(E, info)[:B], all_gather_rows(F, info)[:B]
 
     def _predict(self, R, R_desc, R_d_desc):
-        """(E, F) as tensors on this device, in chunks of ``batch_size`` (a
-        rank's share of it on a mesh)."""
+        """(E, F) as tensors on this device: descriptors in chunks of
+        ``batch_size``, geometries in buckets (:meth:`_predict_geometries`)."""
         args = (self.tables, self.alphas_E_lin)
         scal = (self.sig, self.std, self.c)
-        bs = self.batch_size // self._n_dev
         if R is None and R_desc is None:
             # Train mode: descriptors already cached on the device.
-            E, F = predict_from_tables(
+            return predict_from_tables(
                 self._R_desc_train, self._R_d_desc_train, *args, *scal, n_atoms=self.n_atoms,
             )
-        elif R_desc is not None:
+        if R_desc is not None:
             Xq, Jcq = self._tensor(R_desc), self._tensor(R_d_desc)
+            bs = self.batch_size
             parts = [
                 predict_from_tables(
                     Xq[b0 : b0 + bs], Jcq[b0 : b0 + bs], *args, *scal, n_atoms=self.n_atoms,
                 )
                 for b0 in range(0, Xq.shape[0], bs)
             ]
-            E, F = (torch.cat(x) for x in zip(*parts))
-        else:
-            # Geometry path: copy each chunk in the transfer dtype, compute
-            # descriptors and prediction on the device, gather, copy back.
-            R = np.asarray(R, dtype=np.float64)
-            if R.ndim == 1:
-                R = R[None, :]
-            R = R.reshape(R.shape[0], -1)
-            tdt = self.transfer_dtype
-            parts = [
-                _predict_geoms(
-                    self._tensor(R[b0 : b0 + bs], tdt), *args, self.lat_and_inv, *scal,
-                    n_atoms=self.n_atoms, out_dtype=tdt,
-                )
-                for b0 in range(0, R.shape[0], bs)
-            ]
-            E, F = (torch.cat(x) for x in zip(*parts))
-        return E, F
+            return tuple(torch.cat(x) for x in zip(*parts))
+        R = np.asarray(R, dtype=np.float64)
+        if R.ndim == 1:
+            R = R[None, :]
+        R = R.reshape(R.shape[0], -1)
+        return self._predict_geometries(R, self._bucket(R.shape[0]))
+
+    def _bucket(self, B: int) -> int:
+        """Effective bucket for a request of B geometries: the configured
+        batch size, or the next power of two below it for small inputs (on a
+        mesh rounded up to a multiple of the ranks): at most
+        log2(batch_size) + 1 buckets (``sgdml_tpu/predict.py:385-398``)."""
+        b = self.batch_size
+        if B >= b:
+            return b
+        p = 1
+        while p < B:
+            p <<= 1
+        p = -(-p // self._n_dev) * self._n_dev
+        return min(p, b)
+
+    def _pad(self, B: int) -> int:
+        """B rounded up to a multiple of its bucket."""
+        b = self._bucket(B)
+        return -(-B // b) * b
+
+    def _predict_geometries(self, R, bucket):
+        """(E, F) of geometries ``R (B, 3N)`` (numpy float64) as tensors on
+        this device: ``R`` padded by repeats of its last geometry to a
+        multiple of ``bucket`` (``sgdml_tpu/predict.py:453-454``), a chunk of
+        ``bucket`` a call of its :class:`_Bucket` (a graph's replay on a GPU
+        without a mesh), each chunk's results copied out before the next, the
+        padded rows cut off. Geometries and results cross in the transfer
+        dtype."""
+        B = R.shape[0]
+        Bp = -(-B // bucket) * bucket
+        if Bp != B:
+            R = np.concatenate([R, np.repeat(R[-1:], Bp - B, axis=0)])
+        out_dtype = self.transfer_dtype or self.dtype
+        E = torch.empty(Bp, dtype=out_dtype, device=self.device)
+        F = torch.empty((Bp, self.dim_i), dtype=out_dtype, device=self.device)
+        with graphs.on_stream(self._stream):
+            run = self._buckets.get(bucket)
+            if run is None:
+                if self._graphs and self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                run = self._buckets[bucket] = _Bucket(self, bucket, self._graphs, self._pool)
+            for b0 in range(0, Bp, bucket):
+                E_b, F_b = run(R[b0 : b0 + bucket])
+                E[b0 : b0 + bucket].copy_(E_b)
+                F[b0 : b0 + bucket].copy_(F_b)
+        return E[:B], F[:B]
 
     def prepare_parallel(self, n_bulk: int = 1000, **kwargs):
         """Auto-tune ``batch_size`` for bulk throughput (API parity with the

@@ -63,6 +63,7 @@ from ..ops.kernel import (
     _grad_row_tile, _perms_key, _tile_constants, _value_tile, assemble_kernel, assemble_kernel_grid,
     assemble_kernel_grid_pair, default_tile_sizes, expand_perm_jacobian, perm_tables, tile_peak_bytes,
 )
+from ..utils import graphs
 from ..utils.profiling import PhaseTimer
 
 __all__ = ['Analytic', 'memory_budget']
@@ -279,24 +280,20 @@ def _grid_operators(L32, G, Ls, tab, sig, lam, *, n_atoms, n, use_E_cstr):
 
 
 def _cuda_graph(fn, n, device):
-    """``fn`` of f64 vectors of length ``n`` on a CUDA ``device``, captured
-    once as a CUDA graph (after two warm-up calls on the capture stream)
-    and replayed: same kernels, same bits, one launch from the host."""
-    x = torch.zeros(n, dtype=_F64, device=device)
+    """``fn`` of f64 vectors of length ``n`` on a CUDA ``device`` as a
+    ``utils/graphs.Program`` over a static input, on a side stream: the
+    first call runs eagerly, the capture follows, and later calls replay it:
+    same kernels, same bits, one launch from the host."""
+    x = torch.empty(n, dtype=_F64, device=device)
     side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn(x)
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        out = fn(x)
+    run = graphs.Program(lambda: fn(x), graph=True)
 
     def replay(v):
-        x.copy_(v)
-        graph.replay()
-        return out.clone()
+        y = torch.empty_like(x)
+        with graphs.on_stream(side):
+            x.copy_(v)
+            y.copy_(run())
+        return y
 
     return replay
 

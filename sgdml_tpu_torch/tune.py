@@ -68,14 +68,18 @@ def _dtype_name(dtype) -> str:
     return 'none' if dtype is None else str(dtype).replace('torch.', '')
 
 
-def _cache_key(n_atoms, n_train, n_perms, n_bulk, dtype, transfer_dtype, device, n_dev=1) -> str:
+def _cache_key(n_atoms, n_train, n_perms, n_bulk, dtype, transfer_dtype, device, n_dev=1,
+               graphs=False) -> str:
     # The card's name (not just 'cuda') is part of the key: a batch size
     # tuned on one GPU model must not be replayed on another, nor one tuned
-    # for a mesh of n_dev devices on another mesh.
+    # for a mesh of n_dev devices on another mesh. Timings of the buckets'
+    # CUDA graphs end in '-graphs', so that no timing of the eager path
+    # (every key before the graphs) picks a batch size for them.
     device = torch.device(device)
     dev = torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'
-    return '%d-%d-%d-%d-%s-%s-%dx%s' % (
-        n_atoms, n_train, n_perms, n_bulk, _dtype_name(dtype), _dtype_name(transfer_dtype), n_dev, dev
+    return '%d-%d-%d-%d-%s-%s-%dx%s%s' % (
+        n_atoms, n_train, n_perms, n_bulk, _dtype_name(dtype), _dtype_name(transfer_dtype), n_dev, dev,
+        '-graphs' if graphs else '',
     )
 
 
@@ -84,7 +88,8 @@ def prepare_parallel(predictor, n_bulk: int = 1000, n_reps: int = 3,
     """Pick the fastest batch size for ``predictor`` and install it.
 
     Returns the measured throughput (geometries/sec) at the chosen size.
-    Results are cached per (N, M, P, n_bulk, dtype, transfer dtype, device).
+    Results are cached per (N, M, P, n_bulk, dtype, transfer dtype, device,
+    mesh size, graphs or eager).
     """
     key = _cache_key(
         predictor.n_atoms,
@@ -95,6 +100,7 @@ def prepare_parallel(predictor, n_bulk: int = 1000, n_reps: int = 3,
         predictor.transfer_dtype,
         predictor.device,
         getattr(predictor, '_n_dev', 1),
+        getattr(predictor, '_graphs', False),
     )
     cache = _load_cache() if use_cache else {}
     if key in cache:

@@ -1,5 +1,7 @@
 """The port's MDEngine on the CPU against the JAX MDEngine: NVE trajectories
-agree, Langevin runs are finite and reproducible from their seed."""
+agree, whatever the split of a block into graph-sized programs; Langevin runs
+are finite, reproducible from their seed, and draw fresh noise for every
+program call, as a plain loop over the same generator does."""
 
 import pathlib
 
@@ -8,6 +10,7 @@ import pytest
 import torch
 
 from sgdml_tpu.md import MDEngine as JaxMDEngine
+from sgdml_tpu_torch import md
 from sgdml_tpu_torch.md import MDEngine
 from sgdml_tpu_torch.predict import GDMLPredict
 from sgdml_tpu_torch.utils import io
@@ -31,6 +34,67 @@ def test_nve_matches_jax(setup):
         assert ours.shape == np.asarray(theirs).shape, name
         np.testing.assert_allclose(ours, np.asarray(theirs), rtol=1e-8, atol=1e-12, err_msg=name)
     assert out[0].shape == (10, 5, 3)
+
+
+@pytest.mark.parametrize('snapshot_every, max_steps', [(1, 100), (3, 100), (3, 2), (5, 2)])
+def test_static_buffer_blocks_match_jax(setup, snapshot_every, max_steps, monkeypatch):
+    """The block body over static buffers (a GPU captures it, the CPU runs it)
+    against the JAX scan, with blocks of one program and, at max_steps 2,
+    blocks split into a run of 2-step programs and a last one with the
+    snapshot; the caller's r0 and v0 are not written."""
+    model, r0, v0 = setup
+    monkeypatch.setattr(md, 'GRAPH_MAX_STEPS', max_steps)
+    kept = r0.copy(), v0.copy()
+    n_steps = 4 * snapshot_every + snapshot_every // 2
+    out = MDEngine(model, device='cpu').run_nve(r0, v0, dt=0.02, n_steps=n_steps, snapshot_every=snapshot_every)
+    ref = JaxMDEngine(model).run_nve(r0, v0, dt=0.02, n_steps=n_steps, snapshot_every=snapshot_every)
+    assert out[0].shape == (4, 5, 3) and out[2].shape == (4,)
+    for ours, theirs, name in zip(out, ref, ('R', 'V', 'E_pot', 'E_kin')):
+        np.testing.assert_allclose(ours, np.asarray(theirs), rtol=1e-8, atol=1e-12, err_msg=name)
+    np.testing.assert_array_equal(r0, kept[0])
+    np.testing.assert_array_equal(v0, kept[1])
+
+
+def _langevin_loop(eng, r0, v0, dt, n_steps, friction, kT, seed, snapshot_every, max_steps):
+    """Plain BAOAB loop on numpy-fed tensors, drawing each program's noise
+    rows from one seeded generator as the engine should."""
+    inv_m = 1.0 / eng.masses[:, None]
+    c1 = np.exp(-friction * dt)
+    sigma_v = torch.sqrt(kT * (1 - c1**2) / eng.masses)[:, None]
+    gen = torch.Generator().manual_seed(seed)
+    r, v = torch.tensor(r0), torch.tensor(v0)
+    f = eng.energy_forces(r)[1]
+    per = min(snapshot_every, max_steps)
+    runs = [per] * (snapshot_every // per) + ([snapshot_every % per] if snapshot_every % per else [])
+    out = []
+    for _ in range(n_steps // snapshot_every):
+        for k in runs:
+            noise = torch.empty((per, len(r0), 3), dtype=r.dtype)
+            noise[:k].normal_(generator=gen)
+            for i in range(k):
+                v = v + 0.5 * dt * f * inv_m
+                r = r + 0.5 * dt * v
+                v = c1 * v + sigma_v * noise[i]
+                r = r + 0.5 * dt * v
+                f = eng.energy_forces(r)[1]
+                v = v + 0.5 * dt * f * inv_m
+        out.append((r, v, eng.energy_forces(r)[0], 0.5 * torch.sum(eng.masses[:, None] * v * v)))
+    return [torch.stack(x).numpy() for x in zip(*out)]
+
+
+@pytest.mark.parametrize('max_steps', [100, 2])
+def test_langevin_draws_fresh_noise_for_every_program(setup, max_steps, monkeypatch):
+    """Bit for bit the plain loop that draws new noise before each program
+    call: a graph that replayed one draw would give every block the same
+    noise and miss it."""
+    model, r0, _ = setup
+    monkeypatch.setattr(md, 'GRAPH_MAX_STEPS', max_steps)
+    eng = MDEngine(model, device='cpu')
+    kw = dict(dt=0.02, n_steps=15, friction=0.1, kT=0.05, seed=3, snapshot_every=5)
+    out = eng.run_langevin(r0, np.zeros_like(r0), **kw)
+    ref = _langevin_loop(eng, r0, np.zeros_like(r0), max_steps=max_steps, **kw)
+    for ours, theirs in zip(out, ref):
+        np.testing.assert_array_equal(ours, theirs)
 
 
 def test_langevin_is_finite_and_reproducible_from_seed(setup):

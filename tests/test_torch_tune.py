@@ -101,6 +101,8 @@ def test_cache_key_names_the_card(monkeypatch):
     key = tune._cache_key(60, 3000, 1, 1000, torch.float32, torch.float32, 'cuda')
     assert key == '60-3000-1-1000-float32-float32-1xNVIDIA H100 80GB HBM3'
     assert tune._cache_key(60, 3000, 1, 1000, torch.float64, None, torch.device('cpu')).endswith('-none-1xcpu')
+    # Timings of the buckets' CUDA graphs never share a key with eager ones.
+    assert tune._cache_key(60, 3000, 1, 1000, torch.float32, torch.float32, 'cuda', graphs=True) == key + '-graphs'
 
 
 def test_default_cache_path(monkeypatch):
