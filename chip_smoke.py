@@ -68,7 +68,12 @@ each a plain assertion that ends the run with a traceback when it fails:
    the solver's matvec. Each CG width also holds K1 against its plain
    version on the solve's own tables (one matvec's inputs) and times one
    iteration's parts (the matvec, K1 inside it, the Woodbury apply); those
-   launches are not counted;
+   launches are not counted. Every solve runs its chunks from CUDA graphs;
+   8b and 8c must take the eager loop's iterations (``CG_EAGER_ITERS``),
+   and at each width (the anchor's two factors, ethanol, aspirin, AT-AT)
+   two chunks from the graphs are held against the eager oracle bit for
+   bit (``cg_graph_chunks``), at the anchor and ethanol also timed in
+   turns;
 9. the command line (``sgdml_tpu_torch.cli``) and the host modules on the
    card, in a temporary directory with the tune cache pointed there: (a) the
    README's quick start ``all <ethanol> 200 1000 5000`` on phase 7c's data
@@ -104,10 +109,12 @@ each a plain assertion that ends the run with a traceback when it fails:
    f32 factor against the f64 system on a probe vector, and one refinement
    iteration and its parts, each timed alone (the matvec, K1 inside it,
    checked against its plain version on the solve's tables, the grid solve
-   and its leaf triangular solves); (b) phase 8c's aspirin task by the grid
-   route, against 8c's CG model; (c) energy constraints on a small ethanol
-   task forced past the dense route by ``max_memory``, against the dense
-   model;
+   and its leaf triangular solves, and two refinement chunks from the CUDA
+   graphs against the eager oracle bit for bit); (b) phase 8c's aspirin task
+   by the grid route, against 8c's CG model; (c) energy constraints on a
+   small ethanol task forced past the dense route by ``max_memory``, against
+   the dense model, and its refinement chunks from the graphs against the
+   eager oracle. 10a must take the eager loop's iterations;
 11. the int8 Ozaki routes (``ops/ozaki.py``; ``Iterative(factor_mode=
    'ozaki')``): (a) ``ozaki._int8_mm`` bit for bit against the float64
    product of the same int8 values at the route's shapes (the slice-stack
@@ -125,10 +132,12 @@ each a plain assertion that ends the run with a traceback when it fails:
    re-measured residual beside 8c's and 8d's; 11c must converge to 8c's MAE
    bound and agree with 8c's model; both 11d runs must take a larger k than
    8d, and the 8-slice run's residual must fall (at lam 1e-10 the 6-slice
-   stack that automatic slices pick keeps it above its start in 60 s).
+   stack that automatic slices pick keeps it above its start in 8d's budget).
    Each times an iteration's parts alone (the matvec at its rung, K1 at the
    same shape, held against its plain version on the solve's tables, and
-   the slice-stack apply);
+   the slice-stack apply); 11c must take the eager loop's iterations, and
+   its CG chunks on the 'ozaki' rung from the graphs equal the eager
+   oracle's bit for bit;
 12. the analytic solver's pair-precision route (``ops/pairchol.py``,
    ``Analytic._solve_pair_pcg``), each run held off the in-place f64 route
    of phase 15 by ``pair_probe`` (``Analytic.est_memory_inplace`` reads as
@@ -146,8 +155,12 @@ each a plain assertion that ends the run with a traceback when it fails:
    tables, the strip solve, its forward and transposed strip sweeps and leaf
    applies, with GB/s); the route's library products against what could
    replace them (an Ozaki trailing update against ``torch.matmul`` in f64;
-   the int8 strip solve against the pair-form one); (b) phase 10c's
-   energy-constrained task on the pair route against the dense model;
+   the int8 strip solve against the pair-form one), and two refinement
+   chunks from the graphs (which capture the strip solve's kernels) against
+   the eager oracle (which replays the strip solve's own graph) bit for bit;
+   12a must take the eager loop's iterations; (b) phase 10c's
+   energy-constrained task on the pair route against the dense model, and
+   its refinement chunks from the graphs against the eager oracle;
 13. the mesh (``sgdml_tpu_torch/parallel``) on a one-rank NCCL world that the
    phase makes, with no launcher, and destroys: (a) phase 7c's ethanol M=1000
    task by ``GDMLTrain(mesh=default_mesh(1))`` against 7c's dense model (1e-7),
@@ -220,9 +233,21 @@ each a plain assertion that ends the run with a traceback when it fails:
    and Langevin (the same seed) from the graphs against the eager loop bit
    for bit, the drift under phase 6's bound, each Langevin program call's
    noise a new draw, the captures' milliseconds and pool, and NVE steps per
-   second eager against graph in turns (3 each).
+   second eager against graph in turns (3 each);
+18. (run after phase 15) the JAX package's compiled CG programs as CUDA
+   graphs (``Iterative`` and ``Analytic``'s refinement on one card replay
+   blocks of ``CG_ACTIVE_READ_ITERS`` iterations; ``utils/graphs.Loop``),
+   each held against the private eager oracle (``_graphs`` False; the
+   mesh's loop): (a) a slice-stack solve forced through growth restarts,
+   residual replacements, a re-seed and a rung climb (EVENTFUL) against
+   the eager oracle's solve: the same decisions, iterations and
+   coefficients bit for bit (a graph kept past its factor or its rung would
+   read freed memory or the wrong kernels); (b) ``Iterative.solve`` at the
+   anchor and at ethanol M=1000, eager against graph in turns (3 each),
+   iterations/s and the captures; (c) the list of every graph-against-eager
+   check of phases 8, 10, 11, 12 and 18.
 
-Phases 4-17 are the main path: each sets the launch counts to 0 before it
+Phases 4-18 are the main path: each sets the launch counts to 0 before it
 drives the path (phases 8-17 before each training run, solve, command,
 program or request) and reads them right after. A launch inside a CUDA
 graph counts at each replay, as the same launch run eagerly would. The last lines are the command's
@@ -315,6 +340,23 @@ GRAPH_TIMED_REPS = 20
 GRAPH_MD = ((1, 200), (100, 2000))
 GRAPH_MD_TURNS = 3
 
+# Phase 18 and the CG graph checks of phases 8, 10, 11 and 12 (the CG chunks
+# as blocks replayed from CUDA graphs): the iteration counts of the eager
+# loop on the card (PERF.md, section 6), which the graphs must repeat (they
+# replay its bits); the chunks of each graph-against-eager check (two, so
+# that the second replays the first's graph throughout); the turns of each
+# arm where they are timed; the eventful solve of tests/test_torch_cg_graphs.py
+# (N, frames, data seed, split seed, M, sig, lam, warm k, first rung, the
+# 8-slice plan's k, and the CG driver's constants that make it stall after
+# every chunk of 5 and re-anchor every chunk); and a line for each check.
+CG_EAGER_ITERS = {'ethanol': 738, 'aspirin': 15, 'slice stack': 13, 'grid': 1736, 'pair': 152}
+GRAPH_CHUNKS, GRAPH_CG_TURNS = 2, 3
+EVENTFUL = (6, 300, 4, 41, 24, 8.0, 1e-10, 3, 'ozaki10', 5)
+EVENTFUL_CONSTANTS = {'CG_STEPS_HIST_LEN': 4, 'EFF_RESTART_THRESH': 100, 'CG_CHUNK_ITERS': 5,
+                      'RESEED_STAGNATION_ITERS': 0, 'RESID_REPLACE_DRIFT': 0.0, 'MAX_NUM_RESTARTS': 10,
+                      'DEEP_STAGNATION_ITERS_FRAC': 0.0}
+GRAPH_CHECKS = []
+
 # Phase 7: the ragged assembly check (N atoms, M points: multiples of no
 # tile); the ethanol recipe of bench.py (N, frames, data seed, split seed,
 # validation points, sig, lam) at its two training sizes; the held-out f64
@@ -344,7 +386,7 @@ CG_DENSE_BOUNDS = (5e-3, 1e-2)
 # budgets in seconds.
 CG_ASPIRIN = (21, 2200, 10, 1, 200, 1000, 15.0, 1e-8)
 CG_ATAT = (60, 3600, 11, 1, 200, 3000, 25.0, 1e-10)
-CG_ASPIRIN_SECONDS, CG_ATAT_SECONDS = 300.0, 60.0
+CG_ASPIRIN_SECONDS, CG_ATAT_SECONDS = 300.0, 50.0
 # 8c's held-out force MAE bound, a share of the mean |F| of those frames
 # (tests/test_torch_iterative.py's bound); the factor columns checked in 8c
 # and 8d against the plain matvec of unit vectors, and their bound (max
@@ -824,7 +866,8 @@ def graph_probe():
 
     def probe(self):
         capture(self)
-        records.append({'s': self.capture_s, 'pool_mb': pool_mb(self.pool)})
+        pool = self.cuda_graph.pool() if self.pool is None else self.pool  # a graph without one has its own
+        records.append({'s': self.capture_s, 'pool_mb': pool_mb(pool)})
 
     graphs_mod.Program._capture = probe
     try:
@@ -1041,6 +1084,230 @@ def phase_graphs(device, atat, card):
 
 def launch_counts():
     return dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
+
+
+def graph_runs(label, runs, start, chunks, turns, card, what):
+    """``chunks`` chunks from ``start`` by ``runs['graph']`` (blocks replayed
+    from CUDA graphs) and ``runs['eager']`` (the eager oracle), each chunk's
+    state bit for bit; the captures' ms and pools; the peak allocated by
+    each arm above what was allocated before it; the seconds of each arm's
+    last chunk (the graph arm's replays only), and with ``turns`` a chunk
+    from ``start`` timed eager against graph in turns. Records and prints a
+    line; returns the numbers."""
+    out, last_s, peak = {}, {}, {}
+    with graph_probe() as caps:
+        for name in ('graph', 'eager'):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            state, states = start, []
+            for _ in range(chunks):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = runs[name](state)
+                torch.cuda.synchronize()
+                last_s[name] = time.perf_counter() - t0
+                states.append(state[0] if isinstance(state[0], tuple) else state)
+            out[name], peak[name] = states, torch.cuda.max_memory_allocated() - base
+    same = all(torch.equal(a, b) for sg, se in zip(out['graph'], out['eager']) for a, b in zip(sg, se))
+    t_e, t_g = in_turns(lambda: runs['eager'](start), lambda: runs['graph'](start), turns) if turns else ([], [])
+    r = {'label': label, 'same': same, 'capture_ms': 1e3 * sum(c['s'] for c in caps),
+         'pool_mb': sum(c['pool_mb'] for c in caps), 'peak_graph_gb': peak['graph'] / 1e9,
+         'peak_eager_gb': peak['eager'] / 1e9, 'last_chunk_s': last_s, 'turns_s': {'eager': t_e, 'graph': t_g}}
+    line = ('%s: %d chunks of %s from the graphs = the eager oracle bit for bit: %s; %d capture(s) %.1f ms, pool %.1f '
+            'MB; peak allocated above the start %.3f GB from the graphs, %.3f GB eager; the last chunk %.4f s from the '
+            'graphs, %.4f s eager%s (%s)' % (
+                label, chunks, what, same, len(caps), r['capture_ms'], r['pool_mb'], r['peak_graph_gb'],
+                r['peak_eager_gb'], last_s['graph'], last_s['eager'],
+                '; a chunk in turns: eager %s s, graphs %s s' % (', '.join('%.4f' % t for t in t_e),
+                                                                ', '.join('%.4f' % t for t in t_g)) if turns else '',
+                card))
+    GRAPH_CHECKS.append(line)
+    print('    ' + line)
+    assert same, label
+    return r
+
+
+def cg_graph_chunks(label, F, tab, sig, lam, n_atoms, v, card, mm='native', turns=0):
+    """Nystrom CG chunks of CG_CHUNK_ITERS from the state at ``v`` (rtol 0:
+    every iteration runs) by ``it_mod._ChunkBlocks`` and by the eager loop
+    ``_pcg_chunk`` (``graph_runs``: x, r, z, p, rz, it, hist and n_bad).
+    Adds ms an iteration of each arm's last chunk, and iterations/s in
+    turns."""
+    iters = it_mod.CG_CHUNK_ITERS
+    z = it_mod._precond(F, v, lam)
+    zero = torch.zeros((), dtype=torch.int64, device=v.device)
+    start = (torch.zeros_like(v), v, z, z, v @ z, zero, torch.zeros(iters, dtype=torch.float64, device=v.device), zero)
+    blocks = it_mod._ChunkBlocks(F, tab, sig, lam, 1.0, 0.0, n=v.shape[0], n_atoms=n_atoms, use_E_cstr=False, mm=mm,
+                                 graph=True)
+    runs = {'graph': lambda s: blocks(s, iters),
+            'eager': lambda s: it_mod._pcg_chunk(s, F, tab, sig, lam, 1.0, 0.0, n_atoms=n_atoms, use_E_cstr=False,
+                                                 chunk_iters=iters, mm=mm)}
+    r = graph_runs('%s CG chunk (%r rung, n=%d)' % (label, mm, v.shape[0]), runs, start, GRAPH_CHUNKS, turns, card,
+                   '%d iterations' % iters)
+    r['eager_iteration_ms'], r['graph_iteration_ms'] = (1e3 * r['last_chunk_s'][k] / iters for k in ('eager', 'graph'))
+    r['iterations_per_s'] = {k: [iters / t for t in ts] for k, ts in r['turns_s'].items()}
+    return r
+
+
+def refine_graph_chunks(label, A_apply, M_apply, y, card):
+    """Refinement chunks of GRID_SPLIT_ITERS from the start state at ``y``
+    (rtol 0) by ``an_mod._CholBlocks`` and by the eager loop ``_pcg_chol``
+    (``graph_runs``: x, r, z, p, rz and it). Adds ms an iteration of each
+    arm's last chunk."""
+    b_norm = float(torch.linalg.vector_norm(y))
+    z0 = M_apply(y)
+    start = ((torch.zeros_like(y), y, z0, z0, y @ z0, None), None)
+    blocks = an_mod._CholBlocks(A_apply, M_apply, b_norm, 0.0, y, True)
+    runs = {'graph': lambda s: blocks(s[0], GRID_SPLIT_ITERS),
+            'eager': lambda s: an_mod._pcg_chol(s[0], A_apply, M_apply, b_norm, 0.0, max_iters=GRID_SPLIT_ITERS)}
+    r = graph_runs('%s refinement chunk (n=%d)' % (label, y.shape[0]), runs, start, GRAPH_CHUNKS, 0, card,
+                   '%d iterations' % GRID_SPLIT_ITERS)
+    r['eager_iteration_ms'], r['graph_iteration_ms'] = (1e3 * r['last_chunk_s'][k] / GRID_SPLIT_ITERS
+                                                        for k in ('eager', 'graph'))
+    return r
+
+
+@contextlib.contextmanager
+def refinement_probe():
+    """Keep ``(A_apply, M_apply, y, graph)`` of each refinement CG run in the
+    block (``an_mod._refinement_cg``)."""
+    runs, refine_cg = [], an_mod._refinement_cg
+
+    def kept(A_apply, M_apply, y, graph=None, timer=None):
+        runs.append((A_apply, M_apply, y, graph))
+        return refine_cg(A_apply, M_apply, y, graph, timer)
+
+    an_mod._refinement_cg = kept
+    try:
+        yield runs
+    finally:
+        an_mod._refinement_cg = refine_cg
+
+
+def capture_line(times):
+    """The CG graphs' capture seconds of a solve (its ``'cg capture'``,
+    which ``'cg'`` includes)."""
+    return 'cg capture %.3f s of cg %.3f s' % (times.get('cg capture', 0.0), times['cg'])
+
+
+def eventful_solve(device, graphs_on):
+    """tests/test_torch_cg_graphs.py's eventful solve (EVENTFUL) on the card:
+    the slice stack from a warm start below its cap, a stall after every
+    chunk and a re-anchored recursion at every chunk, so that it restarts
+    with a larger k, re-seeds, climbs from the last Ozaki rung to 'native'
+    and ends at the deep-stagnation bound. Returns the solve's results and
+    its decisions (log lines)."""
+    n_atoms, n_frames, seed, split, m, sig, lam, warm_k, rung, k_plan = EVENTFUL
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
+    trainer = GDMLTrain(device=device)
+    task = trainer.create_task(ds, m, ds, 8, sig=sig, lam=lam, use_sym=False, rng=np.random.RandomState(split))
+    dim_i = 3 * n_atoms
+    task['inducing_pts_idxs'] = np.random.default_rng(0).choice(m * dim_i, warm_k * dim_i, replace=False)
+    task['solver_mv_mm'] = rung
+    X, Jc, dperms, y, y_std = cg_system(ds, task, n_atoms, device)
+    budget_gb = (1.5e9 + k_plan * 9.0 * m * dim_i * dim_i + 1) / 0.72 / 1024**3
+    saved = {name: getattr(it_mod, name) for name in EVENTFUL_CONSTANTS}
+    logger, records = logging.getLogger(it_mod.__name__), Records()
+    level = logger.level
+    logger.addHandler(records)
+    logger.setLevel(logging.INFO)
+    try:
+        for name, value in EVENTFUL_CONSTANTS.items():
+            setattr(it_mod, name, value)
+        solver = it_mod.Iterative(trainer, max_memory=budget_gb, factor_mode='ozaki', device=device)
+        solver._graphs = graphs_on
+        out = solver.solve(task, X, Jc, dperms, y, y_std, tol=0.0)
+    finally:
+        for name, value in saved.items():
+            setattr(it_mod, name, value)
+        logger.removeHandler(records)
+        logger.setLevel(level)
+    events = ('restarting with k=', 'residual replacement', 'memory cap', 'escalating', 'PSD guard',
+              'deep-stagnation', 'stalled')
+    return out, [msg for msg in records.messages if any(e in msg for e in events)], dict(solver.timer.durations)
+
+
+def solve_turns(label, trainer, task, X, Jc, dperms, y, y_std, card, **kw):
+    """``Iterative.solve`` eager against the graphs, GRAPH_CG_TURNS each in
+    turns: the same iterations and coefficients bit for bit; iterations/s of
+    each (on ``times['cg']``, the graphs' captures included). Returns the
+    graph runs' launch counts."""
+    runs = {False: [], True: []}
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def run(graphs_on):
+        nonlocal counts
+        solver = it_mod.Iterative(trainer, device=trainer.device, **kw)
+        solver._graphs = graphs_on
+        fused_predict.reset_launches()
+        out = solver.solve(task, X, Jc, dperms, y, y_std)
+        if graphs_on:
+            counts = {k: counts[k] + v for k, v in launch_counts().items()}
+        runs[graphs_on].append((out[0], out[2], dict(solver.timer.durations)))
+
+    in_turns(lambda: run(False), lambda: run(True), GRAPH_CG_TURNS)
+    ref = runs[False][0]
+    same = all(r[1] == ref[1] and torch.equal(r[0], ref[0]) for arm in runs.values() for r in arm)
+    rate = {arm: ', '.join('%.1f' % (r[1] / r[2]['cg']) for r in runs[arm]) for arm in runs}
+    line = ('%s: Iterative.solve eager against the graphs in turns (%d each): %d iterations and the coefficients '
+            'bit for bit the same in every run: %s; iterations/s eager %s, graphs %s (their captures %s ms) (%s)' % (
+                label, GRAPH_CG_TURNS, ref[1], same, rate[False], rate[True],
+                ', '.join('%.1f' % (1e3 * r[2].get('cg capture', 0.0)) for r in runs[True]), card))
+    GRAPH_CHECKS.append(line)
+    print('    ' + line)
+    assert same, label
+    return counts
+
+
+def phase_cg_graphs(device, ethanol, card):
+    """18: the JAX package's compiled CG programs as CUDA graphs (the chunks
+    of ``Iterative.solve`` and of the grid and pair routes' refinement,
+    blocks of ``CG_ACTIVE_READ_ITERS`` iterations replayed): (a) the eventful
+    solve (EVENTFUL: growth restarts, residual replacements, a re-seed, a
+    rung climb) from the graphs against the eager oracle, bit for bit (a
+    graph that outlived its factor or its rung would read freed memory or
+    the wrong kernels); (b) whole solves at the anchor (budget 0.1 GB, sig
+    15) and at ethanol M=1000 (8b's task) eager against graph in turns; (c)
+    the chunk checks of phases 8, 10, 11 and 12 (graph against eager, bit for
+    bit) listed. Launches are counted over the graph runs."""
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(launch_counts(), 0)
+    fused_predict.reset_launches()
+    ours, log_g, times_g = eventful_solve(device, True)
+    counts = launch_counts()
+    ref, log_e, _ = eventful_solve(device, False)
+    same = ours[2] == ref[2] and np.array_equal(ours[5], ref[5]) and torch.equal(ours[0], ref[0]) and log_g == log_e
+    kinds = {e: sum(e in msg for msg in log_g) for e in ('restarting with k=', 'residual replacement', 'memory cap',
+                                                         'escalating')}
+    line = ('eventful slice-stack solve (N=%d, M=%d, from k=%d on rung %r): %d iterations, k=%d, decisions %s; from '
+            'the graphs = the eager oracle (iterations, inducing points, decisions word for word, coefficients bit for '
+            'bit): %s; %s (%s)' % (EVENTFUL[0], EVENTFUL[4], EVENTFUL[7], EVENTFUL[8], ours[2],
+                                   len(ours[5]) // (3 * EVENTFUL[0]), kinds, same, capture_line(times_g), card))
+    GRAPH_CHECKS.append(line)
+    print('    ' + line)
+    assert same and kinds['restarting with k='] and kinds['escalating'], (same, kinds)
+
+    n_atoms, n_frames, seed, split, m, n_valid, lam = CG_ANCHOR
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
+    trainer = GDMLTrain(device=device)
+    task = trainer.create_task(ds, m, ds, n_valid, sig=CG_ANCHOR_SIGS[-1], lam=lam, use_sym=False,
+                               rng=np.random.RandomState(split))
+    X, Jc, dperms, y, y_std = cg_system(ds, task, n_atoms, device)
+    part = solve_turns('anchor M=%d sig=%g at 0.1 GB' % (m, CG_ANCHOR_SIGS[-1]), trainer, task, X, Jc, dperms, y,
+                       y_std, card, max_memory=0.1)
+    counts = {k: counts[k] + part[k] for k in counts}
+    ds, task, _ = ethanol
+    X, Jc, dperms, y, y_std = cg_system(ds, task, ds['R'].shape[1], device)
+    part = solve_turns('ethanol M=%d at %g GB' % (task['R_train'].shape[0], CG_ETHANOL_GB), trainer, task, X, Jc,
+                       dperms, y, y_std, card, max_memory=CG_ETHANOL_GB)
+    counts = {k: counts[k] + part[k] for k in counts}
+    assert counts['total'] > 0, counts
+    print('[18 cg graphs] the CG chunks of Iterative.solve and of the grid and pair refinement replayed from CUDA '
+          'graphs = the eager oracle bit for bit in %d checks (phases 8, 10, 11, 12 and 18):\n      %s\n    launches '
+          '%s; %.1f s (%s)' % (len(GRAPH_CHECKS), '\n      '.join(GRAPH_CHECKS), counts, time.perf_counter() - t0,
+                               card))
+    return counts
 
 
 def golden_dataset():
@@ -1268,13 +1535,15 @@ def check_columns(label, r, sig, n_atoms):
     assert err <= CG_COLUMN_TOL, (label, err)
 
 
-def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card):
+def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card, turns=0):
     """Device ms of one CG iteration and of its parts at a solve's shapes,
     with the factor rebuilt from the solve's inducing columns: the whole
-    iteration (a chunk of CG_CHUNK_ITERS over its count), the matvec, K1
-    inside it (checked against its plain version on one matvec's inputs,
-    then timed in turns with it), and the Woodbury apply.
-    Returns K1's shape, times, bound and error against the plain version."""
+    iteration (an eager chunk of CG_CHUNK_ITERS over its count), the matvec,
+    K1 inside it (checked against its plain version on one matvec's inputs,
+    then timed in turns with it), and the Woodbury apply; then the chunk
+    from the CUDA graphs against the eager oracle (``cg_graph_chunks``, with
+    ``turns``). Returns K1's shape, times, bound and error against the plain
+    version, and the graph check's numbers."""
     F, _ = it_mod.Iterative(device=X.device)._build_factor(X, Jc, dperms, sig, lam, idxs, n_atoms, False)
     tab = it_mod.matvec_tables(X, Jc, dperms)
     n = F.shape[1]
@@ -1299,6 +1568,7 @@ def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card):
     it_ms = chunk_ms / it_mod.CG_CHUNK_ITERS
     b_ms, b_by = bound(B, T, D, 8)
     f_bytes = F.numel() * 8
+    graph = cg_graph_chunks(label, F, tab, sig, lam, n_atoms, v, card, turns=turns)
     print('    %s iteration split (k=%d columns, n=%d, factor %.2f GB): %.3f ms an iteration = matvec %.3f '
           '(K1 %.3f, %.0f%% of the iteration) + Woodbury apply %.3f (%.0f%%; reads the factor twice, %.0f GB/s) '
           '+ the rest %.3f (the parts timed alone); K1 at B=%d T=%d D=%d f64 %.3f ms vs plain %.3f ms, bound %.4f ms by %s (%.1f%%), '
@@ -1308,7 +1578,13 @@ def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card):
               plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(T, D), card))
     return {'label': label, 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
             'bound_by': b_by, 'max_abs_err': max_abs, 'iteration_ms': it_ms, 'matvec_ms': mv_ms,
-            'apply_ms': apply_ms}
+            'apply_ms': apply_ms, 'graph': graph_entry(graph)}
+
+
+def graph_entry(r):
+    """A graph check's numbers for the kernels line."""
+    keys = ('capture_ms', 'pool_mb', 'peak_graph_gb', 'peak_eager_gb', 'eager_iteration_ms', 'graph_iteration_ms')
+    return dict({k: r[k] for k in keys}, iterations_per_s=r.get('iterations_per_s'))
 
 
 def cg_launches(iters):
@@ -1327,7 +1603,7 @@ def phase_cg_anchor(device, card):
                                 rng=np.random.RandomState(split))
     X, Jc, dperms, y, y_std = cg_system(ds, task0, n_atoms, device)
     counts = dict.fromkeys(launch_counts(), 0)
-    first = None
+    first = {}
     for gb, refs in CG_ANCHOR_JAX.items():
         for sig, ref in zip(CG_ANCHOR_SIGS, refs):
             solver = it_mod.Iterative(trainer, max_memory=gb)
@@ -1335,17 +1611,25 @@ def phase_cg_anchor(device, card):
             _, _, iters, resid, _, idxs, conv = solver.solve(dict(task0, sig=sig), X, Jc, dperms, y, y_std)
             during, per_it = cg_launches(iters)
             counts = {k: counts[k] + during[k] for k in counts}
-            first = first or (sig, idxs)
+            first.setdefault(gb, (sig, idxs))
             t = solver.timer.durations
             ok = abs(iters - ref) <= max(CG_ANCHOR_TOL[0] * ref, CG_ANCHOR_TOL[1])
             print('    anchor M=%d budget %.2f GB sig=%4.1f: k=%d, %d iterations (JAX CPU f64 %d, %+.1f%%), '
-                  'converged %s, resid %.3e; %.1f iterations/s (cg %.3f s, factor %.3f s, leverage scores '
+                  'converged %s, resid %.3e; %.1f iterations/s (%s, factor %.3f s, leverage scores '
                   '%.3f s); K1 %.2f launches an iteration %s (%s)' % (
                       m, gb, sig, len(idxs) // (3 * n_atoms), iters, ref, 100 * (iters - ref) / ref, conv,
-                      resid, iters / t['cg'], t['cg'], t['factor'], t['leverage scores'], per_it,
+                      resid, iters / t['cg'], capture_line(t), t['factor'], t['leverage scores'], per_it,
                       during, card))
             assert conv and ok, (gb, sig, iters, ref)
-    split = cg_split('anchor', X, Jc, dperms, first[0], lam, n_atoms, first[1], card)
+    sig, idxs = first[0.1]
+    split = cg_split('anchor', X, Jc, dperms, sig, lam, n_atoms, idxs, card, turns=GRAPH_CG_TURNS)
+    # The other budget's factor (k=104) through the graphs, against the eager oracle.
+    sig, idxs = first[0.75]
+    F, _ = it_mod.Iterative(device=X.device)._build_factor(X, Jc, dperms, sig, lam, idxs, n_atoms, False)
+    tab = it_mod.matvec_tables(X, Jc, dperms)
+    v = torch.as_tensor(np.random.default_rng(0).normal(size=F.shape[1]), device=X.device)
+    split['graph_k104'] = graph_entry(cg_graph_chunks('anchor k=%d' % (len(idxs) // (3 * n_atoms)), F, tab, sig, lam,
+                                                      n_atoms, v, card, turns=GRAPH_CG_TURNS))
     return counts, split, None
 
 
@@ -1366,19 +1650,22 @@ def phase_cg_dense(device, ethanol, card):
     e_diff = float(np.abs((Ec - Ec.mean()) - (Ea - Ea.mean())).mean())
     conv = model['solver_resid'] <= model['solver_tol'] * model['norm_y_train']
     t = trainer.times
-    print('    ethanol M=%d by CG at %.1f GB: k=%d of %d points, %d iterations, converged %s; train() %.3f s '
-          '(leverage scores %.3f, factor %.3f, cg %.3f: %.1f iterations/s); against the dense model on %d '
+    print('    ethanol M=%d by CG at %.1f GB: k=%d of %d points, %d iterations (the eager loop: %d), converged %s; '
+          'train() %.3f s (leverage scores %.3f, factor %.3f, cg %.3f: %.1f iterations/s; %s); against the dense '
+          'model on %d '
           'held-out frames: mean |dF| / mean |F| %.2e (bound %.0e), centered |dE| %.2e (bound %.0e); CG force '
           'MAE %.6f; K1 %.2f launches an iteration %s (%s)' % (
-              len(task['idxs_train']), CG_ETHANOL_GB, k, len(task['idxs_train']), model['solver_iters'], conv,
-              t['total'], t['leverage scores'], t['factor'], t['cg'], model['solver_iters'] / t['cg'], len(R),
+              len(task['idxs_train']), CG_ETHANOL_GB, k, len(task['idxs_train']), model['solver_iters'],
+              CG_EAGER_ITERS['ethanol'], conv, t['total'], t['leverage scores'], t['factor'], t['cg'],
+              model['solver_iters'] / t['cg'], capture_line(t), len(R),
               f_rel, CG_DENSE_BOUNDS[0], e_diff, CG_DENSE_BOUNDS[1], np.abs(Fc - F_ref).mean(), per_it,
               during, card))
     assert conv and k < len(task['idxs_train']) // 4, (conv, k)
+    assert model['solver_iters'] == CG_EAGER_ITERS['ethanol'], model['solver_iters']
     assert f_rel < CG_DENSE_BOUNDS[0] and e_diff < CG_DENSE_BOUNDS[1], (f_rel, e_diff)
     X, Jc, dperms, _, _ = cg_system(ds, task, n_atoms, device)
     split = cg_split('ethanol', X, Jc, dperms, float(task['sig']), float(task['lam']), n_atoms,
-                     model['inducing_pts_idxs'], card)
+                     model['inducing_pts_idxs'], card, turns=GRAPH_CG_TURNS)
     split['solver_iters'] = int(model['solver_iters'])
     return during, split, None
 
@@ -1399,7 +1686,8 @@ def cg_recipe(device, recipe, max_seconds):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_predict.reset_launches()
-    model = trainer.train(task, solver='cg', solver_max_seconds=max_seconds)
+    with graph_probe() as caps:
+        model = trainer.train(task, solver='cg', solver_max_seconds=max_seconds)
     during, per_it = cg_launches(model['solver_iters'])
     peak = torch.cuda.max_memory_allocated()
     k = len(model['inducing_pts_idxs']) // (3 * n_atoms)
@@ -1408,7 +1696,14 @@ def cg_recipe(device, recipe, max_seconds):
     resid = true_resid(model, X, Jc, dperms, y, n_atoms)
     return dict(ds=ds, task=task, model=model, times=trainer.times, peak=peak, during=during, per_it=per_it,
                 k=k, cap=cap, budget=budget, need=need, X=X, Jc=Jc, dperms=dperms, y=y, resid=resid,
-                t_data=t_data, n=m * 3 * n_atoms)
+                t_data=t_data, n=m * 3 * n_atoms, graphs=graphs_line(caps))
+
+
+def graphs_line(caps):
+    """The CUDA graphs a run captured (``graph_probe``'s records)."""
+    return '%d CUDA graph(s) captured in %s ms, pools %s MB' % (
+        len(caps), '/'.join('%.1f' % (1e3 * c['s']) for c in caps) or '-',
+        '/'.join('%.1f' % c['pool_mb'] for c in caps) or '-')
 
 
 def phase_cg_aspirin(device, card):
@@ -1423,16 +1718,19 @@ def phase_cg_aspirin(device, card):
     mae, scale = float(np.abs(F - F_ref).mean()), float(np.abs(F_ref).mean())
     drift = abs(r['resid'] - model['solver_resid']) / r['resid']
     print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.1f GB): budget %.1f GB, k=%d (cap %d), '
-          '%d iterations, converged %s, recorded resid %.3e, re-measured by the plain matvec %.3e (drift %.2e; '
-          'target %.3e); train() %.2f s = descriptors %.3f + leverage scores %.2f + factor %.2f + cg %.2f (%.1f '
-          'iterations/s) + model %.3f + integration constant %.3f; data %.1f s; peak allocated %.2f GB; held-out '
+          '%d iterations (the eager loop: %d), converged %s, recorded resid %.3e, re-measured by the plain matvec %.3e '
+          '(drift %.2e; target %.3e); train() %.2f s = descriptors %.3f + leverage scores %.2f + factor %.2f + cg '
+          '%.2f (%.1f iterations/s; %s; %s) + model %.3f + integration constant %.3f; data %.1f s; peak allocated '
+          '%.2f GB; held-out '
           'force MAE %.5f (force scale %.4f, bound %.4f) on %d frames; K1 %.2f launches an iteration %s (%s)' % (
               n_atoms, r['task']['R_train'].shape[0], sig, lam, r['n'], r['need'] / 1e9, r['budget'] / 1e9,
-              r['k'], r['cap'], model['solver_iters'], conv, model['solver_resid'], r['resid'], drift, tol_b,
-              t['total'], t['descriptors'], t['leverage scores'], t['factor'], t['cg'],
-              model['solver_iters'] / t['cg'], t['model creation'], t['integration constant'], r['t_data'],
+              r['k'], r['cap'], model['solver_iters'], CG_EAGER_ITERS['aspirin'], conv, model['solver_resid'],
+              r['resid'], drift, tol_b, t['total'], t['descriptors'], t['leverage scores'], t['factor'], t['cg'],
+              model['solver_iters'] / t['cg'], capture_line(t), r['graphs'], t['model creation'],
+              t['integration constant'], r['t_data'],
               r['peak'] / 1e9, mae, scale, CG_MAE_SHARE * scale, len(R), r['per_it'], r['during'], card))
     assert r['k'] == r['cap'] and conv and r['resid'] <= tol_b, (r['k'], r['cap'], conv, r['resid'], tol_b)
+    assert model['solver_iters'] == CG_EAGER_ITERS['aspirin'], model['solver_iters']
     assert drift <= it_mod.RESID_REPLACE_DRIFT and mae < CG_MAE_SHARE * scale, (drift, mae, scale)
     check_columns('aspirin', r, sig, n_atoms)
     split = cg_split('aspirin', r['X'], r['Jc'], r['dperms'], sig, lam, n_atoms, model['inducing_pts_idxs'], card)
@@ -1448,12 +1746,12 @@ def phase_cg_atat(device, card):
     drift = abs(r['resid'] - model['solver_resid']) / r['resid']
     print('    AT-AT N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.0f GB): budget %.1f GB, k=%d (cap %d), '
           'factor %.2f s, leverage scores %.2f s, %d iterations in %.1f s of CG (%.2f iterations/s, wall budget '
-          '%.0f s); residual %.4e -> %.4e (target %.3e), re-measured by the plain matvec %.4e (drift %.2e, bound '
-          '%.0e); train() %.1f '
-          's; data %.1f s; peak allocated %.2f GB; K1 %.2f launches an iteration %s (%s)' % (
+          '%.0f s; %s; %s); residual %.4e -> %.4e (target %.3e), re-measured by the plain matvec %.4e (drift %.2e, '
+          'bound %.0e); train() %.1f s; data %.1f s; peak allocated %.2f GB; K1 %.2f launches an iteration %s (%s)' % (
               n_atoms, r['task']['R_train'].shape[0], sig, lam, r['n'], r['need'] / 1e9, r['budget'] / 1e9,
               r['k'], r['cap'], t['factor'], t['leverage scores'], model['solver_iters'], t['cg'],
-              model['solver_iters'] / t['cg'], CG_ATAT_SECONDS, model['norm_y_train'], model['solver_resid'],
+              model['solver_iters'] / t['cg'], CG_ATAT_SECONDS, capture_line(t), r['graphs'], model['norm_y_train'],
+              model['solver_resid'],
               model['solver_tol'] * model['norm_y_train'], r['resid'], drift, it_mod.RESID_REPLACE_DRIFT,
               t['total'], r['t_data'], r['peak'] / 1e9, r['per_it'], r['during'], card))
     assert r['k'] == r['cap'], (r['k'], r['cap'])
@@ -1546,13 +1844,14 @@ def grid_train(trainer, task, solver=None):
     """``trainer.train(task, solver)`` held on the grid route
     (``grid_probe``), with its peak memory above what was allocated before
     it, its K1 launches (from 0) and the probe."""
-    with grid_probe() as probe:
+    with grid_probe() as probe, graph_probe() as caps, refinement_probe() as runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         fused_predict.reset_launches()
         model = trainer.train(task, solver=solver)
         during = launch_counts()
+    probe['graphs'], probe['refine'] = graphs_line(caps), runs[-1]
     assert model['solver_name'] == 'analytic' and probe['solver'] is not None and probe['factor'] is not None
     assert probe['solver'].route == 'grid', probe['solver'].route
     return model, during, torch.cuda.max_memory_allocated() - base, probe
@@ -1613,6 +1912,7 @@ def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
     chunk = lambda: an_mod._pcg_chol(state, A_apply, M_apply, 1.0, 0.0, max_iters=GRID_SPLIT_ITERS)  # noqa: E731
     chunk()
     it_ms = cuda_ms(chunk, 1) / GRID_SPLIT_ITERS
+    graph = refine_graph_chunks(label, A_apply, M_apply, v, card)
     f_bytes = sum(blk.numel() * blk.element_size() for row in L32 for blk in row)
     print('    %s refinement iteration (grid %d x %d blocks of %d, factor %.2f GB f32): %.3f ms in a chunk of %d; '
           'its parts timed alone: matvec %.3f (K1 %.3f), grid solve %.3f (two sweeps read the factor: %.0f GB/s; '
@@ -1623,7 +1923,7 @@ def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
               k1['D'], k1['ms'], k1['plain_ms'], k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'],
               fused_predict.route(k1['T'], k1['D']), card))
     return dict(k1, label=label, iteration_ms=it_ms, matvec_ms=mv_ms, apply_ms=solve_ms, leaf_solves_ms=leaf_ms,
-                solver_iters=int(iters))
+                solver_iters=int(iters), graph=graph_entry(graph))
 
 
 def factor_llt(block, k, b, v):
@@ -1724,7 +2024,7 @@ def phase_grid_aspirin(device, card):
     n_pad, _, t_fac = probe['chol'][-1]
     print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; dense needs %.1f GB, the grid %.1f GB, the pair route %.1f '
           'GB): solver=None took the analytic grid route (held there by grid_probe; its pair region: %s); lmax %.6e, '
-          'rungs lam\'/info %s, lam\' %.6e; %d refinement iterations; relative '
+          'rungs lam\'/info %s, lam\' %.6e; %d refinement iterations (the eager loop: %d; %s; %s); relative '
           'residual re-measured by the plain matvec %.3e (bound %.0e); train() %.2f s = descriptors %.3f + lmax %.3f + '
           'assembly %.2f + factor %.2f (%d rung(s); the one that held %.3f s, %.1f TFLOP/s on n^3/3 at n=%d) + '
           'refinement CG %.2f (%.1f iterations/s) + model %.3f + integration constant %.3f; data %.1f s; peak '
@@ -1732,12 +2032,14 @@ def phase_grid_aspirin(device, card):
           'scale %.4f, bound %.4f); K1 %.2f launches an iteration %s (%s)' % (
               n_atoms, m, sig, lam, m * 3 * n_atoms, need / 1e9, grid_need / 1e9,
               Analytic.est_memory_pair(m, n_atoms) / 1e9, pair_region, solver.lmax,
-              [(float('%.6g' % lp), info) for lp, info in solver.rungs], solver.lam_p_used, solver.pcg_iters, rel,
-              GRID_RESID, t['total'], t['descriptors'], t['lmax'], t['assembly'], t['factor'], len(solver.rungs),
+              [(float('%.6g' % lp), info) for lp, info in solver.rungs], solver.lam_p_used, solver.pcg_iters,
+              CG_EAGER_ITERS['grid'], capture_line(t), probe['graphs'], rel, GRID_RESID, t['total'],
+              t['descriptors'], t['lmax'], t['assembly'], t['factor'], len(solver.rungs),
               t_fac, n_pad**3 / 3 / t_fac * 1e-12, n_pad, t['cg'], solver.pcg_iters / t['cg'], t['model creation'],
               t['integration constant'], t_data, peak / 1e9, grid_need / 1e9, mae, len(R), scale,
               CG_MAE_SHARE * scale, during['total'] / max(solver.pcg_iters, 1), during, card))
     assert pair_region and 'lmax' in t and rel <= GRID_RESID and mae < CG_MAE_SHARE * scale, (pair_region, rel, mae)
+    assert solver.pcg_iters == CG_EAGER_ITERS['grid'], solver.pcg_iters
     L32, lam_p = probe['factor'], solver.lam_p_used
     err, err_shift = grid_factor_error(L32, X, Jc, dperms, sig, lam_p, n_atoms)
     tol = math.sqrt(n_pad) * float(torch.finfo(torch.float32).eps)
@@ -1903,6 +2205,7 @@ def phase_grid_ecstr(device, ethanol, card):
     assert Analytic.est_memory_grid(m, n_atoms) < gb * 1024**3 < Analytic.est_memory_requirement(m, n_atoms, True)
     trainer = GDMLTrain(max_memory=gb, device=device)
     model, during, _, probe = grid_train(trainer, task)
+    refine_graph_chunks('ethanol E_cstr grid', *probe['refine'][:3], card)
     dense = GDMLTrain(device=device).train(task)
     R = task['R_train'].reshape(m, -1)
     Eg, Fg = GDMLPredict(model, device=device).predict(R)
@@ -2399,7 +2702,7 @@ def ozaki_recipe(device, r, max_seconds, slices=None):
     budget = memory_budget(device)
     trainer = GDMLTrain(max_memory=budget / 1024**3, device=device)
     n_atoms = r['task']['R_train'].shape[1]
-    with ozaki_factor() as (made, records):
+    with ozaki_factor() as (made, records), graph_probe() as caps:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fused_predict.reset_launches()
@@ -2413,15 +2716,16 @@ def ozaki_recipe(device, r, max_seconds, slices=None):
                 k=len(model['inducing_pts_idxs']) // (3 * n_atoms), ns=solver._ns(), factor=solver.factor,
                 resid=true_resid(model, r['X'], r['Jc'], r['dperms'], r['y'], n_atoms),
                 capped=[m for m in records.messages if 'capped at' in m], rung=(rungs or ['ozaki'])[-1],
-                sweeps=dict(zip(('W', 'Gram', 'F', 'renorm'), build[-4:])), stack_gb=build[3])
+                sweeps=dict(zip(('W', 'Gram', 'F', 'renorm'), build[-4:])), stack_gb=build[3], graphs=graphs_line(caps))
 
 
-def ozaki_split(label, r, o, card):
+def ozaki_split(label, r, o, card, chunks=False):
     """Device ms of one iteration's parts at an ``ozaki_recipe`` run's shapes,
     each alone: the matvec at the rung it reached, K1 at the same shape
     (held against its plain version on one matvec's inputs, then timed in
-    turns with it), and the slice-stack apply. Returns K1's entry for the
-    kernels line."""
+    turns with it), and the slice-stack apply; with ``chunks`` the CG chunk
+    from the CUDA graphs against the eager oracle at that rung
+    (``cg_graph_chunks``). Returns K1's entry for the kernels line."""
     X, Jc, dperms = r['X'], r['Jc'], r['dperms']
     sig, lam = float(r['task']['sig']), float(r['task']['lam'])
     n_atoms = r['task']['R_train'].shape[1]
@@ -2447,20 +2751,24 @@ def ozaki_split(label, r, o, card):
           'stack twice, %.0f GB/s) (%s)' % (
               label, o['k'], o['ns'], s_bytes / 1e9, o['rung'], mv_ms, B, T, D, k1_ms, plain_ms, b_ms, b_by,
               100 * b_ms / k1_ms, apply_ms, 2 * s_bytes / apply_ms * 1e-6, card))
-    return {'label': label + ' (slice stack)', 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms,
-            'bound_ms': b_ms, 'bound_by': b_by, 'max_abs_err': max_abs, 'k': o['k'], 'slices': o['ns'],
-            'matvec_rung': o['rung'], 'matvec_ms': mv_ms, 'apply_ms': apply_ms}
+    entry = {'label': label + ' (slice stack)', 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms,
+             'bound_ms': b_ms, 'bound_by': b_by, 'max_abs_err': max_abs, 'k': o['k'], 'slices': o['ns'],
+             'matvec_rung': o['rung'], 'matvec_ms': mv_ms, 'apply_ms': apply_ms}
+    if chunks:
+        entry['graph'] = graph_entry(cg_graph_chunks(label + ' slice stack', F, tab, sig, lam, n_atoms, v, card,
+                                                     mm=o['rung']))
+    return entry
 
 
 def ozaki_line(label, o):
     t = o['times']
     return ('%s by the slice stack: budget %.1f GB, %d slices, k=%d%s, stack %.2f GB, factor %.2f s (sweeps of the '
             'factor\'s build: W %.2f, Gram %.2f, F %.2f, renormalization %.2f s), leverage scores %.2f s, %d iterations '
-            'in %.2f s of CG (%.2f iterations/s), rung reached %r, train() %.2f s, peak allocated %.2f GB' % (
+            'in %.2f s of CG (%.2f iterations/s; %s; %s), rung reached %r, train() %.2f s, peak allocated %.2f GB' % (
                 label, o['budget'] / 1e9, o['ns'], o['k'], ' (%s)' % '; '.join(o['capped']) if o['capped'] else '',
                 o['stack_gb'], t['factor'], *(o['sweeps'][key] for key in ('W', 'Gram', 'F', 'renorm')),
                 t['leverage scores'], o['model']['solver_iters'], t['cg'], o['model']['solver_iters'] / t['cg'],
-                o['rung'], t['total'], o['peak'] / 1e9))
+                capture_line(t), o['graphs'], o['rung'], t['total'], o['peak'] / 1e9))
 
 
 def phase_ozaki_aspirin(device, aspirin_cg, card):
@@ -2486,7 +2794,8 @@ def phase_ozaki_aspirin(device, aspirin_cg, card):
               r['times']['total'], r['peak'] / 1e9, o['per_it'], o['during'], card))
     assert conv and o['resid'] <= tol_b and drift <= it_mod.RESID_REPLACE_DRIFT, (conv, o['resid'], tol_b, drift)
     assert mae < CG_MAE_SHARE * scale and f_rel < CG_DENSE_BOUNDS[0], (mae, scale, f_rel)
-    split = ozaki_split('aspirin', r, o, card)
+    assert model['solver_iters'] == CG_EAGER_ITERS['slice stack'], model['solver_iters']
+    split = ozaki_split('aspirin', r, o, card, chunks=True)
     split['solver_iters'] = int(model['solver_iters'])
     RESULTS['11c'] = {key: o[key] for key in ('budget', 'k', 'ns', 'stack_gb', 'times', 'peak', 'sweeps', 'rung')}
     RESULTS['11c'].update(iters=int(model['solver_iters']), apply_ms=split['apply_ms'])
@@ -2627,13 +2936,14 @@ def pair_train(trainer, task, solver=None):
     not fall back, with its peak memory above what was allocated before it,
     its K1 launches (from 0) and the probe."""
     n = task['R_train'].shape[0] * 3 * task['R_train'].shape[1]
-    with pair_probe(n) as probe:
+    with pair_probe(n) as probe, graph_probe() as caps, refinement_probe() as runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         fused_predict.reset_launches()
         model = trainer.train(task, solver=solver)
         during = launch_counts()
+    probe['graphs'], probe['refine'] = graphs_line(caps), runs[-1]
     fell_back = [msg for msg in probe['log'].messages if 'falling back' in msg]
     assert model['solver_name'] == 'analytic' and probe['solver'] is not None and not fell_back, fell_back
     assert probe['solver'].route == 'pair' and probe['llt'] is not None, probe['solver'].route
@@ -2696,6 +3006,9 @@ def pair_split(label, sstrips, leaves, X, Jc, dperms, sig, lam, n_atoms, iters, 
     chunk = lambda: an_mod._pcg_chol(state, A_apply, M_apply, 1.0, 0.0, max_iters=GRID_SPLIT_ITERS)  # noqa: E731
     chunk()
     it_ms = cuda_ms(chunk, 1) / GRID_SPLIT_ITERS
+    # The refinement's block graphs capture the strip solve's kernels; the
+    # eager oracle and the blocks' first, eager call replay its own graph.
+    graph = refine_graph_chunks(label, A_apply, M_apply, v, card)
     s_bytes = sum(st.slices.numel() for st in sstrips if st is not None)
     l_bytes = sum(d.slices.numel() for d in leaves)
     floor = (2 * s_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3
@@ -2713,7 +3026,8 @@ def pair_split(label, sstrips, leaves, X, Jc, dperms, sig, lam, n_atoms, iters, 
               card))
     return dict(k1, label=label, iteration_ms=it_ms, matvec_ms=mv_ms, apply_ms=solve_ms, eager_apply_ms=eager_ms,
                 host_apply_ms=host_graph_ms, host_eager_apply_ms=host_eager_ms, forward_ms=ms['forward'],
-                transposed_ms=ms['transposed'], leaves_ms=ms['leaves'], solver_iters=int(iters))
+                transposed_ms=ms['transposed'], leaves_ms=ms['leaves'], solver_iters=int(iters),
+                graph=graph_entry(graph))
 
 
 def strip_to_pair(st, b):
@@ -2815,7 +3129,8 @@ def phase_pair_aspirin(device, grid, card):
     print('    aspirin N=%d M=%d sig=%g lam=%g (%d unknowns; est_memory_pair %.2f GB): solver=None, held off the '
           'in-place f64 route, took the pair route; '
           'lmax %.6e, rungs lam\'/info %s, lam\' %.6e (the grid route in 10a: %.6e, %.0fx); %d refinement '
-          'iterations (10a: %d); relative residual re-measured by the plain matvec %.3e (bound %.0e); train() %.2f s '
+          'iterations (10a: %d; the eager loop: %d; %s; %s); relative residual re-measured by the plain matvec '
+          '%.3e (bound %.0e); train() %.2f s '
           '= descriptors %.3f + lmax %.3f + assembly %.2f + factor %.2f + repack %.2f + refinement CG %.2f (%.1f '
           'iterations/s) + model %.3f + integration constant %.3f (10a: train() %.2f s, CG %.2f s); the factor that '
           'held %.3f s: its %d trailing updates %.3f s, %d panel refinements %.3f s, %d leaf Cholesky %.3f s (device '
@@ -2824,7 +3139,8 @@ def phase_pair_aspirin(device, grid, card):
           'K1 %.2f launches an iteration %s (%s)' % (
               n_atoms, m, sig, lam, m * 3 * n_atoms, pair_need / 1e9, solver.lmax,
               [(float('%.6g' % lp), info) for lp, info in solver.rungs], solver.lam_p_used, grid['lam_p'],
-              grid['lam_p'] / solver.lam_p_used, solver.pcg_iters, grid['iters'], rel, GRID_RESID, t['total'],
+              grid['lam_p'] / solver.lam_p_used, solver.pcg_iters, grid['iters'], CG_EAGER_ITERS['pair'],
+              capture_line(t), probe['graphs'], rel, GRID_RESID, t['total'],
               t['descriptors'], t['lmax'], t['assembly'], t['factor'], t['repack'], t['cg'],
               solver.pcg_iters / t['cg'], t['model creation'], t['integration constant'], grid['times']['total'],
               grid['times']['cg'], t_fac, steps['update'][1], steps['update'][0], steps['panel'][1],
@@ -2834,6 +3150,7 @@ def phase_pair_aspirin(device, grid, card):
     assert rel <= GRID_RESID and mae < CG_MAE_SHARE * scale and peak <= pair_need, (rel, mae, peak, pair_need)
     assert solver.lam_p_used < grid['lam_p'] and solver.pcg_iters < grid['iters'], (
         solver.lam_p_used, grid['lam_p'], solver.pcg_iters, grid['iters'])
+    assert solver.pcg_iters == CG_EAGER_ITERS['pair'], solver.pcg_iters
     err, err_shift = factor_error(probe['llt'], probe['v'], X, Jc, dperms, sig, solver.lam_p_used, n_atoms)
     print('    the kept pair factor on a probe vector: |L L^T v - (A + lam\' I) v| / |(A + lam\' I) v| %.3e, %.3e '
           'lam\' |v| (bound %.2f; the f32 grid factor in 10a: %.3f of its lam\' |v|) (%s)' % (
@@ -2858,6 +3175,7 @@ def phase_pair_ecstr(device, ethanol, card):
     assert Analytic.est_memory_pair(m, n_atoms) <= gb * 1024**3 < Analytic.est_memory_requirement(m, n_atoms, True)
     trainer = GDMLTrain(max_memory=gb, device=device)
     model, during, _, probe = pair_train(trainer, task)
+    refine_graph_chunks('ethanol E_cstr pair', *probe['refine'][:3], card)
     dense = GDMLTrain(device=device).train(task)
     R = task['R_train'].reshape(m, -1)
     Ep, Fp = GDMLPredict(model, device=device).predict(R)
@@ -3823,12 +4141,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     inplace_counts = phase_inplace(device, grid, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cg_graph_counts = phase_cg_graphs(device, ethanol, smi)
     del grid, ethanol, atat
     gc.collect()
     torch.cuda.empty_cache()
     bench_counts = phase_bench(device, smi)
     main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts,
-                  routes_counts, inplace_counts, bench_counts]
+                  routes_counts, inplace_counts, cg_graph_counts, bench_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
     assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
     ms, plain_ms = times['at-at', torch.float64]

@@ -158,6 +158,14 @@ def _ranks(n):
     return 'one rank' if n == 1 else '%d ranks' % n
 
 
+def _cg_chunks(device, mesh=False):
+    """How a mode's CG chunks run, for its ``config``: replayed from CUDA
+    graphs on one card; the eager loop on a mesh and on the CPU."""
+    if mesh:
+        return 'eager CG chunks on the mesh'
+    return 'CG chunks replayed from CUDA graphs' if torch.device(device).type == 'cuda' else 'eager CG chunks'
+
+
 def _cg_line(config, t_train, model, mae, scale, **extra):
     return dict({'config': config, 'train_s': t_train, 'cg_iters': int(model.get('solver_iters', -1))}, **extra,
                 converged=_converged(model), force_mae=mae, force_scale=scale)
@@ -167,7 +175,8 @@ def bench_aspirin(device):
     ds = generate_md_dataset(n_atoms=21, n_frames=2200, seed=10)
     task, model, t_train = _train(ds, 1000, sig=15.0, solver='cg', lam=1e-8, max_seconds=1200, device=device)
     mae, scale = _force_mae(ds, task, model, device=device)
-    return _cg_line('aspirin-sized N=21 M=1000 iterative (Nystrom-pCG)', t_train, model, mae, scale)
+    return _cg_line('aspirin-sized N=21 M=1000 iterative (Nystrom-pCG, %s)' % _cg_chunks(device), t_train, model, mae,
+                    scale)
 
 
 def bench_atat(device):
@@ -177,8 +186,8 @@ def bench_atat(device):
     ds = generate_md_dataset(n_atoms=60, n_frames=1400, seed=11)
     task, model, t_train = _train(ds, 600, sig=25.0, solver='cg', max_seconds=max_seconds, device=device)
     mae, scale = _force_mae(ds, task, model, n_test=300, device=device)
-    return _cg_line('AT-AT-sized N=60 M=600 iterative (Nystrom-pCG)', t_train, model, mae, scale,
-                    max_seconds=max_seconds)
+    return _cg_line('AT-AT-sized N=60 M=600 iterative (Nystrom-pCG, %s)' % _cg_chunks(device), t_train, model, mae,
+                    scale, max_seconds=max_seconds)
 
 
 def bench_atat3000(device):
@@ -193,8 +202,8 @@ def bench_atat3000(device):
     task, model, t_train = _train(ds, m_train, sig=25.0, solver='cg', max_seconds=max_seconds, ckpt=ckpt,
                                   device=device)
     mae, scale = _force_mae(ds, task, model, n_test=300, device=device)
-    return _cg_line('MD22 AT-AT-sized N=60 M=%d iterative (Nystrom-pCG)' % m_train, t_train, model, mae, scale,
-                    max_seconds=max_seconds)
+    return _cg_line('MD22 AT-AT-sized N=60 M=%d iterative (Nystrom-pCG, %s)' % (m_train, _cg_chunks(device)), t_train,
+                    model, mae, scale, max_seconds=max_seconds)
 
 
 def bench_aspirin_analytic(device):
@@ -205,7 +214,9 @@ def bench_aspirin_analytic(device):
         task, model, t_train = _train(ds, 1000, sig=20.0, solver='analytic', device=device)
     mae, scale = _force_mae(ds, task, model, device=device)
     return {
-        'config': 'aspirin-sized N=21 M=1000 analytic (%s route)' % solvers[-1].route,
+        'config': 'aspirin-sized N=21 M=1000 analytic (%s route%s)' % (
+            solvers[-1].route,
+            ', refinement %s' % _cg_chunks(device) if solvers[-1].route in ('grid', 'pair') else ''),
         'train_s': t_train,
         'force_mae': mae,
         'force_scale': scale,
@@ -231,8 +242,8 @@ def bench_atat3000_mesh(device):
         task, model, t_train = _train(ds, m_train, sig=25.0, solver='cg', max_seconds=max_seconds, ckpt=ckpt,
                                       trainer=trainer)
         mae, scale = _force_mae(ds, task, model, n_test=300, device=trainer.device)
-    return _cg_line('MD22 AT-AT-sized N=60 M=%d iterative, mesh of %s (sharded Nystrom factor)'
-                    % (m_train, _ranks(n_dev)), t_train, model, mae, scale,
+    return _cg_line('MD22 AT-AT-sized N=60 M=%d iterative, mesh of %s (sharded Nystrom factor, %s)'
+                    % (m_train, _ranks(n_dev), _cg_chunks(device, mesh=True)), t_train, model, mae, scale,
                     k_inducing_pts=int(len(model['inducing_pts_idxs']) // 180), k_cap_single_device=int(k1),
                     k_cap_mesh=int(k_mesh), n_ranks=n_dev, max_seconds=max_seconds)
 
@@ -275,7 +286,7 @@ def bench_mesh_ozaki(device):
         mae, scale = _force_mae(ds, task, model, n_test=200, device=dev)
     return {
         'config': 'mesh-ozaki end-to-end N=%d M=%d, mesh of %s (column-sharded int8 slice-stack factor + '
-                  'int8 CG matvec)' % (n_atoms, m_train, _ranks(n_dev)),
+                  'int8 CG matvec, %s)' % (n_atoms, m_train, _ranks(n_dev), _cg_chunks(device, mesh=True)),
         'train_s': t_train,
         'cg_iters': int(iters),
         'k_inducing_pts': int(len(idxs) // (3 * n_atoms)),

@@ -191,7 +191,9 @@ def fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, wi
     ``(B, T)``-sized products (``torch.matmul`` by default; the Ozaki rungs
     of ``predict_from_tables`` pass their int8 product).
     """
-    sig = torch.as_tensor(sig, dtype=Xq.dtype, device=Xq.device)
+    # A fill, not a copy from the host: the CG chunk's CUDA graphs capture
+    # this function on the Ozaki rungs, and a capture takes no such copy.
+    sig = torch.full((), sig, dtype=Xq.dtype, device=Xq.device)
 
     xq_sq = torch.sum(Xq * Xq, dim=1)  # (B,)
     gram = matmul(Xq, Xt.T)  # (B, T)

@@ -48,6 +48,12 @@ the pair or grid route, a rule written for a 16 GB chip that emulates f64;
 it runs the in-place arithmetic only on a mesh): at aspirin M=1000 on an
 H100 the in-place route trained in about a twentieth of the pair route's
 time (PERF.md). Past both, the pair-or-grid rule is the JAX package's.
+
+The refinement CG of the grid and pair routes runs in chunks, each of which
+the JAX package compiles as one ``while_loop``: on a CUDA device a chunk
+replays CUDA graphs of ``CG_ACTIVE_READ_ITERS`` iterations each
+(:class:`_CholBlocks`), with one host read between two; elsewhere it is the
+eager loop :func:`_pcg_chol`, which gives the same bits.
 """
 
 from __future__ import annotations
@@ -302,18 +308,40 @@ def _pair_M_apply(sstrips, Dinv, G, Ls, n, m, use_E_cstr):
     """The pair route's preconditioner: the int8 strip solve through the
     factor (``pairchol.solve_strips_int8``, which pads to the grid's side),
     through the exact border with ``G``, ``Ls`` when ``use_E_cstr`` (``m``
-    energy rows). On a GPU the strip solve of a vector is a CUDA graph
-    (:func:`_cuda_graph`): it issues about 8,000 small kernels, which the
-    host took 0.2 s to enqueue at aspirin M=1000 on the H100 (PERF.md)."""
+    energy rows). On a GPU the strip solve of a vector is a CUDA graph of
+    its own (:func:`_cuda_graph`): it issues about 8,000 small kernels,
+    which the host took 0.2 s to enqueue at aspirin M=1000 on the H100
+    (PERF.md). While a stream is captured (the refinement's block graphs,
+    :class:`_CholBlocks`) the same kernels are enqueued into that capture
+    instead: the same bits."""
     n_f = n - m if use_E_cstr else n
 
-    def M_ff(v):
+    def solve(v):
         return pairchol.solve_strips_int8(sstrips, Dinv, v)
 
+    M_ff = solve
     device = Dinv[0].slices.device
     if device.type == 'cuda':
-        M_ff = _cuda_graph(M_ff, n_f, device)
+        graphed = _cuda_graph(solve, n_f, device)
+
+        def M_ff(v):
+            return solve(v) if torch.cuda.is_current_stream_capturing() else graphed(v)
     return _border_M_apply(M_ff, G, Ls, n_f) if use_E_cstr else M_ff
+
+
+def _pcg_chol_step(x, r, z, p, rz, active, A_apply, M_apply, thresh):
+    """One masked refinement-CG iteration: the new ``(x, r, z, p, rz)``, each
+    the old one where ``active`` is False, and ``active`` for the next
+    iteration (the residual norm above ``thresh`` and finite)."""
+    Ap = A_apply(p)
+    alpha = rz / (p @ Ap)
+    r_new = r - alpha * Ap
+    z_new = M_apply(r_new)
+    rz_new = r_new @ z_new
+    p_new = z_new + (rz_new / rz) * p
+    rn = torch.linalg.vector_norm(r_new)
+    return (torch.where(active, x + alpha * p, x), torch.where(active, r_new, r), torch.where(active, z_new, z),
+            torch.where(active, p_new, p), torch.where(active, rz_new, rz), active & (rn > thresh) & torch.isfinite(rn))
 
 
 def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters, flag=bool):
@@ -329,6 +357,10 @@ def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters, flag=bool):
     ``CG_ACTIVE_READ_ITERS`` iterations and ends an inactive chunk there;
     ``flag`` reads it (on a mesh rank 0's reading, so that every rank stops
     alike). Returns ``(state, |r|)``.
+
+    The eager loop: the mesh's chunk, and the private oracle of
+    :class:`_CholBlocks`, which replays the same iterations from CUDA graphs
+    on one card.
     """
     from .iterative import CG_ACTIVE_READ_ITERS
 
@@ -340,27 +372,56 @@ def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters, flag=bool):
     for i in range(max_iters):
         if i % CG_ACTIVE_READ_ITERS == 0 and not flag(active):
             break
-        Ap = A_apply(p)
-        alpha = rz / (p @ Ap)
-        r_new = r - alpha * Ap
-        z_new = M_apply(r_new)
-        rz_new = r_new @ z_new
-        p_new = z_new + (rz_new / rz) * p
-        x = torch.where(active, x + alpha * p, x)
-        r = torch.where(active, r_new, r)
-        z = torch.where(active, z_new, z)
-        p = torch.where(active, p_new, p)
-        rz = torch.where(active, rz_new, rz)
+        x, r, z, p, rz, going = _pcg_chol_step(x, r, z, p, rz, active, A_apply, M_apply, thresh)
         it += active
-        rn = torch.linalg.vector_norm(r_new)
-        active = active & (rn > thresh) & torch.isfinite(rn)
+        active = going
     return (x, r, z, p, rz, it), torch.linalg.vector_norm(r)
 
 
-def _refinement_cg(A_apply, M_apply, y):
+class _CholBlocks:
+    """:func:`_pcg_chol` on one device as a :class:`graphs.Loop` over the
+    state ``(x, r, z, p, rz, active, it)``: blocks of
+    ``CG_ACTIVE_READ_ITERS`` masked iterations, each one CUDA graph replay
+    with ``graph`` (a card), run eagerly without; the host reads ``active``
+    between blocks, where the eager loop reads it. The JAX package's chunk
+    is one compiled ``while_loop`` (``sgdml_tpu/solvers/analytic.py:
+    _pcg_chol``). The graphs read the operators' tensors (the matvec's
+    tables, the factor, the border) by address, and live as long as the
+    solve's refinement."""
+
+    def __init__(self, A_apply, M_apply, b_norm, rtol, like, graph):
+        from .iterative import CG_ACTIVE_READ_ITERS
+
+        self.thresh = thresh = rtol * b_norm
+
+        def step(state):
+            x, r, z, p, rz, active, it = state
+            x, r, z, p, rz, going = _pcg_chol_step(x, r, z, p, rz, active, A_apply, M_apply, thresh)
+            it += active
+            return x, r, z, p, rz, going, it
+
+        flag = torch.empty((), dtype=torch.bool, device=like.device)
+        like = (like,) * 4 + (like.new_empty(()), flag, like.new_empty((), dtype=torch.int64))
+        self.loop = graphs.Loop(step, like, CG_ACTIVE_READ_ITERS, graph)
+
+    def __call__(self, state, max_iters):
+        """One chunk from ``state`` (as :func:`_pcg_chol` takes it); returns
+        ``(state, |r|)`` as it does, the state copied out."""
+        x, r, z, p, rz, _ = state
+        rn = torch.linalg.vector_norm(r)
+        start = (x, r, z, p, rz, (rn > self.thresh) & torch.isfinite(rn),
+                 torch.zeros((), dtype=torch.int64, device=x.device))
+        x, r, z, p, rz, _, it = self.loop(start, max_iters, lambda s: bool(s[5]))
+        return (x, r, z, p, rz, it), torch.linalg.vector_norm(r)
+
+
+def _refinement_cg(A_apply, M_apply, y, graph=None, timer=None):
     """Refinement CG on ``y`` preconditioned by ``M_apply``, in chunks of
-    ``PCG_CHUNK_ITERS`` (:func:`_pcg_chol`, one host read a chunk), to
-    ``PCG_RTOL`` or ``PCG_MAX_ITERS``. Returns ``(x, rel, iters)``.
+    ``PCG_CHUNK_ITERS`` (one host read a chunk), to ``PCG_RTOL`` or
+    ``PCG_MAX_ITERS``. Returns ``(x, rel, iters)``. With ``graph`` None the
+    chunks are the eager loop :func:`_pcg_chol`; else :class:`_CholBlocks`,
+    whose blocks replay CUDA graphs where ``graph`` is True, and whose
+    captures' host seconds go to ``timer``'s ``'cg capture'``.
 
     On a numerical breakdown (a non-finite residual) ``x`` is the best
     finite iterate seen at a chunk's end, with a warning, or None when there
@@ -373,8 +434,16 @@ def _refinement_cg(A_apply, M_apply, y):
     t0 = timeit.default_timer()
     z0 = M_apply(y)
     state = (torch.zeros_like(y), y, z0, z0, y @ z0, None)
+    if graph is None:
+        def chunk(state):
+            return _pcg_chol(state, A_apply, M_apply, b_norm, PCG_RTOL, max_iters=PCG_CHUNK_ITERS)
+    else:
+        blocks = _CholBlocks(A_apply, M_apply, b_norm, PCG_RTOL, y, graph)
+
+        def chunk(state):
+            return blocks(state, PCG_CHUNK_ITERS)
     for _ in range(-(-PCG_MAX_ITERS // PCG_CHUNK_ITERS)):
-        state, resid = _pcg_chol(state, A_apply, M_apply, b_norm, PCG_RTOL, max_iters=PCG_CHUNK_ITERS)
+        state, resid = chunk(state)
         head = torch.stack([state[5].to(_F64), resid]).cpu()  # the chunk's one host read
         it_done, rel = int(head[0]), float(head[1]) / b_norm
         iters += it_done
@@ -384,6 +453,8 @@ def _refinement_cg(A_apply, M_apply, y):
                  iters, rel, timeit.default_timer() - t0)
         if not np.isfinite(rel) or rel <= PCG_RTOL or it_done < PCG_CHUNK_ITERS:
             break
+    if graph is not None and timer is not None and blocks.loop.capture_s:
+        timer.durations['cg capture'] = timer.durations.get('cg capture', 0.0) + blocks.loop.capture_s
     if not np.isfinite(rel):
         if best_x is None:
             return None, rel, iters
@@ -456,6 +527,17 @@ class Analytic:
         self._max_memory = max_memory
         self.t_assemble = self.t_solve = self.route = None
         self.timer = PhaseTimer()
+        # The refinement chunks of the grid and pair routes: None replays
+        # CUDA graphs exactly on a CUDA device (the mesh has its own loop);
+        # False runs the eager loop (chip_smoke.py's private oracle); True
+        # off a card runs the graphs' blocks eagerly.
+        self._graphs = None
+
+    def _refine_graph(self, device):
+        """The ``graph`` argument of :func:`_refinement_cg` on ``device``:
+        None for the eager loop, else whether its blocks are captured."""
+        on = device.type == 'cuda' if self._graphs is None else self._graphs
+        return device.type == 'cuda' if on else None
 
     def solve(self, task, R_desc, R_d_desc, desc_perms, y):
         """Solve ``(-K + lam I) x = y`` and return ``alphas = -x`` as a
@@ -680,7 +762,7 @@ class Analytic:
         A_apply, M_apply = _grid_operators(L32, G, Ls, tab, sig, lam, n_atoms=n_atoms, n=y.shape[0],
                                            use_E_cstr=use_E_cstr)
         with timer.phase('cg'):
-            x, _, self.pcg_iters = _refinement_cg(A_apply, M_apply, y)
+            x, _, self.pcg_iters = _refinement_cg(A_apply, M_apply, y, self._refine_graph(y.device), timer)
         if x is None:
             raise RuntimeError(
                 'Refinement CG broke down numerically before producing '
@@ -770,7 +852,7 @@ class Analytic:
         A_apply = _matvec_op(tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr)
         with timer.phase('cg'):
             M_apply = _pair_M_apply(sstrips, Dinv, G, Ls, y.shape[0], m, use_E_cstr)
-            x, rel, iters = _refinement_cg(A_apply, M_apply, y)
+            x, rel, iters = _refinement_cg(A_apply, M_apply, y, self._refine_graph(y.device), timer)
         if x is None:
             log.warning('Pair-precision refinement CG broke down before producing a finite iterate; falling back '
                         'to the f32 grid solver.')

@@ -28,10 +28,13 @@ one the JAX package takes off the TPU. CG runs in chunks of
 :data:`CG_CHUNK_ITERS` iterations whose state stays on the device: where the
 JAX package's ``while_loop`` exits early on convergence, a chunk here carries
 an ``active`` flag through ``torch.where``; the host reads the flag every
-:data:`CG_ACTIVE_READ_ITERS` iterations and the chunk's results once.
-Between chunks the host loop re-measures the true residual, reports
-progress, checkpoints every ~2 minutes, monitors CG effectiveness and
-restarts with a stronger preconditioner (reference: iterative.py:729-804).
+:data:`CG_ACTIVE_READ_ITERS` iterations and the chunk's results once. On
+one card those iterations replay CUDA graphs, one a block between two reads
+(:class:`_ChunkBlocks`): the JAX package's chunk is one compiled program,
+with no host round-trip inside an iteration. Between chunks the host loop
+re-measures the true residual, reports progress, checkpoints every ~2
+minutes, monitors CG effectiveness and restarts with a stronger
+preconditioner (reference: iterative.py:729-804).
 
 ``factor_mode='ozaki'`` keeps the factor as an int8 slice stack instead
 (:class:`SliceFactor`, ``ops/ozaki.py``): a streamed build in which the
@@ -76,6 +79,7 @@ from ..ops.kernel import assemble_kernel_columns, assemble_kernel_columns_range,
 from ..parallel import spmd
 from ..parallel.mesh import agree, all_gather_rows, all_reduce_, mesh_device, mesh_info
 from ..predict import Tables, predict_from_tables
+from ..utils import graphs
 from ..utils.profiling import PhaseTimer
 from .analytic import memory_budget
 
@@ -285,6 +289,31 @@ def _precond(F, v, lam):
     return _factor_apply(F, v) / lam
 
 
+def _pcg_step(x, r, z, p, rz, active, F, tab, sig, lam, thresh, *, n_atoms, use_E_cstr, mm):
+    """One masked PCG iteration: the new ``(x, r, z, p, rz)``, each the old
+    one where ``active`` is False; the residual norm for the history (0 where
+    inactive); the PSD guard's trip (only where active); and ``active`` for
+    the next iteration."""
+    Ap = _matvec_A(p, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr, mm=mm)
+    alpha = rz / (p @ Ap)
+    x_new = x + alpha * p
+    r_new = r - alpha * Ap
+    z_new = _precond(F, r_new, lam)
+    rz_new = r_new @ z_new
+    # PSD guard: at large k the Woodbury correction cancels to ~lam ||v||
+    # and f64 rounding can push r.z slightly negative. Fall back to an
+    # unpreconditioned step AND restart the search direction (beta = 0).
+    bad = ~(rz_new > 0) | ~torch.isfinite(rz_new)
+    z_new = torch.where(bad, r_new, z_new)
+    rz_new = torch.where(bad, r_new @ r_new, rz_new)
+    beta = torch.where(bad, 0.0, rz_new / rz)
+    p_new = z_new + beta * p
+    r_norm = torch.linalg.vector_norm(r_new)
+    return (torch.where(active, x_new, x), torch.where(active, r_new, r), torch.where(active, z_new, z),
+            torch.where(active, p_new, p), torch.where(active, rz_new, rz), torch.where(active, r_norm, 0.0),
+            bad & active, active & (r_norm > thresh))
+
+
 def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, chunk_iters, mm='native'):
     """``chunk_iters`` PCG iterations on the device, with no host read.
 
@@ -297,6 +326,10 @@ def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, ch
     iterations the host reads ``active`` and ends an inactive chunk, so a
     converged solve runs at most that many idle iterations. ``F`` is either
     factor; ``mm`` is the matvec rung.
+
+    The eager loop: the mesh's chunk, and the private oracle of
+    :class:`_ChunkBlocks`, which replays the same iterations from CUDA
+    graphs on one card.
     """
     x, r, z, p, rz, _, hist, _ = state
     hist = torch.zeros_like(hist)
@@ -307,32 +340,58 @@ def _pcg_chunk(state, F, tab, sig, lam, b_norm, rtol, *, n_atoms, use_E_cstr, ch
     for i in range(chunk_iters):
         if i % CG_ACTIVE_READ_ITERS == 0 and not _flag(active, tab.mesh):
             break
-        Ap = _matvec_A(p, tab, sig, lam, n_atoms=n_atoms, use_E_cstr=use_E_cstr, mm=mm)
-        alpha = rz / (p @ Ap)
-        x_new = x + alpha * p
-        r_new = r - alpha * Ap
-        z_new = _precond(F, r_new, lam)
-        rz_new = r_new @ z_new
-        # PSD guard: at large k the Woodbury correction cancels to ~lam ||v||
-        # and f64 rounding can push r.z slightly negative. Fall back to an
-        # unpreconditioned step AND restart the search direction (beta = 0).
-        bad = ~(rz_new > 0) | ~torch.isfinite(rz_new)
-        z_new = torch.where(bad, r_new, z_new)
-        rz_new = torch.where(bad, r_new @ r_new, rz_new)
-        beta = torch.where(bad, 0.0, rz_new / rz)
-        p_new = z_new + beta * p
-        r_norm = torch.linalg.vector_norm(r_new)
-
-        x = torch.where(active, x_new, x)
-        r = torch.where(active, r_new, r)
-        z = torch.where(active, z_new, z)
-        p = torch.where(active, p_new, p)
-        rz = torch.where(active, rz_new, rz)
-        hist[i] = torch.where(active, r_norm, 0.0)
-        n_bad += bad & active
+        x, r, z, p, rz, hist[i], bad, going = _pcg_step(x, r, z, p, rz, active, F, tab, sig, lam, thresh,
+                                                        n_atoms=n_atoms, use_E_cstr=use_E_cstr, mm=mm)
+        n_bad += bad
         it += active
-        active = active & (r_norm > thresh)
+        active = going
     return x, r, z, p, rz, it, hist, n_bad
+
+
+class _ChunkBlocks:
+    """:func:`_pcg_chunk` on one device as a :class:`graphs.Loop`: blocks of
+    :data:`CG_ACTIVE_READ_ITERS` masked iterations over static state, each
+    block one CUDA graph replay with ``graph`` (a card), run eagerly
+    without. The JAX package's chunk is one compiled ``while_loop``
+    (``sgdml_tpu/solvers/iterative.py:_pcg_chunk_jit``); here the host reads
+    ``active`` between blocks, where the eager loop reads it, so every
+    iteration, count and bit is the eager loop's.
+
+    The state is ``(x, r, z, p, rz, active, it, n_bad, hist, slot)``:
+    ``hist`` is written at the device-side index ``slot``, which each
+    iteration advances, so one graph serves a block at every offset of the
+    chunk. The graphs read ``F``, ``tab`` and the rung ``mm`` by address:
+    a solve drops its blocks wherever one of them changes.
+    """
+
+    def __init__(self, F, tab, sig, lam, b_norm, rtol, *, n, n_atoms, use_E_cstr, mm, graph):
+        self.thresh = thresh = rtol * b_norm
+
+        def step(state):
+            x, r, z, p, rz, active, it, n_bad, hist, slot = state
+            x, r, z, p, rz, h, bad, going = _pcg_step(x, r, z, p, rz, active, F, tab, sig, lam, thresh,
+                                                      n_atoms=n_atoms, use_E_cstr=use_E_cstr, mm=mm)
+            hist.index_copy_(0, slot, h[None])
+            slot.add_(1)
+            n_bad += bad
+            it += active
+            return x, r, z, p, rz, going, it, n_bad, hist, slot
+
+        vec = tab.X.new_empty(n)
+        flag, count = torch.empty((), dtype=torch.bool, device=vec.device), vec.new_empty((), dtype=torch.int64)
+        like = (vec,) * 4 + (vec.new_empty(()), flag, count, count, vec.new_empty(CG_CHUNK_ITERS),
+                             vec.new_empty(1, dtype=torch.int64))
+        self.loop = graphs.Loop(step, like, CG_ACTIVE_READ_ITERS, graph)
+
+    def __call__(self, state, chunk_iters):
+        """One chunk from ``state`` (as :func:`_pcg_chunk` takes and returns
+        it); the results are copies, never the static tensors."""
+        x, r, z, p, rz, _, hist, _ = state
+        zero = torch.zeros((), dtype=torch.int64, device=x.device)
+        start = (x, r, z, p, rz, torch.linalg.vector_norm(r) > self.thresh, zero, zero, torch.zeros_like(hist),
+                 zero[None])
+        x, r, z, p, rz, _, it, n_bad, hist, _ = self.loop(start, chunk_iters, lambda s: bool(s[5]))
+        return x, r, z, p, rz, it, hist, n_bad
 
 
 def _chol_reg(M, reg):
@@ -484,7 +543,14 @@ class Iterative:
 
     After :meth:`solve`, ``timer.durations`` holds the seconds of
     ``'leverage scores'``, ``'factor'`` and ``'cg'``, each ended by a device
-    synchronization.
+    synchronization, and on a card ``'cg capture'``: the host seconds of the
+    CG graphs' captures, which ``'cg'`` includes.
+
+    On one CUDA device each CG chunk replays CUDA graphs of
+    :data:`CG_ACTIVE_READ_ITERS` iterations (:class:`_ChunkBlocks`), as the
+    JAX package runs its chunk as one compiled loop; on a mesh and on the
+    CPU the chunk is the eager loop :func:`_pcg_chunk`, which gives the same
+    bits.
     """
 
     def __init__(self, gdml_train=None, callback=None, max_memory: float | None = None,
@@ -514,6 +580,10 @@ class Iterative:
         self.seed = seed
         self.device = resolve_device(device)
         self.timer = PhaseTimer(self.device)
+        # On one card the CG chunks replay CUDA graphs (_ChunkBlocks); with
+        # False they run the eager loop (the mesh's, and chip_smoke.py's
+        # private oracle); True off a card runs the blocks eagerly.
+        self._graphs = self.device.type == 'cuda' and mesh is None
 
     def _ns(self) -> int:
         """Slice count of the current solve's stack."""
@@ -913,6 +983,27 @@ class Iterative:
             return (x, r, z, z, rz, zero, torch.zeros(CG_CHUNK_ITERS, dtype=torch.float64, device=self.device),
                     zero)
 
+        # The chunk's CUDA graphs read the factor, the tables and the matvec
+        # rung by address: they are dropped (None) before a factor rebuild
+        # and at a rung climb, and made again at the next chunk.
+        blocks, capture_s = None, 0.0
+
+        def chunk(state):
+            nonlocal blocks
+            if not self._graphs:
+                return _pcg_chunk(state, Fp, tab, sig, lam, b_norm, tol, n_atoms=n_atoms, use_E_cstr=use_E_cstr,
+                                  chunk_iters=CG_CHUNK_ITERS, mm=mv_mm)
+            if blocks is None:
+                blocks = _ChunkBlocks(Fp, tab, sig, lam, b_norm, tol, n=n, n_atoms=n_atoms, use_E_cstr=use_E_cstr,
+                                      mm=mv_mm, graph=self.device.type == 'cuda')
+            return blocks(state, CG_CHUNK_ITERS)
+
+        def drop_blocks():
+            nonlocal blocks, capture_s
+            if blocks is not None:
+                capture_s += blocks.loop.capture_s
+            blocks = None
+
         # 'cg' is charged the loop's time less the preconditioner rebuilds
         # of its restarts, which go to 'leverage scores' and 'factor'.
         t_cg, t_built = timeit.default_timer(), sum(timer.durations.values())
@@ -933,8 +1024,7 @@ class Iterative:
         reseeds_since_best = 0
 
         while True:
-            state = _pcg_chunk(state, Fp, tab, sig, lam, b_norm, tol, n_atoms=n_atoms,
-                               use_E_cstr=use_E_cstr, chunk_iters=CG_CHUNK_ITERS, mm=mv_mm)
+            state = chunk(state)
             x, r, z, p, rz, it_done, hist, n_bad = state
             # Residual replacement: measure the TRUE residual once per chunk.
             r_true = b - A_apply(x)
@@ -1054,6 +1144,7 @@ class Iterative:
                         # would replay the same trajectory): climb the
                         # matvec ladder, a different operator, and re-seed.
                         mv_mm = MV_MM_LADDER[MV_MM_LADDER.index(mv_mm) + 1]
+                        drop_blocks()
                         log.info('CG best residual stagnant at %.3e for %d iterations: escalating the matvec '
                                  'precision to %r.', best_resid, iters_since_best, mv_mm)
                         state = init_state(best_x, Fp)
@@ -1088,7 +1179,9 @@ class Iterative:
                                                       use_E_cstr, rng)
                 inducing_pts_idxs = self.inducing_pts_from_lev_scores(
                     lev_scores[: n_train * dim_i], n_inducing_pts * dim_i, rng)
-                # Free the old factor before the new one is built.
+                # Free the old factor, and the graphs that read it, before
+                # the new one is built.
+                drop_blocks()
                 Fp = state = z = r = p = None
                 with timer.phase('factor'):
                     Fp, lev_scores = self._build_factor(X, Jc, dperms, sig, lam, inducing_pts_idxs, n_atoms,
@@ -1097,6 +1190,7 @@ class Iterative:
                 resid = best_resid
                 iters_since_best = 0  # a fresh Krylov space gets a full window
 
+        drop_blocks()
         if not np.isfinite(resid) or resid > best_resid:
             x_final, resid = best_x, best_resid
         else:
@@ -1108,6 +1202,8 @@ class Iterative:
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         timer.durations['cg'] = timeit.default_timer() - t_cg - (sum(timer.durations.values()) - t_built)
+        if capture_s:
+            timer.durations['cg capture'] = capture_s
         is_conv = resid <= tol * b_norm
         return -x_final, tol, num_iters, resid, resid / np.sqrt(n), np.asarray(inducing_pts_idxs), is_conv
 
