@@ -29,7 +29,7 @@ from . import resolve_device
 from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
 from .predict import build_tables, center_tables, predict_from_tables
-from .utils import graphs
+from .utils import graphs, profiling
 from .utils.io import ATOMIC_MASSES
 
 __all__ = ['GRAPH_MAX_STEPS', 'MDEngine']
@@ -98,6 +98,11 @@ class MDEngine:
         call first draws its substeps' rows of it from ``gen``, eagerly: a
         graph replays its kernels, not its draws, so a captured draw would
         give every block the same noise.
+
+        The call is the root span ``md.trajectory`` (with its steps), each
+        snapshot's block ``md.blocks`` and the trajectory's copy to the host
+        ``md.to_host``: the root's self time is the state and the first
+        forces.
         """
         n, dev = self.n_atoms, self.device
         n_snap = n_steps // snapshot_every
@@ -105,7 +110,7 @@ class MDEngine:
         n_full, rest = divmod(snapshot_every, per)
         if not rest:
             n_full, rest = n_full - 1, per
-        with graphs.on_stream(self._stream):
+        with graphs.on_stream(self._stream), profiling.span('md.trajectory', steps=n_steps):
             r, v = self._state(r0), self._state(v0)
             f = self.energy_forces(r)[1]
             traj = (torch.empty((n_snap, n, 3), dtype=self.dtype, device=dev),
@@ -143,10 +148,12 @@ class MDEngine:
             full = program(per, False) if n_full else None
             last = program(rest, True)
             for _ in range(n_snap):
-                for _ in range(n_full):
-                    full()
-                last()
-            return tuple(x.cpu().numpy() for x in traj)
+                with profiling.span('md.blocks'):
+                    for _ in range(n_full):
+                        full()
+                    last()
+            with profiling.span('md.to_host'):
+                return tuple(x.cpu().numpy() for x in traj)
 
     def run_nve(self, r0, v0, dt, n_steps, snapshot_every: int = 1):
         """NVE (velocity Verlet). Returns (R (S,N,3), V, E_pot (S,), E_kin)."""

@@ -38,7 +38,7 @@ from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
 from .ops import fused_predict, ozaki
 from .ops._precision import _true_f32
-from .utils import graphs, io
+from .utils import graphs, io, profiling
 
 __all__ = [
     'GDMLPredict',
@@ -212,18 +212,25 @@ class _Bucket:
         kwargs = dict(n_atoms=pred.n_atoms, out_dtype=pred.transfer_dtype)
         self.run = graphs.Program(lambda: _predict_geoms(x, *args, **kwargs), graph, pool)
 
-    def __call__(self, R):
-        """(E, F) of ``R (bucket, 3N)`` (numpy), static after the first call:
-        copy them out before the next."""
+    def __call__(self, R, E, F):
+        """Write (E, F) of ``R (bucket, 3N)`` (numpy) into ``E (bucket,)``
+        and ``F (bucket, 3N)`` on the device. The staging into the pinned
+        buffer is the span ``predict.stage``; the copy in, the program and
+        the copies out are ``predict.launch``."""
         src = torch.from_numpy(R)
-        if self.host is None:
-            self.x.copy_(src)
-        else:
-            self.copied.synchronize()  # the last copy out of the host buffer is done
-            self.host.copy_(src)
-            self.x.copy_(self.host, non_blocking=True)
-            self.copied.record()
-        return self.run()
+        if self.host is not None:
+            with profiling.span('predict.stage'):
+                self.copied.synchronize()  # the last copy out of the host buffer is done
+                self.host.copy_(src)
+        with profiling.span('predict.launch'):
+            if self.host is None:
+                self.x.copy_(src)
+            else:
+                self.x.copy_(self.host, non_blocking=True)
+                self.copied.record()
+            E_b, F_b = self.run()
+            E.copy_(E_b)
+            F.copy_(F_b)
 
 
 class GDMLPredict:
@@ -364,12 +371,18 @@ class GDMLPredict:
         -------
         (E (B,), F (B, 3N)) as NumPy arrays (on a mesh, all of them on every
         rank).
+
+        The call is the root span ``predict`` (with B and the bucket on the
+        geometry path); the copies to numpy, which wait for the device, are
+        ``predict.to_host``.
         """
-        if self._info is None:
-            E, F = self._predict(R, R_desc, R_d_desc)
-        else:
-            E, F = self._predict_sharded(R, R_desc, R_d_desc)
-        return (_numpy(E), _numpy(F)) if return_E else (None, _numpy(F))
+        with profiling.span('predict'):
+            if self._info is None:
+                E, F = self._predict(R, R_desc, R_d_desc)
+            else:
+                E, F = self._predict_sharded(R, R_desc, R_d_desc)
+            with profiling.span('predict.to_host'):
+                return (_numpy(E), _numpy(F)) if return_E else (None, _numpy(F))
 
     def _predict_sharded(self, R, R_desc, R_d_desc):
         """Descriptors and the training points go through
@@ -450,11 +463,17 @@ class GDMLPredict:
         ``bucket`` a call of its :class:`_Bucket` (a graph's replay on a GPU
         without a mesh), each chunk's results copied out before the next, the
         padded rows cut off. Geometries and results cross in the transfer
-        dtype."""
+        dtype. The padding is the span ``predict.stage``; the counters
+        ``predict.geometries`` and ``predict.rows`` add B and the rows
+        launched."""
         B = R.shape[0]
         Bp = -(-B // bucket) * bucket
+        profiling.note(B=B, bucket=bucket)
+        profiling.count('predict.geometries', B)
+        profiling.count('predict.rows', Bp)
         if Bp != B:
-            R = np.concatenate([R, np.repeat(R[-1:], Bp - B, axis=0)])
+            with profiling.span('predict.stage'):
+                R = np.concatenate([R, np.repeat(R[-1:], Bp - B, axis=0)])
         out_dtype = self.transfer_dtype or self.dtype
         E = torch.empty(Bp, dtype=out_dtype, device=self.device)
         F = torch.empty((Bp, self.dim_i), dtype=out_dtype, device=self.device)
@@ -465,9 +484,7 @@ class GDMLPredict:
                     self._pool = torch.cuda.graph_pool_handle()
                 run = self._buckets[bucket] = _Bucket(self, bucket, self._graphs, self._pool)
             for b0 in range(0, Bp, bucket):
-                E_b, F_b = run(R[b0 : b0 + bucket])
-                E[b0 : b0 + bucket].copy_(E_b)
-                F[b0 : b0 + bucket].copy_(F_b)
+                run(R[b0 : b0 + bucket], E[b0 : b0 + bucket], F[b0 : b0 + bucket])
         return E[:B], F[:B]
 
     def prepare_parallel(self, n_bulk: int = 1000, **kwargs):

@@ -356,7 +356,7 @@ def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters, flag=bool):
     ends the chunk, as there). The host reads ``active`` every
     ``CG_ACTIVE_READ_ITERS`` iterations and ends an inactive chunk there;
     ``flag`` reads it (on a mesh rank 0's reading, so that every rank stops
-    alike). Returns ``(state, |r|)``.
+    alike), a ``graphs.host_read``. Returns ``(state, |r|)``.
 
     The eager loop: the mesh's chunk, and the private oracle of
     :class:`_CholBlocks`, which replays the same iterations from CUDA graphs
@@ -370,7 +370,7 @@ def _pcg_chol(state, A_apply, M_apply, b_norm, rtol, *, max_iters, flag=bool):
     rn = torch.linalg.vector_norm(r)
     active = (rn > thresh) & torch.isfinite(rn)
     for i in range(max_iters):
-        if i % CG_ACTIVE_READ_ITERS == 0 and not flag(active):
+        if i % CG_ACTIVE_READ_ITERS == 0 and not graphs.host_read(lambda: flag(active)):
             break
         x, r, z, p, rz, going = _pcg_chol_step(x, r, z, p, rz, active, A_apply, M_apply, thresh)
         it += active

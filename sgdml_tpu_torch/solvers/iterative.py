@@ -79,7 +79,7 @@ from ..ops.kernel import assemble_kernel_columns, assemble_kernel_columns_range,
 from ..parallel import spmd
 from ..parallel.mesh import agree, all_gather_rows, all_reduce_, mesh_device, mesh_info
 from ..predict import Tables, predict_from_tables
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.profiling import PhaseTimer
 from .analytic import memory_budget
 
@@ -214,8 +214,11 @@ def _factor_apply_sharded(F: ShardedFactor, v):
 
 
 def _flag(t, mesh) -> bool:
-    """A device boolean read on the host: rank 0's reading on a mesh."""
-    return bool(t) if mesh is None else bool(agree([float(bool(t))], mesh_info(mesh))[0])
+    """A device boolean read on the host (a ``graphs.host_read``): rank 0's
+    reading on a mesh."""
+    if mesh is None:
+        return graphs.host_read(lambda: bool(t))
+    return graphs.host_read(lambda: bool(agree([float(bool(t))], mesh_info(mesh))[0]))
 
 
 class SliceFactor(NamedTuple):
@@ -989,14 +992,16 @@ class Iterative:
         blocks, capture_s = None, 0.0
 
         def chunk(state):
+            """One chunk's enqueue with its block reads: the span ``cg.chunk``."""
             nonlocal blocks
-            if not self._graphs:
-                return _pcg_chunk(state, Fp, tab, sig, lam, b_norm, tol, n_atoms=n_atoms, use_E_cstr=use_E_cstr,
-                                  chunk_iters=CG_CHUNK_ITERS, mm=mv_mm)
-            if blocks is None:
-                blocks = _ChunkBlocks(Fp, tab, sig, lam, b_norm, tol, n=n, n_atoms=n_atoms, use_E_cstr=use_E_cstr,
-                                      mm=mv_mm, graph=self.device.type == 'cuda')
-            return blocks(state, CG_CHUNK_ITERS)
+            with profiling.span('cg.chunk'):
+                if not self._graphs:
+                    return _pcg_chunk(state, Fp, tab, sig, lam, b_norm, tol, n_atoms=n_atoms,
+                                      use_E_cstr=use_E_cstr, chunk_iters=CG_CHUNK_ITERS, mm=mv_mm)
+                if blocks is None:
+                    blocks = _ChunkBlocks(Fp, tab, sig, lam, b_norm, tol, n=n, n_atoms=n_atoms,
+                                          use_E_cstr=use_E_cstr, mm=mv_mm, graph=self.device.type == 'cuda')
+                return blocks(state, CG_CHUNK_ITERS)
 
         def drop_blocks():
             nonlocal blocks, capture_s
@@ -1010,7 +1015,7 @@ class Iterative:
         state = init_state(x0, Fp)
         num_iters = num_iters0
         num_restarts = 0
-        resid = float(host([torch.linalg.vector_norm(state[1]).item()])[0])
+        resid = float(host([graphs.host_read(torch.linalg.vector_norm(state[1]).item)])[0])
         steps_hist: list = []
         max_iters = 3 * n_atoms * n_train * 10
         last_ckpt = timeit.default_timer()
@@ -1030,8 +1035,8 @@ class Iterative:
             r_true = b - A_apply(x)
             # The chunk's one host read: its step count, guard trips, history
             # and true residual, with the wall clock (on a mesh, rank 0's).
-            head = torch.cat([it_done.to(hist.dtype)[None], n_bad.to(hist.dtype)[None], hist,
-                              torch.linalg.vector_norm(r_true)[None]]).cpu().numpy()
+            head = graphs.host_read(torch.cat([it_done.to(hist.dtype)[None], n_bad.to(hist.dtype)[None], hist,
+                                               torch.linalg.vector_norm(r_true)[None]]).cpu).numpy()
             now = timeit.default_timer()
             head = host(np.concatenate([head, [now - t_start, now - last_ckpt]]))
             it_done, n_bad, hist_np = int(head[0]), int(head[1]), head[2:2 + int(head[0])]

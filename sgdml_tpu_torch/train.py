@@ -32,7 +32,7 @@ from .ops import descriptor as desc_ops
 from .predict import GDMLPredict, desc_perm_table
 from .solvers.analytic import Analytic, memory_budget
 from .solvers.iterative import Iterative
-from .utils import io
+from .utils import io, profiling
 from .utils.profiling import PhaseTimer
 
 __all__ = ['GDMLTrain', 'desc_perm_table']
@@ -289,92 +289,94 @@ class GDMLTrain:
         receives CG checkpoints; ``factor_slices`` goes to the CG solver, where
         it sets the slices of the int8 slice-stack factor
         (``Iterative(factor_mode='ozaki')``; the default factor is f64).
+        The call is the root span ``train`` of its phases' spans.
         """
-        t_start = timeit.default_timer()
-        timer = PhaseTimer(self.device)
-        task = dict(task)
-        n_train, n_atoms = task['R_train'].shape[:2]
-        use_E_cstr = bool(task['use_E'] and task.get('use_E_cstr', False))
+        with profiling.span('train'):
+            t_start = timeit.default_timer()
+            timer = PhaseTimer(self.device)
+            task = dict(task)
+            n_train, n_atoms = task['R_train'].shape[:2]
+            use_E_cstr = bool(task['use_E'] and task.get('use_E_cstr', False))
 
-        if solver is None:
-            budget = (memory_budget(self.device) if self._max_memory is None
-                      else self._max_memory * 1024**3)
-            if self.mesh is not None:
-                from .parallel.mesh import agree, mesh_info
+            if solver is None:
+                budget = (memory_budget(self.device) if self._max_memory is None
+                          else self._max_memory * 1024**3)
+                if self.mesh is not None:
+                    from .parallel.mesh import agree, mesh_info
 
-                budget = float(agree([budget], mesh_info(self.mesh))[0])  # every rank picks alike
-            use_analytic = (Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr) < budget
-                            or Analytic.est_memory_grid(n_train, n_atoms) < budget)
-            solver = 'analytic' if use_analytic else 'cg'
-        if solver not in ('analytic', 'cg'):
-            raise ValueError("solver must be None, 'analytic' or 'cg', got %r" % (solver,))
+                    budget = float(agree([budget], mesh_info(self.mesh))[0])  # every rank picks alike
+                use_analytic = (Analytic.est_memory_requirement(n_train, n_atoms, use_E_cstr) < budget
+                                or Analytic.est_memory_grid(n_train, n_atoms) < budget)
+                solver = 'analytic' if use_analytic else 'cg'
+            if solver not in ('analytic', 'cg'):
+                raise ValueError("solver must be None, 'analytic' or 'cg', got %r" % (solver,))
 
-        lat_and_inv = None
-        if 'lattice' in task:
-            lat = np.asarray(task['lattice'], dtype=np.float64)
-            lat_and_inv = (self._tensor(lat), self._tensor(np.linalg.inv(lat)))
+            lat_and_inv = None
+            if 'lattice' in task:
+                lat = np.asarray(task['lattice'], dtype=np.float64)
+                lat_and_inv = (self._tensor(lat), self._tensor(np.linalg.inv(lat)))
 
-        with timer.phase('descriptors'):
-            R = self._tensor(task['R_train'].reshape(n_train, -1))
-            R_desc, R_d_desc = desc_ops.descriptor_batch(R, n_atoms, lat_and_inv)
+            with timer.phase('descriptors'):
+                R = self._tensor(task['R_train'].reshape(n_train, -1))
+                R_desc, R_d_desc = desc_ops.descriptor_batch(R, n_atoms, lat_and_inv)
 
-        dperms = desc_perm_table(task['perms'])
+            dperms = desc_perm_table(task['perms'])
 
-        # Label vector: raveled forces (optionally energy constraints),
-        # normalized by their standard deviation (sgdml/train.py:937-947).
-        E_train_mean = None
-        y = task['F_train'].ravel().copy()
-        if use_E_cstr:
-            E_train = np.asarray(task['E_train']).ravel()
-            E_train_mean = float(np.mean(E_train))
-            y = np.hstack((y, -E_train + E_train_mean))
-        y_std = float(np.std(y))
-        y = y / y_std
+            # Label vector: raveled forces (optionally energy constraints),
+            # normalized by their standard deviation (sgdml/train.py:937-947).
+            E_train_mean = None
+            y = task['F_train'].ravel().copy()
+            if use_E_cstr:
+                E_train = np.asarray(task['E_train']).ravel()
+                E_train_mean = float(np.mean(E_train))
+                y = np.hstack((y, -E_train + E_train_mean))
+            y_std = float(np.std(y))
+            y = y / y_std
 
-        solver_keys = {}
-        if solver == 'analytic':
-            log.info('Using analytic solver.')
-            analytic = Analytic(self, callback=callback, mesh=self.mesh, max_memory=self._max_memory)
-            with timer.phase('solve (analytic: assembly + Cholesky)'):
-                alphas = analytic.solve(task, R_desc, R_d_desc, dperms, y)
-            solve_times = dict(analytic.timer.durations)
-        else:
-            log.info('Using iterative solver (Nystrom-preconditioned CG).')
-            iterative = Iterative(self, callback=callback, max_memory=self._max_memory, mesh=self.mesh,
-                                  factor_slices=factor_slices, device=self.device)
-            with timer.phase('solve (iterative: Nystrom-pCG)'):
-                (alphas, solver_keys['solver_tol'], solver_keys['solver_iters'], solver_keys['solver_resid'],
-                 _, solver_keys['inducing_pts_idxs'], is_conv) = iterative.solve(
-                    task, R_desc, R_d_desc, dperms, y, y_std,
-                    save_progr_callback=save_progr_callback, max_seconds=solver_max_seconds)
-            solver_keys['norm_y_train'] = float(np.linalg.norm(y))
-            solve_times = dict(iterative.timer.durations)
-            if not is_conv:
-                log.warning(
-                    'Iterative solver did not converge! Continuing with the unconverged model; its '
-                    'accuracy will likely be poor. Tips: (1) are the geometries highly correlated? '
-                    '(2) try a larger sigma.'
-                )
+            solver_keys = {}
+            if solver == 'analytic':
+                log.info('Using analytic solver.')
+                analytic = Analytic(self, callback=callback, mesh=self.mesh, max_memory=self._max_memory)
+                with timer.phase('solve (analytic: assembly + Cholesky)'):
+                    alphas = analytic.solve(task, R_desc, R_d_desc, dperms, y)
+                solve_times = dict(analytic.timer.durations)
+            else:
+                log.info('Using iterative solver (Nystrom-preconditioned CG).')
+                iterative = Iterative(self, callback=callback, max_memory=self._max_memory, mesh=self.mesh,
+                                      factor_slices=factor_slices, device=self.device)
+                with timer.phase('solve (iterative: Nystrom-pCG)'):
+                    (alphas, solver_keys['solver_tol'], solver_keys['solver_iters'], solver_keys['solver_resid'],
+                     _, solver_keys['inducing_pts_idxs'], is_conv) = iterative.solve(
+                        task, R_desc, R_d_desc, dperms, y, y_std,
+                        save_progr_callback=save_progr_callback, max_seconds=solver_max_seconds)
+                solver_keys['norm_y_train'] = float(np.linalg.norm(y))
+                solve_times = dict(iterative.timer.durations)
+                if not is_conv:
+                    log.warning(
+                        'Iterative solver did not converge! Continuing with the unconverged model; its '
+                        'accuracy will likely be poor. Tips: (1) are the geometries highly correlated? '
+                        '(2) try a larger sigma.'
+                    )
 
-        alphas_E = None
-        alphas_F = alphas
-        if use_E_cstr:
-            alphas_E, alphas_F = alphas[-n_train:], alphas[:-n_train]
+            alphas_E = None
+            alphas_F = alphas
+            if use_E_cstr:
+                alphas_E, alphas_F = alphas[-n_train:], alphas[:-n_train]
 
-        with timer.phase('model creation'):
-            model = self.create_model(task, solver, R_desc, R_d_desc, y_std, alphas_F, alphas_E=alphas_E)
-            model.update(solver_keys)
+            with timer.phase('model creation'):
+                model = self.create_model(task, solver, R_desc, R_d_desc, y_std, alphas_F, alphas_E=alphas_E)
+                model.update(solver_keys)
 
-        if model['use_E']:
-            with timer.phase('integration constant'):
-                model['c'] = (
-                    self._recov_int_const(model, task, R_desc, R_d_desc)
-                    if E_train_mean is None
-                    else E_train_mean
-                )
-        timer.log_summary(logging.DEBUG)
-        self.times = dict(timer.durations, **solve_times, total=timeit.default_timer() - t_start)
-        return model
+            if model['use_E']:
+                with timer.phase('integration constant'):
+                    model['c'] = (
+                        self._recov_int_const(model, task, R_desc, R_d_desc)
+                        if E_train_mean is None
+                        else E_train_mean
+                    )
+            timer.log_summary(logging.DEBUG)
+            self.times = dict(timer.durations, **solve_times, total=timeit.default_timer() - t_start)
+            return model
 
     def _recov_int_const(self, model, task, R_desc, R_d_desc) -> float:
         """Least-squares integration constant + label self-diagnosis

@@ -23,6 +23,10 @@ recorded at the capture and counted at each replay
 (``fused_predict.recording_launches``), so the launch counts equal those of
 the same work run eagerly. Without a graph (the CPU, or the private eager
 oracle) every call runs the body. A failed capture or replay raises.
+
+The first call and its capture are the span ``graph.capture`` and add one to
+the counter ``graph.captures``; each host read of a Loop is a
+:func:`host_read` (``utils/profiling.py`` records them).
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ import time
 import torch
 
 from ..ops import fused_predict
+from . import profiling
 
-__all__ = ['Loop', 'Program', 'on_stream']
+__all__ = ['Loop', 'Program', 'host_read', 'on_stream']
 
 # A capture empties the allocator's cache first only when the card has less
 # than this many bytes free: a graph's pool grows by allocations inside the
@@ -62,6 +67,15 @@ def on_stream(stream):
     current.wait_stream(stream)
 
 
+def host_read(read):
+    """``read()``, a read of the device that the host waits on: the span
+    ``host.read``, and one more ``host_reads``."""
+    with profiling.span('host.read'):
+        value = read()
+    profiling.count('host_reads')
+    return value
+
+
 class Program:
     """``body()`` over static tensors: run eagerly at the first call, then
     (with ``graph``) captured as a CUDA graph into ``pool`` on the current
@@ -84,9 +98,12 @@ class Program:
             self.cuda_graph.replay()
             fused_predict.count_replay(self.launches)
             return self.out
-        out = self.body()
-        if self.graph:
+        if not self.graph:
+            return self.body()
+        with profiling.span('graph.capture'):
+            out = self.body()
             self._capture()
+        profiling.count('graph.captures')
         return out
 
     def _capture(self):
@@ -164,7 +181,7 @@ class Loop:
             for dst, src in zip(self.state, start):
                 dst.copy_(src)
             for i0 in range(0, iters, self.block):
-                if not going(self.state):
+                if not host_read(lambda: going(self.state)):
                     break
                 self._program(min(self.block, iters - i0))()
             for dst, src in zip(out, self.state):
