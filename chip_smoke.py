@@ -245,7 +245,27 @@ each a plain assertion that ends the run with a traceback when it fails:
    read freed memory or the wrong kernels); (b) ``Iterative.solve`` at the
    anchor and at ethanol M=1000, eager against graph in turns (3 each),
    iterations/s and the captures; (c) the list of every graph-against-eager
-   check of phases 8, 10, 11, 12 and 18.
+   check of phases 8, 10, 11, 12 and 18;
+19. (run right after phase 3) K1's split-T route, which ``route(T, D, B)``
+   picks for B <= ``SPLIT_T_MAX_B``: (a) against the plain version in f32
+   and f64, with and without the energy constraint, two calls bit for bit,
+   at a ragged shape with 1, 3 and 16 queries and 1, 5 and more blocks than
+   table rows, at the golden model's width and at the rows of (b); (b) at
+   aspirin B = 1, 2, 8, AT-AT B = 1, 8 and ethanol B = 1, each call
+   replayed from a CUDA graph as MD replays it: its time, its bound, the
+   one-pass and two-pass routes' and the plain version's times; (c) the
+   three routes' times at B = 1 ... 64 at the aspirin, AT-AT and ethanol
+   widths, and at ethanol M = 200 and the golden model's, where the one-pass
+   route takes larger batches (the measurement that sets ``SPLIT_T_MAX_B``); (d)
+   ``MDEngine.run_nve`` at the aspirin width (N = 21, M = 1000), steps per
+   second through its graphs by split T and with ``SPLIT_T_MAX_B`` 0 (the
+   two-pass route) in turns, and the launches of a split-T run, which
+   must all be split T; (e) at aspirin B = 1, 8 and AT-AT B = 1, 4 in f64,
+   each of split T's two kernels apart (the profiler's device time a call
+   in a graph) and the route's time at 1, 2 and 4 blocks an SM (the
+   measurement that sets ``SPLIT_T_BLOCKS_PER_SM``).
+
+``python3 chip_smoke.py --split-t`` runs phases 1-2 and 19 alone.
 
 Phases 4-18 are the main path: each sets the launch counts to 0 before it
 drives the path (phases 8-17 before each training run, solve, command,
@@ -322,6 +342,26 @@ PASSES = {'ragged': 3, 'at-at-1': None, 'at-at': None}
 # The route-setting measurement: both routes at these widths (N = 5, 9, 15,
 # 21, 30 atoms), table sizes and batches.
 SWEEP_D, SWEEP_T, SWEEP_B = (10, 36, 105, 210, 435), (30, 100, 200, 400, 1000), (1, 1024)
+
+# Phase 19, the split-T route: the checked shapes (label, B, T, D; the
+# ragged one also with the forced block counts SPLIT_T_BLOCKS), the rows
+# timed from graphs (label, B, T, D), the route sweep's batches and widths
+# (label, T, D; the last two where the one-pass route takes larger B), the
+# calls captured in each timing graph, and MD at the
+# aspirin width (N, M, steps, turns an arm, snapshot_every, dt).
+SPLIT_T_CHECKS = (('ragged', 1, 37, 45), ('ragged', 3, 37, 45), ('ragged', 16, 37, 45),
+                  ('golden', 1, 30, 10))
+SPLIT_T_BLOCKS = (1, 5, 40)
+SPLIT_T_ROWS = (('aspirin', 1, 1000, 210), ('aspirin', 2, 1000, 210), ('aspirin', 8, 1000, 210),
+                ('at-at', 1, 3000, 1770), ('at-at', 8, 3000, 1770), ('ethanol', 1, 1000, 36))
+SPLIT_T_SWEEP_B = (1, 2, 4, 8, 16, 32, 64)
+SPLIT_T_SWEEP = (('aspirin', 1000, 210), ('at-at', 3000, 1770), ('ethanol', 1000, 36),
+                 ('ethanol-200', 200, 36), ('golden', 30, 10))
+SPLIT_T_GRAPH_CALLS = 50
+# Split T's kernels apart (profiler) and its time at 1, 2 and 4 blocks an SM.
+SPLIT_T_SPLITS = (('aspirin', 1, 1000, 210), ('aspirin', 8, 1000, 210), ('at-at', 1, 3000, 1770),
+                  ('at-at', 4, 3000, 1770))
+SPLIT_T_MD = (21, 1000, 50_000, 2, 100, 0.01)
 
 # Phase 6: NVE step and initial temperature, picked on the CPU with the
 # plain path so that the energy drift of 200 steps stays far under the
@@ -589,9 +629,7 @@ def sass_counts(lib_path, opcode):
                           check=True, timeout=120).stdout
     counts = {}
     for chunk in sass.split('Function : ')[1:]:
-        kind = re.search(r'([a-z_]+_kernel)I([df])', chunk.split()[0])
-        name = '%s<%s>' % (kind.group(1), {'d': 'double', 'f': 'float'}[kind.group(2)])
-        counts[name] = len(re.findall(r'\b%s\b' % opcode, chunk))
+        counts[_build.kernel_name(chunk.split()[0])] = len(re.findall(r'\b%s\b' % opcode, chunk))
     return counts
 
 
@@ -625,13 +663,16 @@ def contraction_inputs(B, T, D, dtype, with_aE, seed, device):
     return (t(Xq) - tables.mu, tables.Xt, tables.JA, tables.xt_sq, tables.tja, t(aE), sig)
 
 
-def check(what, kernel, plain, tol):
+def check(what, kernel, plain, tol, scales=None):
     """Kernel outputs against plain ones (tuples of tensors), and a second
-    launch for the same bits; returns the max abs error."""
+    launch for the same bits; returns the max abs error. Each error is over
+    max |value|, or over the output's entry of ``scales`` where given."""
     outs, refs = kernel(), plain()
     again = kernel()
     torch.cuda.synchronize()
-    errs = [rel_err(o, r) for o, r in zip(outs, refs)]
+    scales = scales or (None,) * len(refs)
+    errs = [rel_err(o, r) if sc is None else float((o - r).abs().max()) / sc
+            for o, r, sc in zip(outs, refs, scales)]
     print('    %-44s err %s  (bound %.0e)' % (what, ' '.join('%.2e' % e for e in errs), tol))
     assert all(torch.isfinite(o).all() for o in outs), what
     assert max(errs) <= tol, (what, errs)
@@ -646,7 +687,7 @@ def phase_kernel_vs_plain(device):
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_abs, n_cases = 0.0, 0
     for label, (B, T, D) in SHAPES.items():
-        routes = ('one_pass', 'two_pass') if label in BOTH_ROUTES else (fp.route(T, D),)
+        routes = ('one_pass', 'two_pass') if label in BOTH_ROUTES else (fp.route(T, D, B),)
         for dtype in (torch.float64, torch.float32):
             for with_aE in (False, True):
                 args = contraction_inputs(B, T, D, dtype, with_aE, seed=B + T + D, device=device)
@@ -682,19 +723,19 @@ def phase_kernel_vs_plain(device):
             args = contraction_inputs(B, T, D, dtype, False, seed=1, device=device)
             both = label in BOTH_ROUTES or label == 'at-at'
             line = []
-            for name in ('one_pass', 'two_pass') if both else (fp.route(T, D),):
+            for name in ('one_pass', 'two_pass') if both else (fp.route(T, D, B),):
                 run = getattr(fp, name)
                 ms, plain_ms = time_pair(lambda: run(*args),
                                          lambda: fp.fused_predict_tables_reference(*args))
-                if name == fp.route(T, D):
+                if name == fp.route(T, D, B):
                     times[label, dtype] = (ms, plain_ms)
                 line.append('%s %.3f ms vs plain %.3f ms (%.1f TFLOP/s)' % (
                     name, ms, plain_ms, 8.0 * B * T * D / ms * 1e-9))
             b_ms, b_by = bound(B, T, D, args[0].element_size())
-            line.append('bound %.4f ms by %s, route(T, D) at %.1f%% of it' % (
-                b_ms, b_by, 100 * b_ms / times[label, dtype][0]))
+            line.append('bound %.4f ms by %s, %s at %.1f%% of it' % (
+                b_ms, b_by, fp.route(T, D, B), 100 * b_ms / times[label, dtype][0]))
             print('    %-9s B=%5d T=%4d D=%4d %s  %s' % (label, B, T, D, NAME[dtype], '; '.join(line)))
-            if fp.route(T, D) == 'two_pass':
+            if fp.route(T, D, B) == 'two_pass':
                 out, split = fp.planes(*args), fp.split_k(B, D, T, n_sms)
                 a_ms, b_ms = time_pair(lambda: fp.planes(*args),
                                        lambda: fp.forces(*args[:3], *out, *split))
@@ -708,25 +749,169 @@ def phase_kernel_vs_plain(device):
                 args = contraction_inputs(B, T, D, torch.float64, False, seed=2, device=device)
                 one, two = time_pair(lambda: fp.one_pass(*args), lambda: fp.two_pass(*args))
                 print('    route sweep f64 D=%3d T=%4d B=%4d: one_pass %.4f ms, two_pass %.4f ms '
-                      '-> %s (route(T, D) = %s)' % (D, T, B, one, two,
-                                                 'one_pass' if one <= two else 'two_pass', fp.route(T, D)))
+                      '-> %s (route(T, D, B) = %s)' % (D, T, B, one, two,
+                                                    'one_pass' if one <= two else 'two_pass', fp.route(T, D, B)))
     print('[3b times] kernel and plain timed in turns in this call')
     return max_abs, times
+
+
+def graph_ms(fn, calls=SPLIT_T_GRAPH_CALLS):
+    """Mean device ms of one ``fn()`` among ``calls`` captured in a CUDA
+    graph and replayed (K1's launches recorded, not counted), about 20 ms of
+    replays: the time a call takes inside MD's or serving's graphs, without
+    the host's launch cost."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with fused_predict.recording_launches(), torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    reps = int(min(50, max(2, 20.0 / cuda_ms(graph.replay, 1))))
+    return cuda_ms(graph.replay, reps) / calls
+
+
+def kernel_us(fn, calls=SPLIT_T_GRAPH_CALLS):
+    """``{kernel: device us a call}`` of ``fn()`` among ``calls`` captured in
+    a CUDA graph, from the profiler's kernel records of 20 replays."""
+    graph = torch.cuda.CUDAGraph()
+    fn()
+    torch.cuda.synchronize()
+    with fused_predict.recording_launches(), torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            graph.replay()
+        torch.cuda.synchronize()
+    return {re.sub(r'^void |\(anonymous namespace\)::|\(.*$', '', e.key): e.device_time_total / e.count
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def phase_split_t(device, card):
+    """Phase 19; returns the sweep's times {(label, B, route): ms}."""
+    fp = fused_predict
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_abs, n_cases = 0.0, 0
+    for label, B, T, D in SPLIT_T_CHECKS + SPLIT_T_ROWS:
+        for dtype in (torch.float64, torch.float32):
+            for with_aE in (False, True):
+                args = contraction_inputs(B, T, D, dtype, with_aE, seed=B + T + D, device=device)
+                plain = lambda: fp.fused_predict_tables_reference(*args)  # noqa: E731
+                # At B = 1 an energy can be a sum of terms that nearly cancel:
+                # its error, from another order of the sum, is over the sum of
+                # its terms' magnitudes.
+                e_scale = float(fp._plane_terms(*args)[0].abs().sum(1).max())
+                head = '%-8s B=%2d T=%4d D=%4d %s aE=%-5s split_t' % (label, B, T, D, NAME[dtype], with_aE)
+                for blocks in (None,) + (SPLIT_T_BLOCKS if label == 'ragged' else ()):
+                    what = '%s, %d blocks' % (head, blocks or fp.split_t_blocks(T, n_sms))
+                    max_abs = max(max_abs, check(what, lambda: fp.split_t(*args, blocks=blocks), plain,
+                                                 TOL[dtype], scales=(e_scale, None)))
+                    n_cases += 1
+    print('[19a split_t vs plain] all %d cases within bounds and bitwise repeatable; max abs error %.3e' % (
+        n_cases, max_abs))
+
+    for label, B, T, D in SPLIT_T_ROWS:
+        for dtype in (torch.float64, torch.float32):
+            args = contraction_inputs(B, T, D, dtype, False, seed=1, device=device)
+            ms = {name: graph_ms(lambda: getattr(fp, name)(*args))
+                  for name in ('split_t', 'two_pass', 'one_pass', 'fused_predict_tables_reference')}
+            b_ms, b_by = bound(B, T, D, args[0].element_size())
+            print('    %-8s B=%d T=%d D=%d %s, from graphs: split_t %.4f ms (%d blocks), bound %.4f ms by %s '
+                  '(%.1f%%); two_pass %.4f ms, one_pass %.4f ms, plain %.4f ms; route %s (%s)' % (
+                      label, B, T, D, NAME[dtype], ms['split_t'], fp.split_t_blocks(T, n_sms), b_ms, b_by,
+                      100 * b_ms / ms['split_t'], ms['two_pass'], ms['one_pass'],
+                      ms['fused_predict_tables_reference'], fp.route(T, D, B), card))
+    print('[19b split_t rows] timed from CUDA graphs of %d calls in this call' % SPLIT_T_GRAPH_CALLS)
+
+    sweep = {}
+    for label, T, D in SPLIT_T_SWEEP:
+        for B in SPLIT_T_SWEEP_B:
+            args = contraction_inputs(B, T, D, torch.float64, False, seed=2, device=device)
+            names = ['two_pass']
+            if fp._split_t_takes(B, D, 8):
+                names.append('split_t')
+            if label != 'at-at':  # one block walks 5,264 steps of the AT-AT table: milliseconds a call
+                names.append('one_pass')
+            for name in names:
+                sweep[label, B, name] = graph_ms(lambda: getattr(fp, name)(*args))
+            best = min(names, key=lambda n: sweep[label, B, n])
+            print('    route sweep f64 %-8s T=%4d D=%4d B=%2d: %s -> fastest %s, route(T, D, B) = %s' % (
+                label, T, D, B, ', '.join('%s %.4f ms' % (n, sweep[label, B, n]) for n in names), best,
+                fp.route(T, D, B)))
+    print('[19c split_t sweep] SPLIT_T_MAX_B = %d (%s)' % (fp.SPLIT_T_MAX_B, card))
+
+    n_atoms, n_train, steps, turns, every, dt = SPLIT_T_MD
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_train + 1, seed=0)
+    R = ds['R'].reshape(len(ds['R']), -1)
+    model = atat_model(n_atoms, n_train, R[:n_train], ds['z'], device)
+    r0 = ds['R'][n_train]
+    eng = MDEngine(model, device=device)
+    v0 = md_velocities(eng)
+    rates, first = {'split_t': [], 'two_pass': []}, {}
+    max_b = fp.SPLIT_T_MAX_B
+    try:
+        for arm in ('two_pass', 'split_t') * turns:
+            fp.SPLIT_T_MAX_B = max_b if arm == 'split_t' else 0
+            fp.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, E_pot, _ = eng.run_nve(r0, v0, dt, steps, snapshot_every=every)
+            rates[arm].append(steps / (time.perf_counter() - t0))
+            counts = dict(fp.PATH_LAUNCHES, total=fp.LAUNCHES)
+            first.setdefault(arm, (E_pot[0], counts))
+    finally:
+        fp.SPLIT_T_MAX_B = max_b
+    counts = first['split_t'][1]
+    assert counts['split_t'] == counts['total'] > steps, counts
+    assert counts['one_pass'] == counts['pass_a'] == counts['pass_b'] == 0, counts
+    e_rel = abs(first['split_t'][0] - first['two_pass'][0]) / abs(first['two_pass'][0])
+    assert e_rel < TOL[torch.float64], e_rel
+    print('[19d split_t md] NVE at N=%d M=%d, %d steps a run, snapshot every %d: %s steps/s by split_t, '
+          '%s by two_pass (in turns); first E_pot of the two %.1e apart; launches of a split_t run %s (%s)' % (
+              n_atoms, n_train, steps, every, ' '.join('%.0f' % r for r in rates['split_t']),
+              ' '.join('%.0f' % r for r in rates['two_pass']), e_rel, counts, card))
+    for label, B, T, D in SPLIT_T_SPLITS:
+        args = contraction_inputs(B, T, D, torch.float64, False, seed=3, device=device)
+        per_kernel = kernel_us(lambda: fp.split_t(*args))
+        by_sm = {per_sm: graph_ms(lambda: fp.split_t(*args, blocks=fp._cdiv(T, max(
+            fp.SPLIT_T_WARPS, fp._cdiv(T, per_sm * n_sms))))) for per_sm in (1, 2, 4)}
+        print('    %-8s B=%d T=%d D=%d f64: %s; from graphs at 1, 2 and 4 blocks an SM %s ms (%s)' % (
+            label, B, T, D, ', '.join('%s %.2f us' % kv for kv in per_kernel.items()),
+            ' '.join('%.4f' % by_sm[k] for k in (1, 2, 4)), card))
+    print('[19e split_t kernels] device us a call of each kernel (profiler, a graph of %d calls); '
+          'SPLIT_T_BLOCKS_PER_SM = %d' % (SPLIT_T_GRAPH_CALLS, fp.SPLIT_T_BLOCKS_PER_SM))
+    return sweep
 
 
 def phase_golden(device):
     model = io.load_dict(os.path.join(GOLDEN, 'model_ref.npz'))
     ref = np.load(os.path.join(GOLDEN, 'train_predict_ref.npz'))
     fused_predict.reset_launches()
-    E, F = GDMLPredict(model, dtype=torch.float64, device=device).predict(ref['R_test'])
+    pred = GDMLPredict(model, dtype=torch.float64, device=device)
+    E, F = pred.predict(ref['R_test'])
     counts = dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
     np.testing.assert_allclose(E, ref['e_pred'], rtol=1e-9, atol=1e-8)
     np.testing.assert_allclose(F, ref['f_pred'], rtol=1e-8, atol=1e-9)
-    assert counts['one_pass'] > 0 and counts['total'] > 0, counts
+    (T, D), B = pred.tables.Xt.shape, pred._bucket(len(E))
+    path = path_key(fused_predict.route(T, D, B))
+    assert counts[path] > 0 and counts['total'] > 0, counts
     print('[4 golden] GDMLPredict(cuda, f64) on %d geometries: max |dE| %.2e, max |dF| %.2e '
           'against the reference; launches %s' % (
               len(E), np.abs(E - ref['e_pred']).max(), np.abs(F - ref['f_pred']).max(), counts))
     return counts
+
+
+def path_key(route):
+    """The ``PATH_LAUNCHES`` key that counts a route's launches."""
+    return {'two_pass': 'pass_a'}.get(route, route)
 
 
 def atat_model(n_atoms, n_train, R_train, z, device, seed=0):
@@ -789,6 +974,7 @@ def phase_serving(device, card, n_atoms=60, n_train=3000, requests=GRAPH_SERVE_B
             assert e_err <= TOL[dtype] and f_err <= TOL[dtype], (dtype, B, e_err, f_err)
     counts = dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
     assert counts['pass_a'] > 0 and counts['pass_b'] > 0 and counts['one_pass'] == 0, counts
+    assert counts['split_t'] > 0, counts  # the small requests
 
     for dtype, pred in preds.items():
         for B in timed:
@@ -826,9 +1012,11 @@ def phase_md(device):
         drifts[dev] = drift
         assert np.isfinite(R).all() and np.abs(R[-1] - R[0]).max() > 1e-2
         assert drift < MD_DRIFT, (dev, drift)
-    # One launch per force evaluation: the first, one per step, one per snapshot.
+    # One launch per force evaluation: the first, one per step, one per snapshot,
+    # each by the split-T route (one geometry).
     nve = dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
-    assert nve['one_pass'] == nve['total'] == 1 + 2 * MD_STEPS and nve['pass_a'] == 0, nve
+    assert nve['split_t'] == nve['total'] == 1 + 2 * MD_STEPS, nve
+    assert nve['one_pass'] == nve['pass_a'] == 0, nve
     assert len(captures) == 1, captures  # the run's one block graph, replayed for every step but the first
     eng = MDEngine(model, device=device)
     fused_predict.reset_launches()
@@ -1575,7 +1763,7 @@ def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card, turns=0):
           'route %s (%s)' % (
               label, F.shape[0], n, f_bytes / 1e9, it_ms, mv_ms, k1_ms, 100 * k1_ms / it_ms, apply_ms,
               100 * apply_ms / it_ms, 2 * f_bytes / apply_ms * 1e-6, it_ms - mv_ms - apply_ms, B, T, D, k1_ms,
-              plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(T, D), card))
+              plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(T, D, B), card))
     return {'label': label, 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
             'bound_by': b_by, 'max_abs_err': max_abs, 'iteration_ms': it_ms, 'matvec_ms': mv_ms,
             'apply_ms': apply_ms, 'graph': graph_entry(graph)}
@@ -1921,7 +2109,7 @@ def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
               label, k, k, b, f_bytes / 1e9, it_ms, GRID_SPLIT_ITERS, mv_ms, k1['ms'], solve_ms,
               2 * f_bytes / solve_ms * 1e-6, 2 * f_bytes / H100_BYTES_PER_S * 1e3, 2 * k, leaf_ms, k1['B'], k1['T'],
               k1['D'], k1['ms'], k1['plain_ms'], k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'],
-              fused_predict.route(k1['T'], k1['D']), card))
+              fused_predict.route(k1['T'], k1['D'], k1['B']), card))
     return dict(k1, label=label, iteration_ms=it_ms, matvec_ms=mv_ms, apply_ms=solve_ms, leaf_solves_ms=leaf_ms,
                 solver_iters=int(iters), graph=graph_entry(graph))
 
@@ -3022,7 +3210,7 @@ def pair_split(label, sstrips, leaves, X, Jc, dperms, sig, lam, n_atoms, iters, 
               host_graph_ms, floor, 100 * floor / solve_ms, eager_ms, host_eager_ms, ms['forward'],
               s_bytes / ms['forward'] * 1e-6, ms['transposed'], s_bytes / ms['transposed'] * 1e-6, 2 * k,
               ms['leaves'], 2 * l_bytes / ms['leaves'] * 1e-6, k1['B'], k1['T'], k1['D'], k1['ms'], k1['plain_ms'],
-              k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'], fused_predict.route(k1['T'], k1['D']),
+              k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'], fused_predict.route(k1['T'], k1['D'], k1['B']),
               card))
     return dict(k1, label=label, iteration_ms=it_ms, matvec_ms=mv_ms, apply_ms=solve_ms, eager_apply_ms=eager_ms,
                 host_apply_ms=host_graph_ms, host_eager_apply_ms=host_eager_ms, forward_ms=ms['forward'],
@@ -4112,11 +4300,16 @@ def main():
         phase_strip_apply(device, smi)
         print(smi)
         return
+    if sys.argv[1:] == ['--split-t']:
+        phase_split_t(device, smi)
+        print(smi)
+        return
     if sys.argv[1:] == ['--bench-large']:
         phase_bench(device, smi, env=BENCH_LARGE_ENV, with_bench=False)
         print(smi)
         return
     max_abs, times = phase_kernel_vs_plain(device)
+    phase_split_t(device, smi)
     serving_counts, atat = phase_serving(device, smi)
     main_path = [phase_golden(device), serving_counts, phase_md(device), phase_graphs(device, atat, smi)]
     train_counts, ethanol = phase_train(device, smi)
@@ -4151,7 +4344,7 @@ def main():
     main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts,
                   routes_counts, inplace_counts, cg_graph_counts, bench_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
-    assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b')), counts
+    assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b', 'split_t')), counts
     ms, plain_ms = times['at-at', torch.float64]
     bound_ms, bound_by = bound(*SHAPES['at-at'], 8)
     print('[wall] %.1f s from the start of chip_smoke.py, the kernel build included' % (time.perf_counter() - t_start))
@@ -4162,7 +4355,7 @@ def main():
         'launches': counts['total'], 'max_abs_err': max(max_abs, *(s['max_abs_err'] for s in splits)),
         'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
-        'launches_by_path': {k: counts[k] for k in ('one_pass', 'pass_a', 'pass_b')},
+        'launches_by_path': {k: counts[k] for k in ('one_pass', 'pass_a', 'pass_b', 'split_t')},
         'cg_matvec_shapes': splits,
     }]}))
     print(smi)

@@ -16,8 +16,9 @@
 // per table build.
 //
 // What bounds it on this card: four B x T x D products, 8 B T D flop, against
-// the (B, T) coefficient planes, which are 1/D of that work. Two routes, chosen
-// by D in ops/fused_predict.py:route (measurements in PERF.md):
+// the (B, T) coefficient planes, which are 1/D of that work. Three routes,
+// chosen by B, T and D in ops/fused_predict.py:route (measurements in
+// PERF.md); the first two:
 //
 //  * One pass, for narrow descriptors (ethanol, D = 36). The (B, T) planes
 //    never leave the chip: a block owns TB query rows and walks all table
@@ -45,7 +46,30 @@
 //    Copies are element-sized cp.async with zero fill, so rows of any width
 //    (an f32 row of D = 1770 is not a multiple of 16 bytes) and ragged B, T
 //    and D edges need no padding in device memory.
+//
+// A third route, split T, replaces the same TPU kernel
+// (sgdml_tpu/ops/pallas_predict.py:_kernel) at small B: one geometry a call
+// in MD and the ASE calculator, or a few in a small predict bucket. Both
+// routes above spread the query axis over the card, so at B = 1 the one-pass
+// route runs one block and the two-pass route 16 blocks of zero-filled
+// 64-row tiles, then 64 and then one, in three launches. At B = 1
+// the work is 8 T D flop against 2 T D table elements: the bound is the table
+// bytes (3.4 MB at the aspirin width, which stay in the 50 MB L2 across MD
+// steps) and, below a few microseconds, launch and tail latency. So split T
+// spreads the table axis instead: block j of about one per SM owns a run of
+// consecutive table rows, stages the B <= 16 queries in shared memory once,
+// and a warp takes one row at a time: 16-byte loads of xt[t] and ja[t]
+// (element loads on ragged edges), gram and xq.ja for every query by a warp
+// reduction, the planes by plane_terms. A row's planes exist only once its
+// whole dot is summed, so the block then reads the chunk's rows a second
+// time, a thread a column, and adds cx xt + cj ja into its partial forces.
+// That second read finds the rows on chip or in L2: at D = 210 an f64 chunk
+// of 8 row pairs is 27 KB and stays in the SM's L1; at D = 1770 it is 226 KB,
+// over the L1, and comes from L2. HBM sees each row once a call. The block
+// partials go to a scratch buffer and a second small kernel adds them in
+// block order. No atomics, so the same bits every run; FP64 or FP32 FMAs.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -661,6 +685,367 @@ int launch_two_pass(const void* xq, const void* xt, const void* ja, const void* 
                                  e_out, f_out, device, stream);
 }
 
+// ===========================================================================
+// Split T (small batches: B <= 16).
+// ===========================================================================
+
+constexpr int ST_WARPS = 8;                   // ops/fused_predict.py:SPLIT_T_WARPS
+constexpr int ST_THREADS = ST_WARPS * 32;
+constexpr int ST_CHUNK = ST_WARPS;            // table rows a block takes at a time, one a warp
+constexpr int ST_RUNS = 32;                   // ops/fused_predict.py:SPLIT_T_REDUCE_RUNS
+constexpr int ST_SMEM_MAX = 227 * 1024;       // a block's shared memory on sm_90
+
+template <typename scalar_t>
+struct Vec16;
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static __device__ __forceinline__ double at(const double2& v, int e) { return e == 0 ? v.x : v.y; }
+};
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static __device__ __forceinline__ float at(const float4& v, int e) {
+    return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+  }
+};
+
+// acc[b] += xq[b, d] v for the B staged queries (row stride D), and with SQ
+// sq[b] += xq[b, d]^2 on the way.
+template <bool SQ, typename scalar_t, int MAXB>
+__device__ __forceinline__ void fma_queries(scalar_t v, int d, const scalar_t* xq_s, int B, int D,
+                                            scalar_t (&acc)[MAXB], scalar_t (&sq)[MAXB]) {
+#pragma unroll
+  for (int b = 0; b < MAXB; ++b)
+    if (b < B) {
+      const scalar_t x = xq_s[b * D + d];
+      acc[b] += x * v;
+      if (SQ) sq[b] += x * x;
+    }
+}
+
+// Elements of a row before its first 16-byte boundary (fewer than 16 bytes).
+template <typename scalar_t>
+__device__ __forceinline__ int head_elems(const scalar_t* row, int D) {
+  const int h = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / int(sizeof(scalar_t));
+  return h < D ? h : D;
+}
+
+// A table row pair xt[t], ja[t] as one lane of a warp reads it: the aligned
+// body of each row in 16-byte vectors, the ragged head and tail (fewer than
+// 16 bytes each) in elements. A lane holds K vectors of each row at a time,
+// loaded before any is used, so that 2 K loads are in flight (a row of D =
+// 210 doubles in one batch at B = 1); the kernel loads a warp's first batch
+// while the queries are staged. Fewer at larger B, whose accumulators take
+// the registers.
+template <typename scalar_t, int MAXB>
+struct RowPair {
+  using V = typename Vec16<scalar_t>::type;
+  static constexpr int VEC = 16 / sizeof(scalar_t);
+  static constexpr int K = (MAXB == 1 ? 16 : MAXB <= 4 ? 8 : 4) / VEC;
+  const scalar_t* xr;
+  const scalar_t* jr;
+  int hx, hj, nx, nj;
+  V x[K], j[K];
+
+  __device__ __forceinline__ void at(const scalar_t* xr_, const scalar_t* jr_, int D) {
+    xr = xr_;
+    jr = jr_;
+    hx = head_elems(xr, D);
+    hj = head_elems(jr, D);
+    nx = (D - hx) / VEC;
+    nj = (D - hj) / VEC;
+  }
+
+  // Vectors v0 + 32 k of each body, k < K.
+  __device__ __forceinline__ void load(int v0) {
+    const V* xv = reinterpret_cast<const V*>(xr + hx);
+    const V* jv = reinterpret_cast<const V*>(jr + hj);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int v = v0 + 32 * k;
+      if (v < nx) x[k] = xv[v];
+      if (v < nj) j[k] = jv[v];
+    }
+  }
+
+  template <bool SQ>
+  __device__ __forceinline__ void use(const V& vec, int d0, const scalar_t* xq_s, int B, int D,
+                                      scalar_t (&acc)[MAXB], scalar_t (&sq)[MAXB]) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) fma_queries<SQ>(Vec16<scalar_t>::at(vec, e), d0 + e, xq_s, B, D, acc, sq);
+  }
+
+  // This lane's part of g[b] = xq[b].xt[t], q[b] = xq[b].ja[t] and, with
+  // SQ, sq[b] = |xq[b]|^2 (the lanes of a warp cover every column of xt[t]
+  // once), the batch at v0 = lane already loaded.
+  template <bool SQ>
+  __device__ __forceinline__ void dots(int lane, const scalar_t* xq_s, int B, int D, scalar_t (&g)[MAXB],
+                                       scalar_t (&q)[MAXB], scalar_t (&sq)[MAXB]) {
+    const int n = nx > nj ? nx : nj;
+    for (int v0 = lane;; ) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int v = v0 + 32 * k;
+        if (v < nx) use<SQ>(x[k], hx + v * VEC, xq_s, B, D, g, sq);
+        if (v < nj) use<false>(j[k], hj + v * VEC, xq_s, B, D, q, sq);
+      }
+      v0 += 32 * K;
+      if (v0 >= n) break;
+      load(v0);
+    }
+    if (lane < hx) fma_queries<SQ>(xr[lane], lane, xq_s, B, D, g, sq);
+    if (lane < hj) fma_queries<false>(jr[lane], lane, xq_s, B, D, q, sq);
+    const int tx = hx + nx * VEC + lane, tj = hj + nj * VEC + lane;
+    if (tx < D) fma_queries<SQ>(xr[tx], tx, xq_s, B, D, g, sq);
+    if (tj < D) fma_queries<false>(jr[tj], tj, xq_s, B, D, q, sq);
+  }
+};
+
+// Sums of v[b] over the warp's lanes, scattered: lane l returns the sum of
+// v[l % MAXB]. Plain butterflies over the offsets at or above MAXB, then at
+// each lower offset a lane keeps the half of its values whose index has the
+// lane's bit: 31 shuffles for 32 sums where 32 warp sums take 160.
+// The offsets are template arguments, so that every index into v is a
+// constant and v stays in registers.
+template <int OFF, typename scalar_t, int MAXB>
+__device__ __forceinline__ void scatter_steps(scalar_t (&v)[MAXB], int lane) {
+  if constexpr (OFF >= MAXB) {
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b) v[b] += __shfl_xor_sync(0xffffffffu, v[b], OFF);
+  } else {
+    const bool upper = lane & OFF;
+#pragma unroll
+    for (int i = 0; i < OFF; ++i) {
+      const scalar_t send = upper ? v[i] : v[i + OFF];
+      const scalar_t keep = upper ? v[i + OFF] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+  }
+  if constexpr (OFF > 1) scatter_steps<OFF / 2>(v, lane);
+}
+
+template <typename scalar_t, int MAXB>
+__device__ __forceinline__ scalar_t warp_scatter_sum(scalar_t (&v)[MAXB], int lane) {
+  static_assert(MAXB >= 1 && MAXB <= 32 && (MAXB & (MAXB - 1)) == 0, "a power of two up to 32");
+  scatter_steps<16>(v, lane);
+  return v[0];
+}
+
+// Block j owns table rows [j rows, (j + 1) rows) (none past T) and takes them
+// ST_CHUNK at a time, one a warp. Dynamic shared memory: the chunk's planes
+// cx, cj and ep (MAXB x ST_CHUNK each), |xq|^2 (MAXB), then the B staged
+// queries (B x D). Thread ST_THREADS - 1 - b (idle
+// in the column loop when D < ST_THREADS - B) adds query b's row sums of ep
+// and cx. One query's |xq|^2 is summed by each warp beside its first gram
+// (FOLD), which saves a barrier; more queries' once, before the rows.
+// Block j writes part[j, b] = [sum_t cx xt + cj ja over its rows (D),
+// sum_t ep, sum_t cx] (row stride D + 2), and the reduction kernel finishes.
+// Phase 2 reads the chunk's rows a second time, thread = column, from the
+// L1 or L2 that phase 1's reads filled (see the note at the head).
+template <typename scalar_t, int MAXB>
+__global__ void __launch_bounds__(ST_THREADS, MAXB <= 4 ? 2 : 1)
+fused_predict_kernel(const scalar_t* __restrict__ xq, const scalar_t* __restrict__ xt,
+                     const scalar_t* __restrict__ ja, const scalar_t* __restrict__ xt_sq,
+                     const scalar_t* __restrict__ tja, const scalar_t* __restrict__ ae,
+                     const scalar_t sig, const int B, const int T, const int D, const int rows,
+                     scalar_t* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  scalar_t* cx_s = reinterpret_cast<scalar_t*>(smem_raw);
+  scalar_t* cj_s = cx_s + MAXB * ST_CHUNK;
+  scalar_t* ep_s = cj_s + MAXB * ST_CHUNK;
+  scalar_t* xq_sq_s = ep_s + MAXB * ST_CHUNK;
+  scalar_t* xq_s = xq_sq_s + MAXB;
+  constexpr bool FOLD = MAXB == 1;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, sum_b = ST_THREADS - 1 - tid;
+  const Coeffs<scalar_t> cf = coeffs(sig);
+  const int t_begin = blockIdx.x * rows;
+  const int n_rows = max(0, min(rows, T - t_begin));
+
+  RowPair<scalar_t, MAXB> row;
+  if (warp < n_rows) {  // this warp's first row, on its way while the queries are staged
+    row.at(xt + (size_t)(t_begin + warp) * D, ja + (size_t)(t_begin + warp) * D, D);
+    row.load(lane);
+  }
+#pragma unroll 4
+  for (int i = tid; i < B * D; i += ST_THREADS) xq_s[i] = xq[i];
+  __syncthreads();
+  if constexpr (!FOLD) {
+    for (int b = warp; b < B; b += ST_WARPS) {
+      scalar_t acc = 0;
+      for (int k = lane; k < D; k += 32) acc += xq_s[b * D + k] * xq_s[b * D + k];
+      acc = warp_sum(acc);
+      if (lane == 0) xq_sq_s[b] = acc;
+    }
+    __syncthreads();
+  }
+
+  scalar_t e_acc = 0, s_acc = 0;
+  // A block without rows still writes its (zero) partial: one chunk at least.
+  for (int c0 = 0; c0 < max(n_rows, 1); c0 += ST_CHUNK) {
+    const int n_c = min(ST_CHUNK, n_rows - c0);
+    // Phase 1: the planes of row c0 + warp against every query.
+    if (warp < n_c) {
+      const int t = t_begin + c0 + warp;
+      const scalar_t xts = xt_sq[t], tj = tja[t], aet = ae != nullptr ? ae[t] : scalar_t(0);
+      if (c0 > 0) {
+        row.at(xt + (size_t)t * D, ja + (size_t)t * D, D);
+        row.load(lane);
+      }
+      scalar_t g[MAXB] = {}, q[MAXB] = {}, sq[MAXB] = {};
+      row.template dots<FOLD>(lane, xq_s, B, D, g, q, sq);
+      const scalar_t gb = warp_scatter_sum<scalar_t, MAXB>(g, lane);
+      const scalar_t qb = warp_scatter_sum<scalar_t, MAXB>(q, lane);
+      scalar_t sqb;
+      if constexpr (FOLD) sqb = warp_scatter_sum<scalar_t, MAXB>(sq, lane);
+      else sqb = xq_sq_s[lane < B ? lane : 0];
+      if (lane < B) {
+        scalar_t ep, cx, cj;
+        plane_terms(gb, qb, sqb, xts, tj, ae != nullptr, aet, true, cf, ep, cx, cj);
+        cx_s[lane * ST_CHUNK + warp] = cx;
+        cj_s[lane * ST_CHUNK + warp] = cj;
+        ep_s[lane * ST_CHUNK + warp] = ep;
+      }
+    }
+    __syncthreads();
+    if (sum_b < B)
+      for (int r = 0; r < n_c; ++r) {
+        e_acc += ep_s[sum_b * ST_CHUNK + r];
+        s_acc += cx_s[sum_b * ST_CHUNK + r];
+      }
+    // Phase 2: sum over the chunk's rows of cx xt[t] + cj ja[t]; thread = column.
+    for (int d = tid; d < D; d += ST_THREADS) {
+      scalar_t x[ST_CHUNK], j[ST_CHUNK], acc[MAXB] = {};
+#pragma unroll
+      for (int r = 0; r < ST_CHUNK; ++r) {
+        const size_t i = (size_t)(t_begin + c0 + r) * D + d;
+        x[r] = r < n_c ? xt[i] : scalar_t(0);
+        j[r] = r < n_c ? ja[i] : scalar_t(0);
+      }
+#pragma unroll
+      for (int r = 0; r < ST_CHUNK; ++r) {
+        if (r >= n_c) break;
+#pragma unroll
+        for (int b = 0; b < MAXB; ++b)
+          if (b < B) acc[b] += cx_s[b * ST_CHUNK + r] * x[r] + cj_s[b * ST_CHUNK + r] * j[r];
+      }
+#pragma unroll
+      for (int b = 0; b < MAXB; ++b) {
+        if (b >= B) continue;
+        // The same thread owns this element in every chunk: no barrier.
+        scalar_t* dst = part + ((size_t)blockIdx.x * B + b) * (D + 2) + d;
+        *dst = (c0 == 0 ? scalar_t(0) : *dst) + acc[b];
+      }
+    }
+    __syncthreads();  // the next chunk's planes overwrite this one's
+  }
+
+  if (sum_b < B) {
+    scalar_t* dst = part + ((size_t)blockIdx.x * B + sum_b) * (D + 2) + D;
+    dst[0] = e_acc;
+    dst[1] = s_acc;
+  }
+}
+
+// E_raw[b] and F_d[b] = (sum_j s_j) xq[b] - sum_j P_j from the block
+// partials part[j, b] = [P_j (D), e_j, s_j] of `blocks` blocks: grid
+// (ceil((D + 1) / 32), B), lane = column (column D is the energy). Warp w adds
+// blocks [w per, (w + 1) per) in order, then warp 0 adds the ST_RUNS run sums
+// in order. Every block adds the s_j column the same way, so all agree.
+template <typename scalar_t, int RUNS>
+__global__ void __launch_bounds__(RUNS * 32)
+reduce_kernel(const scalar_t* __restrict__ xq, const scalar_t* __restrict__ part, const int B,
+              const int D, const int blocks, scalar_t* __restrict__ e_out,
+              scalar_t* __restrict__ f_out) {
+  __shared__ scalar_t run_s[RUNS][33];  // column 32: the s_j run sums
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int b = blockIdx.y, c = blockIdx.x * 32 + lane;
+  const int per = (blocks + RUNS - 1) / RUNS;
+  const int j0 = min(blocks, w * per), j1 = min(blocks, j0 + per);
+  const size_t ld = (size_t)B * (D + 2);
+  const scalar_t* src = part + (size_t)b * (D + 2);
+  // Loads in batches of R, issued before any is added (zeros past the run).
+  constexpr int R = 8;
+  scalar_t acc = 0, s = 0;
+  for (int j = j0; j < j1; j += R) {
+    scalar_t v[R], sv[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      v[k] = c <= D && j + k < j1 ? src[(j + k) * ld + c] : scalar_t(0);
+      sv[k] = lane == 0 && j + k < j1 ? src[(j + k) * ld + D + 1] : scalar_t(0);
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      acc += v[k];
+      s += sv[k];
+    }
+  }
+  if (lane == 0) run_s[w][32] = s;
+  run_s[w][lane] = acc;
+  __syncthreads();
+  if (w != 0) return;
+  acc = 0, s = 0;
+#pragma unroll
+  for (int k = 0; k < RUNS; ++k) {
+    acc += run_s[k][lane];
+    s += run_s[k][32];
+  }
+  if (c < D) f_out[(size_t)b * D + c] = s * xq[(size_t)b * D + c] - acc;
+  else if (c == D) e_out[b] = acc;
+}
+
+// The split-T kernel's type, which names one instance among the overloads.
+template <typename scalar_t>
+using SplitTKernel = void (*)(const scalar_t*, const scalar_t*, const scalar_t*, const scalar_t*,
+                              const scalar_t*, const scalar_t*, scalar_t, int, int, int, int,
+                              scalar_t*);
+
+template <typename scalar_t, int MAXB>
+int launch_split_t_b(const void* xq, const void* xt, const void* ja, const void* xt_sq,
+                     const void* tja, const void* ae, double sig, int B, int T, int D, int blocks,
+                     void* part, void* e_out, void* f_out, int device, cudaStream_t st) {
+  const SplitTKernel<scalar_t> kernel = fused_predict_kernel<scalar_t, MAXB>;
+  cudaError_t err = allow_smem<scalar_t, 100 + MAXB>(reinterpret_cast<const void*>(kernel), ST_SMEM_MAX, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(scalar_t) * (3 * MAXB * ST_CHUNK + MAXB + (size_t)B * D);
+  if (smem > ST_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (T + blocks - 1) / blocks;
+  kernel<<<blocks, ST_THREADS, smem, st>>>(
+      static_cast<const scalar_t*>(xq), static_cast<const scalar_t*>(xt),
+      static_cast<const scalar_t*>(ja), static_cast<const scalar_t*>(xt_sq),
+      static_cast<const scalar_t*>(tja), static_cast<const scalar_t*>(ae),
+      static_cast<scalar_t>(sig), B, T, D, rows, static_cast<scalar_t*>(part));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_kernel<scalar_t, ST_RUNS><<<dim3((D + 1 + 31) / 32, B), ST_RUNS * 32, 0, st>>>(
+      static_cast<const scalar_t*>(xq), static_cast<const scalar_t*>(part), B, D, blocks,
+      static_cast<scalar_t*>(e_out), static_cast<scalar_t*>(f_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename scalar_t>
+int launch_split_t(const void* xq, const void* xt, const void* ja, const void* xt_sq,
+                   const void* tja, const void* ae, double sig, int B, int T, int D, int blocks,
+                   void* part, void* e_out, void* f_out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // Three instances: 2 and 5-8 queries ran in the next one up within 3% of
+  // their own instances' times or faster (PERF.md, section 6), and each
+  // instance is seconds of nvcc.
+#define SGDML_SPLIT_T(MAXB)                                                                        \
+  if (B <= MAXB)                                                                                   \
+    return launch_split_t_b<scalar_t, MAXB>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, blocks, part, \
+                                            e_out, f_out, device, st);
+  SGDML_SPLIT_T(1)
+  SGDML_SPLIT_T(4)
+  SGDML_SPLIT_T(16)
+#undef SGDML_SPLIT_T
+  return static_cast<int>(cudaErrorInvalidValue);  // B > 16
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. Pointers are device pointers of
@@ -731,6 +1116,23 @@ int sgdml_two_pass_f64(const void* xq, const void* xt, const void* ja, const voi
                        void* stream) {
   return launch_two_pass<double>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, splits, per, scratch,
                                  e_out, f_out, device, stream);
+}
+
+// Split T: E_raw (B,) and F_d (B, D) for B <= 16, the table rows cut into
+// `blocks` runs of ceil(T / blocks); `part` is scratch of blocks x B x (D + 2)
+// elements.
+int sgdml_split_t_f32(const void* xq, const void* xt, const void* ja, const void* xt_sq,
+                      const void* tja, const void* ae, double sig, int B, int T, int D, int blocks,
+                      void* part, void* e_out, void* f_out, int device, void* stream) {
+  return launch_split_t<float>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, blocks, part, e_out, f_out,
+                               device, stream);
+}
+
+int sgdml_split_t_f64(const void* xq, const void* xt, const void* ja, const void* xt_sq,
+                      const void* tja, const void* ae, double sig, int B, int T, int D, int blocks,
+                      void* part, void* e_out, void* f_out, int device, void* stream) {
+  return launch_split_t<double>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, blocks, part, e_out, f_out,
+                                device, stream);
 }
 
 const char* sgdml_cuda_error_string(int err) {

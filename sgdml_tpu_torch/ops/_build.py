@@ -77,6 +77,8 @@ def load_library() -> ctypes.CDLL:
         'sgdml_forces': [ptr] * 6 + [i32] * 5 + [ptr, ptr, ptr, i32, ptr],
         # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, splits, per, scratch, E, F_d, device, stream
         'sgdml_two_pass': [ptr] * 6 + [f64] + [i32] * 5 + [ptr, ptr, ptr, i32, ptr],
+        # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, blocks, part, E, F_d, device, stream
+        'sgdml_split_t': [ptr] * 6 + [f64] + [i32] * 4 + [ptr, ptr, ptr, i32, ptr],
     }
     for stem, types in argtypes.items():
         for suffix in ('_f32', '_f64'):
@@ -88,18 +90,27 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's function, scalar type and integer template argument from
+    its mangled name, e.g. ``planes_kernel<double>`` or
+    ``fused_predict_kernel<float, 4>``; the mangled name if it has none."""
+    kind = re.search(r'([a-z_]+_kernel)I([df])(?:Li(\d+)E)?', mangled)
+    if not kind:
+        return mangled
+    return '%s<%s%s>' % (kind.group(1), {'d': 'double', 'f': 'float'}[kind.group(2)],
+                         ', ' + kind.group(3) if kind.group(3) else '')
+
+
 def ptxas_report(lib: ctypes.CDLL) -> dict:
     """``{kernel: 'N registers, M bytes smem, ... spill ...'}`` from the
     ptxas report written beside the library at its build; a kernel is named
-    by its function and scalar type, e.g. ``planes_kernel<double>``."""
+    by :func:`kernel_name`."""
     path = pathlib.Path(lib._name).with_suffix('.ptxas.txt')
     report, name = {}, None
     for line in path.read_text().splitlines() if path.exists() else []:
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            kind = re.search(r'([a-z_]+_kernel)I([df])', entry.group(1))
-            name = ('%s<%s>' % (kind.group(1), {'d': 'double', 'f': 'float'}[kind.group(2)])
-                    if kind else entry.group(1))
+            name = kernel_name(entry.group(1))
         elif name and ('spill' in line or 'Used' in line):
             report[name] = (report.get(name, '') + ' ' + line.split(':', 1)[-1].strip()).strip()
     return report

@@ -8,15 +8,17 @@ forces ``F_d (B, D)`` of ``sgdml_tpu/predict.py:_predict_from_tables_body``
 for CUDA tensors and runs :func:`fused_predict_tables_reference`, the plain
 PyTorch version, for CPU tensors.
 
-It has two routes, picked by :func:`route` from the table size T and the
-descriptor width D:
-:func:`one_pass`, one kernel with the ``(B, T)`` coefficient planes kept
-on chip, and :func:`two_pass`, two tiled products with the planes in device
-memory between them. Its passes also launch on their own (:func:`planes`,
-:func:`forces`), and each has a plain version beside it
-(:func:`planes_reference`, :func:`forces_reference`) that mirrors the
-kernel's scratch layout, its per-tile partial sums and its split of the K
-axis.
+It has three routes, picked by :func:`route` from the batch B, the table
+size T and the descriptor width D: :func:`split_t` for small B, the table
+rows spread over the card and the blocks' partial sums added by a second
+small kernel; above it :func:`one_pass`, one kernel with the ``(B, T)``
+coefficient planes kept on chip, and :func:`two_pass`, two tiled products
+with the planes in device memory between them. The two-pass route's passes
+also launch on their own (:func:`planes`, :func:`forces`). Each of
+:func:`split_t`, :func:`planes` and :func:`forces` has a plain version
+beside it (:func:`split_t_reference`, :func:`planes_reference`,
+:func:`forces_reference`) that mirrors the kernel's scratch layout, its
+partial sums and the order in which it adds them.
 """
 
 from __future__ import annotations
@@ -32,10 +34,11 @@ from . import _build
 from .kernel import Mat52Coeffs
 
 __all__ = [
-    'K_STEP', 'LAUNCHES', 'ONE_PASS_MAX_STEPS', 'PATH_LAUNCHES', 'TILE',
+    'K_STEP', 'LAUNCHES', 'ONE_PASS_MAX_STEPS', 'PATH_LAUNCHES', 'SPLIT_T_MAX_B', 'TILE',
     'count_replay', 'fused_predict_tables', 'fused_predict_tables_reference', 'forces',
     'forces_reference', 'one_pass', 'planes', 'planes_reference', 'recording_launches',
-    'reset_launches', 'route', 'split_k', 'two_pass',
+    'reset_launches', 'route', 'split_k', 'split_t', 'split_t_blocks', 'split_t_reference',
+    'two_pass',
 ]
 
 _SQRT5 = math.sqrt(5.0)
@@ -54,6 +57,24 @@ K_STEP = 16
 # section 6): D alone does not decide it.
 ONE_PASS_MAX_STEPS = 16
 
+# The split-T route (csrc/fused_predict.cu: ST_WARPS, ST_RUNS): the warps of
+# a block, one table row each at a time, so that a block owns at least this
+# many rows; the blocks it launches for each SM (two hold more loads in
+# flight where a block has several chunks of rows); the runs of consecutive
+# blocks whose partials its reduction adds first, then the runs in order.
+SPLIT_T_WARPS = 8
+SPLIT_T_BLOCKS_PER_SM = 2
+SPLIT_T_REDUCE_RUNS = 32
+
+# Batches of up to SPLIT_T_MAX_B queries whose f64 descriptors (B x D) take
+# up to SPLIT_T_XQ_BYTES take the split-T route; others the one-pass or
+# two-pass route. Set from the three routes' times on an H100 at B = 1 ... 64
+# (PERF.md, section 6): split T is the fastest up to B = 16 at D = 210 and
+# D = 36, and up to B = 4 at D = 1770 (4 x 1770 x 8 bytes; at B = 8 the
+# two-pass route wins).
+SPLIT_T_MAX_B = 16
+SPLIT_T_XQ_BYTES = 64 * 1024
+
 # The pass B grid is split along K until it has at least as many blocks as the
 # card has SMs, while each split keeps at least this many K steps.
 _MIN_SPLIT_STEPS = 8
@@ -65,7 +86,7 @@ _MIN_SPLIT_STEPS = 8
 # captured does not run then but at each replay: the capture records it
 # (``recording_launches``) and each replay counts it (``count_replay``).
 LAUNCHES = 0
-PATH_LAUNCHES = {'one_pass': 0, 'pass_a': 0, 'pass_b': 0}
+PATH_LAUNCHES = {'one_pass': 0, 'pass_a': 0, 'pass_b': 0, 'split_t': 0}
 _RECORDING = []  # the counts of the graph being captured
 
 
@@ -127,11 +148,31 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def route(T: int, D: int) -> str:
-    """``'one_pass'`` while the one-pass kernel's ``ceil(T / 32) ceil(D /
-    32)`` serial steps are at most :data:`ONE_PASS_MAX_STEPS`,
-    ``'two_pass'`` above."""
+def _split_t_takes(B: int, D: int, itemsize: int) -> bool:
+    """Whether the split-T kernel takes B queries of width D: at most 16
+    (its largest instance, the route's SPLIT_T_MAX_B), whose descriptors
+    and planes fit a block's shared memory on sm_90 (227 KB;
+    csrc/fused_predict.cu:launch_split_t_b)."""
+    maxb = 1 if B == 1 else 4 if B <= 4 else 16  # the kernel's instance
+    return B <= 16 and itemsize * (3 * maxb * SPLIT_T_WARPS + maxb + B * D) <= 227 * 1024
+
+
+def route(T: int, D: int, B: int) -> str:
+    """``'split_t'`` for at most :data:`SPLIT_T_MAX_B` queries of at most
+    :data:`SPLIT_T_XQ_BYTES` of f64 descriptors; otherwise ``'one_pass'``
+    while the one-pass kernel's ``ceil(T / 32) ceil(D / 32)`` serial steps
+    are at most :data:`ONE_PASS_MAX_STEPS`, ``'two_pass'`` above."""
+    if B <= SPLIT_T_MAX_B and B * D * 8 <= SPLIT_T_XQ_BYTES:
+        return 'split_t'
     return 'one_pass' if _cdiv(T, 32) * _cdiv(D, 32) <= ONE_PASS_MAX_STEPS else 'two_pass'
+
+
+def split_t_blocks(T: int, n_sms: int) -> int:
+    """The split-T route's blocks: the T table rows cut into runs of
+    ``ceil(T / blocks)``, :data:`SPLIT_T_BLOCKS_PER_SM` blocks for each SM,
+    or fewer so that each block has a row for each of its
+    :data:`SPLIT_T_WARPS` warps."""
+    return _cdiv(T, max(SPLIT_T_WARPS, _cdiv(T, SPLIT_T_BLOCKS_PER_SM * n_sms)))
 
 
 def split_k(B: int, D: int, T: int, n_sms: int):
@@ -226,16 +267,10 @@ def fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, wi
     return E, F_d
 
 
-def planes_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
-    """Plain version of pass A. Returns ``planes (B, 2 Tp)`` -- ``cx = w1 +
-    w3`` in columns ``[0, Tp)`` and ``cj = w2`` in ``[Tp, 2 Tp)``, zero past
-    T, with ``Tp`` = T rounded up to :data:`TILE` -- and the row sums of the
-    energy term and of ``cx`` over each TILE-wide block of table rows,
-    ``e_part`` and ``s_part (B, Tp / TILE)``."""
-    B, T = Xq.shape[0], Xt.shape[0]
-    pad = _cdiv(T, TILE) * TILE - T
+def _plane_terms(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
+    """The ``(B, T)`` planes of the kernel's ``plane_terms``: the energy
+    term ``ep``, ``cx = w1 + w3`` and ``cj = w2``."""
     sig = torch.as_tensor(sig, dtype=Xq.dtype, device=Xq.device)
-
     xq_sq = torch.sum(Xq * Xq, dim=1)
     u2 = torch.clamp_min(xq_sq[:, None] - 2.0 * (Xq @ Xt.T) + xt_sq[None, :], 0.0)
     u5 = _SQRT5 * torch.sqrt(u2)
@@ -247,7 +282,18 @@ def planes_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
     if alphas_E_lin is not None:
         ep = ep + Mat52Coeffs.value(u5, sig) * alphas_E_lin[None, :]
         cx = cx + cj * alphas_E_lin[None, :]
+    return ep, cx, cj
 
+
+def planes_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
+    """Plain version of pass A. Returns ``planes (B, 2 Tp)`` -- ``cx = w1 +
+    w3`` in columns ``[0, Tp)`` and ``cj = w2`` in ``[Tp, 2 Tp)``, zero past
+    T, with ``Tp`` = T rounded up to :data:`TILE` -- and the row sums of the
+    energy term and of ``cx`` over each TILE-wide block of table rows,
+    ``e_part`` and ``s_part (B, Tp / TILE)``."""
+    B, T = Xq.shape[0], Xt.shape[0]
+    pad = _cdiv(T, TILE) * TILE - T
+    ep, cx, cj = _plane_terms(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig)
     ep, cx, cj = (nnf.pad(x, (0, pad)) for x in (ep, cx, cj))
     return (torch.cat([cx, cj], dim=1),
             ep.reshape(B, -1, TILE).sum(-1), cx.reshape(B, -1, TILE).sum(-1))
@@ -267,6 +313,32 @@ def forces_reference(Xq, Xt, JA, planes, e_part, s_part, splits, per):
         part = planes[:, k0:k1] @ W[k0:k1]
         acc = part if acc is None else acc + part
     return e_part.sum(1), s_part.sum(1)[:, None] * Xq - acc
+
+
+def split_t_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, blocks):
+    """Plain version of the split-T route, ``(E_raw (B,), F_d (B, D))``.
+
+    The T table rows are cut into ``blocks`` runs of ``ceil(T / blocks)``
+    (runs past T are empty); each run gives the kernel's block partial
+    ``[sum_t cx xt + cj ja, sum_t ep, sum_t cx]`` ``(blocks, B, D + 2)``.
+    These are added as the reduction adds them: runs of ``ceil(blocks /``
+    :data:`SPLIT_T_REDUCE_RUNS` ``)`` consecutive blocks each, then the runs
+    in order; ``E_raw`` is the ``ep`` column, ``F_d = (sum cx) Xq - sum``.
+    """
+    (B, D), T = Xq.shape, Xt.shape[0]
+    rows = _cdiv(T, blocks)
+    pad = blocks * rows - T
+    ep, cx, cj = (nnf.pad(x, (0, pad)).reshape(B, blocks, rows)
+                  for x in _plane_terms(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig))
+    Xt_b, JA_b = (nnf.pad(x, (0, 0, 0, pad)).reshape(blocks, rows, D) for x in (Xt, JA))
+    part = torch.cat([torch.einsum('bjr,jrd->jbd', cx, Xt_b) + torch.einsum('bjr,jrd->jbd', cj, JA_b),
+                      ep.sum(2).T[:, :, None], cx.sum(2).T[:, :, None]], dim=2)
+    per = _cdiv(blocks, SPLIT_T_REDUCE_RUNS)
+    total = None
+    for j0 in range(0, blocks, per):
+        run = part[j0:j0 + per].sum(0)
+        total = run if total is None else total + run
+    return total[:, D], total[:, D + 1, None] * Xq - total[:, :D]
 
 
 @functools.lru_cache(maxsize=None)
@@ -319,6 +391,21 @@ def _launch_two_pass(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig):
     _call(lib, 'sgdml_two_pass', ('pass_a', 'pass_b'), Xq, Xq.data_ptr(), Xt.data_ptr(),
           JA.data_ptr(), xt_sq.data_ptr(), tja.data_ptr(), _ptr(aE), float(sig), B, T, D,
           splits, per, scratch.data_ptr(), E.data_ptr(), F_d.data_ptr(), *dev, contraction=True)
+    return E, F_d
+
+
+def _launch_split_t(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig, blocks=None):
+    """The split-T kernel and its reduction; the block partials in one
+    scratch allocation."""
+    (B, D), T = Xq.shape, Xt.shape[0]
+    if blocks is None:
+        blocks = split_t_blocks(T, _sm_count(dev[0]))
+    part = torch.empty(blocks * B * (D + 2), dtype=Xq.dtype, device=Xq.device)
+    E = torch.empty(B, dtype=Xq.dtype, device=Xq.device)
+    F_d = torch.empty(B, D, dtype=Xq.dtype, device=Xq.device)
+    _call(lib, 'sgdml_split_t', ('split_t',), Xq, Xq.data_ptr(), Xt.data_ptr(), JA.data_ptr(),
+          xt_sq.data_ptr(), tja.data_ptr(), _ptr(aE), float(sig), B, T, D, blocks, part.data_ptr(),
+          E.data_ptr(), F_d.data_ptr(), *dev, contraction=True)
     return E, F_d
 
 
@@ -385,18 +472,41 @@ def two_pass(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
                             alphas_E_lin, sig)
 
 
+def split_t(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, blocks=None):
+    """The split-T route: the kernel and its reduction on CUDA tensors, the
+    plain version on CPU tensors, with the table cut into ``blocks`` runs
+    (default: :func:`split_t_blocks` for the card's SMs, on the CPU for
+    one SM).
+    Raises ValueError for a batch the kernel does not take: more than 16
+    queries, or more than fit a block's shared memory."""
+    _check(Xq, Xt, JA, xt_sq, tja, alphas_E_lin)
+    B, D = Xq.shape
+    if not _split_t_takes(B, D, Xq.element_size()):
+        raise ValueError("the split-T route takes at most 16 queries whose descriptors fit a block's "
+                         'shared memory, got B=%d, D=%d in %s' % (B, D, Xq.dtype))
+    if blocks is not None and blocks < 1:
+        raise ValueError('blocks must be at least 1, got %d' % blocks)
+    if Xq.device.type == 'cpu':
+        return split_t_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig,
+                                 blocks or split_t_blocks(Xt.shape[0], 1))
+    return _launch_split_t(_build.load_library(), _device_args(Xq), Xq, Xt, JA, xt_sq, tja,
+                           alphas_E_lin, sig, blocks)
+
+
 def fused_predict_tables(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
     """``(E_raw (B,), F_d (B, D))`` from centered inputs (see
     :func:`fused_predict_tables_reference` for the arguments).
 
     CUDA tensors launch the kernel on the current stream, by the route that
-    :func:`route` picks for T and D; CPU tensors run the plain version. All
+    :func:`route` picks for T, D and B; CPU tensors run the plain version. All
     tensors share one device and one dtype (float32 or float64) and must be
     contiguous for the kernel.
     """
     _check(Xq, Xt, JA, xt_sq, tja, alphas_E_lin)
     if Xq.device.type == 'cpu':
         return fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig)
-    one = route(Xt.shape[0], Xq.shape[1]) == 'one_pass'
-    return (_launch_one_pass if one else _launch_two_pass)(_build.load_library(), _device_args(Xq), Xq, Xt, JA, xt_sq, tja,
-                  alphas_E_lin, sig)
+    launch = _LAUNCH[route(Xt.shape[0], Xq.shape[1], Xq.shape[0])]
+    return launch(_build.load_library(), _device_args(Xq), Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig)
+
+
+_LAUNCH = {'split_t': _launch_split_t, 'one_pass': _launch_one_pass, 'two_pass': _launch_two_pass}

@@ -229,21 +229,45 @@ def test_two_pass_partial_sums_over_several_table_tiles():
     assert _rel(E, E_ref) <= 1e-12 and _rel(F_d, F_ref) <= 1e-12
 
 
+_ABOVE_SPLIT_T = fused_predict.SPLIT_T_MAX_B + 1  # a batch past the split-T route
+
+
 @pytest.mark.parametrize(
-    'T,D,expected',
+    'T,D,B,expected',
     [
-        (32 * fused_predict.ONE_PASS_MAX_STEPS, 32, 'one_pass'),      # at the bound
-        (32 * fused_predict.ONE_PASS_MAX_STEPS + 1, 32, 'two_pass'),  # one step over
-        (32, 32 * fused_predict.ONE_PASS_MAX_STEPS, 'one_pass'),
-        (32, 32 * fused_predict.ONE_PASS_MAX_STEPS + 1, 'two_pass'),
-        (1, 1, 'one_pass'),
-        (30, 10, 'one_pass'),       # the golden model: N=5, M=30
-        (1000, 36, 'two_pass'),     # ethanol width, M=1000
-        (3000, 1770, 'two_pass'),   # AT-AT width
+        (32 * fused_predict.ONE_PASS_MAX_STEPS, 32, _ABOVE_SPLIT_T, 'one_pass'),      # at the bound
+        (32 * fused_predict.ONE_PASS_MAX_STEPS + 1, 32, _ABOVE_SPLIT_T, 'two_pass'),  # one step over
+        (32, 32 * fused_predict.ONE_PASS_MAX_STEPS, _ABOVE_SPLIT_T, 'one_pass'),
+        (32, 32 * fused_predict.ONE_PASS_MAX_STEPS + 1, _ABOVE_SPLIT_T, 'two_pass'),
+        (1, 1, _ABOVE_SPLIT_T, 'one_pass'),
+        (30, 10, _ABOVE_SPLIT_T, 'one_pass'),       # the golden model: N=5, M=30
+        (1000, 36, _ABOVE_SPLIT_T, 'two_pass'),     # ethanol width, M=1000
+        (3000, 1770, _ABOVE_SPLIT_T, 'two_pass'),   # AT-AT width
+        # The split-T route: at its batch bound and one over.
+        (1000, 210, fused_predict.SPLIT_T_MAX_B, 'split_t'),
+        (1000, 210, fused_predict.SPLIT_T_MAX_B + 1, 'two_pass'),
+        (1000, 36, fused_predict.SPLIT_T_MAX_B, 'split_t'),
+        (1000, 36, fused_predict.SPLIT_T_MAX_B + 1, 'two_pass'),
+        # MD and the calculator: one geometry at the aspirin and AT-AT widths.
+        (1000, 210, 1, 'split_t'),
+        (3000, 1770, 1, 'split_t'),
+        # The descriptors' bytes: 4 AT-AT queries in SPLIT_T_XQ_BYTES, 5 not.
+        (3000, 1770, 4, 'split_t'),
+        (3000, 1770, 5, 'two_pass'),
+        # A table of one one-pass step (the golden model) takes split T up
+        # to the batch bound too.
+        (30, 10, 1, 'split_t'),
+        (30, 10, 3, 'split_t'),
+        (30, 10, fused_predict.SPLIT_T_MAX_B, 'split_t'),
+        (200, 36, fused_predict.SPLIT_T_MAX_B, 'split_t'),  # ethanol M=200: 14 steps
+        # atat.serve_test's bucket of 256, and CG matvecs (B = T): unchanged.
+        (3000, 1770, 256, 'two_pass'),
+        (600, 1770, 600, 'two_pass'),
+        (1000, 210, 1000, 'two_pass'),
     ],
 )
-def test_route_at_its_edges(T, D, expected):
-    assert fused_predict.route(T, D) == expected
+def test_route_at_its_edges(T, D, B, expected):
+    assert fused_predict.route(T, D, B) == expected
 
 
 @pytest.mark.parametrize(
@@ -265,7 +289,7 @@ def test_split_k_rule(B, D, T, n_sms, expected):
     assert (splits - 1) * per < n_k <= splits * per  # no empty run
 
 
-@pytest.mark.parametrize('fn', ['one_pass', 'two_pass', 'planes', 'forces'])
+@pytest.mark.parametrize('fn', ['one_pass', 'two_pass', 'planes', 'forces', 'split_t'])
 def test_route_and_pass_wrappers_take_plain_versions_for_cpu_tensors(monkeypatch, fn):
     """CPU tensors never reach the kernel build or a launch count."""
 
@@ -287,7 +311,7 @@ def test_route_and_pass_wrappers_take_plain_versions_for_cpu_tensors(monkeypatch
         out = getattr(fused_predict, fn)(*args)
         ref = fused_predict.fused_predict_tables_reference(*args)
     assert (fused_predict.LAUNCHES, fused_predict.PATH_LAUNCHES) == before
-    tol = 0 if fn != 'two_pass' else 1e-12
+    tol = 0 if fn not in ('two_pass', 'split_t') else 1e-12
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, r, rtol=tol, atol=tol * float(r.abs().max()))
 
@@ -333,13 +357,119 @@ def test_ptxas_report_names_each_kernel(tmp_path):
         "ptxas info    : Used 122 registers, 512 bytes smem\n"
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113reduce_kernelIfEEvPKT_' for 'sm_90a'\n"
         "ptxas info    : Used 32 registers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120fused_predict_kernelIdLi4EEEvPKT_' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Used 128 registers\n"
     )
 
     class Lib:
         _name = str(lib)
 
     report = _build.ptxas_report(Lib())
-    assert set(report) == {'planes_kernel<double>', 'reduce_kernel<float>'}
+    assert set(report) == {'planes_kernel<double>', 'reduce_kernel<float>', 'fused_predict_kernel<double, 4>'}
     assert '0 bytes spill stores' in report['planes_kernel<double>']
     assert 'Used 122 registers' in report['planes_kernel<double>']
     assert report['reduce_kernel<float>'] == 'Used 32 registers'
+    assert report['fused_predict_kernel<double, 4>'] == 'Used 128 registers'
+
+
+@pytest.mark.parametrize('blocks', ['one', 'ragged', 'more-than-T'])
+@pytest.mark.parametrize('B', [1, 3, fused_predict.SPLIT_T_MAX_B])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32], ids=['f64', 'f32'])
+@pytest.mark.parametrize('with_aE', [False, True])
+@pytest.mark.parametrize(
+    'n_atoms,m,n_perms', [(10, 37, 1), (6, 13, 3)], ids=['ragged-T37-D45', 'sym-P3'],
+)
+def test_split_t_plain_version_matches_reference_and_jax(n_atoms, m, n_perms, with_aE, dtype, B, blocks):
+    """The split-T route's plain version: the table cut into one run, into 5
+    runs of 8 rows (T=37 and 39 end in a shorter run), or into more runs
+    than rows (the runs past T empty), the block partials added as the
+    reduction adds them; equal to the one-pass plain version and, after the
+    scaling and the Jacobian map, to the JAX package's ``predict_from_tables``.
+    Bounds relative to max |value|: f64 1e-12, f32 1e-5."""
+    X, JA_flat, dperms, Xq, Jcq, aE = _problem(n_atoms, m, n_perms, B, seed=11)
+    sig, std, c = 6.0, 1.7, -3.2
+    aE = aE if with_aE else None
+    bound = 1e-12 if dtype == torch.float64 else 1e-5
+
+    Xt_j, JA_j = jax_predict.build_tables(jnp.asarray(X), jnp.asarray(JA_flat), dperms)
+    E_jax, F_jax = jax_predict.predict_from_tables(
+        jnp.asarray(Xq), jnp.asarray(Jcq), Xt_j, JA_j,
+        None if aE is None else jnp.asarray(aE), sig, std, c, n_atoms=n_atoms,
+    )
+    tables = predict.center_tables(*predict.build_tables(_t(X, dtype), _t(JA_flat, dtype), dperms))
+    args = (_t(Xq, dtype) - tables.mu, tables.Xt, tables.JA, tables.xt_sq, tables.tja,
+            None if aE is None else _t(aE, dtype), sig)
+    T = tables.Xt.shape[0]
+    n_blocks = {'one': 1, 'ragged': 5, 'more-than-T': T + 3}[blocks]
+    assert blocks != 'ragged' or T % -(-T // n_blocks) != 0
+
+    E, F_d = fused_predict.split_t_reference(*args, n_blocks)
+    assert E.dtype == F_d.dtype == dtype and E.shape == (B,) and F_d.shape == (B, tables.Xt.shape[1])
+    E_ref, F_ref = fused_predict.fused_predict_tables_reference(*args)
+    assert _rel(E, E_ref) <= bound and _rel(F_d, F_ref) <= bound
+    E_s, F_s = predict._scale(E, F_d, _t(Jcq, dtype), std, c, n_atoms)
+    assert _rel(E_s, E_jax) <= bound and _rel(F_s, F_jax) <= bound
+    # The CPU wrapper takes the plain version with the blocks it is given.
+    E_w, F_w = fused_predict.split_t(*args, blocks=n_blocks)
+    assert torch.equal(E_w, E) and torch.equal(F_w, F_d)
+
+
+def test_split_t_reduction_adds_runs_of_blocks_in_order():
+    """With more blocks than SPLIT_T_REDUCE_RUNS, the block partials are
+    added in runs of consecutive blocks, then the runs: the same sum, to
+    rounding, as one run, and the blocks past T add nothing."""
+    g = torch.Generator().manual_seed(4)
+    B, T, D = 2, 300, 20
+    Xq = torch.randn(B, D, generator=g, dtype=torch.float64) * 0.3
+    Xt = torch.randn(T, D, generator=g, dtype=torch.float64) * 0.3
+    JA = torch.randn(T, D, generator=g, dtype=torch.float64) * 1e-2
+    args = (Xq, Xt, JA, (Xt * Xt).sum(1), (Xt * JA).sum(1), None, 1.5)
+    assert 100 > fused_predict.SPLIT_T_REDUCE_RUNS
+    E1, F1 = fused_predict.split_t_reference(*args, 1)
+    for blocks in (100, 150, 301, 700):  # 3, 2, 1 and 1 rows a block
+        E, F_d = fused_predict.split_t_reference(*args, blocks)
+        assert _rel(E, E1) <= 1e-13 and _rel(F_d, F1) <= 1e-13
+
+
+@pytest.mark.parametrize(
+    'T,n_sms,expected',
+    [
+        (1000, 132, 125),  # aspirin: 8 rows a block, one for each warp
+        (3000, 132, 250),  # AT-AT: two blocks an SM, 12 rows each
+        (30, 132, 4),      # the golden model
+        (8, 132, 1),       # one block
+        (1, 132, 1),
+        (100_000, 132, 264),
+    ],
+)
+def test_split_t_blocks_rule(T, n_sms, expected):
+    blocks = fused_predict.split_t_blocks(T, n_sms)
+    assert blocks == expected
+    rows = -(-T // blocks)
+    assert (blocks - 1) * rows < T <= blocks * rows  # no empty block
+    assert rows >= min(T, fused_predict.SPLIT_T_WARPS)
+
+
+@pytest.mark.parametrize('break_', ['too-many-queries', 'too-wide', 'no-blocks', 'mixed-dtype'])
+def test_split_t_rejects_what_the_kernel_does_not_take(break_):
+    """More than 16 queries, descriptors past a block's shared memory (16 x
+    2000 f64 is 256 kB), no blocks, or the inputs the wrapper rejects on
+    every route."""
+    B, T, D = 3, 5, 6
+    if break_ == 'too-many-queries':
+        B = 17
+    elif break_ == 'too-wide':
+        B, D = 16, 2000
+    g = torch.Generator().manual_seed(0)
+    Xq = torch.randn(B, D, generator=g, dtype=torch.float64)
+    Xt = torch.randn(T, D, generator=g, dtype=torch.float64)
+    JA = torch.randn(T, D, generator=g, dtype=torch.float64)
+    if break_ == 'mixed-dtype':
+        JA = JA.float()
+    with pytest.raises(ValueError):
+        fused_predict.split_t(Xq, Xt, JA, (Xt * Xt).sum(1), (Xt * Xt).sum(1), None, 4.0,
+                              blocks=0 if break_ == 'no-blocks' else None)
+    if break_ == 'too-wide':  # the same descriptors in f32 fit
+        args = [x.float() for x in (Xq, Xt, JA, (Xt * Xt).sum(1), (Xt * JA).sum(1))]
+        fused_predict.split_t(*args, None, 4.0)
