@@ -37,6 +37,11 @@ the iterative solver's Nystrom preconditioner, in the matmul form of
 :func:`column_force_tile`, written row tile by row tile into a preallocated
 tensor. Assembly is plain PyTorch (cuBLAS products and elementwise kernels)
 on any device.
+
+While a profiler session is on (``utils/profiling.py``),
+:func:`assemble_kernel` adds to the counter ``assembly.perm_blocks`` the
+(row geometry, column geometry, permutation) Hessian blocks it computed,
+``tile_i tile_j P`` a tile.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ._precision import _true_f32
 from . import ozaki
 from .descriptor import incidence
@@ -410,8 +416,10 @@ def assemble_kernel(
             j1 = min(m, j0 + tile_j)
             cols = slice(j0 * dim_i, j1 * dim_i)
             blk = _perm_summed_tile(X[i0:i1], Jc[i0:i1], Xp[j0:j1], Jcp[j0:j1], sig, *consts)
+            profiling.count('assembly.perm_blocks', (i1 - i0) * (j1 - j0) * n_perms)
             K[rows, cols].view(i1 - i0, n_atoms, 3, j1 - j0, n_atoms, 3).copy_(
                 blk.permute(0, 2, 3, 1, 4, 5))
+            del blk  # not held while the next tile's planes are made
             if not use_E_cstr:
                 continue
             # Energy rows under force columns: -grad_x k(x_i, x_t)^T J_t.
@@ -460,6 +468,7 @@ def _grid_block_fn(R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, dtype, tile
                 blk = _perm_summed_tile(X[i0:i1], Jc[i0:i1], Xp[j0:j1], Jcp[j0:j1], sig, *consts, mm=mm)
                 out[(i0 - p0) * dim_i:(i1 - p0) * dim_i, (j0 - q0) * dim_i:(j1 - q0) * dim_i].view(
                     i1 - i0, n_atoms, 3, j1 - j0, n_atoms, 3).copy_(blk.permute(0, 2, 3, 1, 4, 5)).neg_()
+                del blk  # not held while the next tile's planes are made
         if bi == bj and p0 + b_pts > m:
             out.diagonal()[max(0, m - p0) * dim_i:] = 1.0
         return out
