@@ -258,12 +258,16 @@ each a plain assertion that ends the run with a traceback when it fails:
    widths, and at ethanol M = 200 and the golden model's, where the one-pass
    route takes larger batches (the measurement that sets ``SPLIT_T_MAX_B``); (d)
    ``MDEngine.run_nve`` at the aspirin width (N = 21, M = 1000), steps per
-   second through its graphs by split T and with ``SPLIT_T_MAX_B`` 0 (the
-   two-pass route) in turns, and the launches of a split-T run, which
-   must all be split T; (e) at aspirin B = 1, 8 and AT-AT B = 1, 4 in f64,
-   each of split T's two kernels apart (the profiler's device time a call
-   in a graph) and the route's time at 1, 2 and 4 blocks an SM (the
-   measurement that sets ``SPLIT_T_BLOCKS_PER_SM``).
+   second through its graphs in three arms in turns: the fused step
+   (``md_step``), the step's operations one by one around split T (the
+   private oracle: ``_fused_nve`` False) and with ``SPLIT_T_MAX_B`` 0 (two
+   passes); the launches of each arm's run, which must all be its path's;
+   (e) at aspirin B = 1, 8 and AT-AT B = 1, 4 in f64, each of split T's two
+   kernels apart (the profiler's device time a call in a graph) and the
+   route's time at 1, 2 and 4 blocks an SM (the measurement that sets
+   ``SPLIT_T_BLOCKS_PER_SM``); then the step kernel at the aspirin width:
+   its device time a call, beside its bound, a step's time in a graph and
+   the plain version's.
 
 ``python3 chip_smoke.py --split-t`` runs phases 1-2 and 19 alone.
 
@@ -797,6 +801,7 @@ def kernel_us(fn, calls=SPLIT_T_GRAPH_CALLS):
 
 def phase_split_t(device, card):
     """Phase 19; returns the sweep's times {(label, B, route): ms}."""
+    t_phase = time.perf_counter()
     fp = fused_predict
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_abs, n_cases = 0.0, 0
@@ -855,29 +860,41 @@ def phase_split_t(device, card):
     r0 = ds['R'][n_train]
     eng = MDEngine(model, device=device)
     v0 = md_velocities(eng)
-    rates, first = {'split_t': [], 'two_pass': []}, {}
+    unfused = MDEngine(model, device=device)
+    unfused._fused_nve = lambda: False  # the private oracle: the step's operations one by one
+    arms = {'md_step': eng, 'split_t': unfused, 'two_pass': unfused}
+    rates, first = {arm: [] for arm in arms}, {}
     max_b = fp.SPLIT_T_MAX_B
     try:
-        for arm in ('two_pass', 'split_t') * turns:
-            fp.SPLIT_T_MAX_B = max_b if arm == 'split_t' else 0
+        for arm in ('two_pass', 'split_t', 'md_step') * turns:
+            fp.SPLIT_T_MAX_B = 0 if arm == 'two_pass' else max_b
             fp.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, _, E_pot, _ = eng.run_nve(r0, v0, dt, steps, snapshot_every=every)
+            _, _, E_pot, _ = arms[arm].run_nve(r0, v0, dt, steps, snapshot_every=every)
             rates[arm].append(steps / (time.perf_counter() - t0))
             counts = dict(fp.PATH_LAUNCHES, total=fp.LAUNCHES)
             first.setdefault(arm, (E_pot[0], counts))
     finally:
         fp.SPLIT_T_MAX_B = max_b
-    counts = first['split_t'][1]
-    assert counts['split_t'] == counts['total'] > steps, counts
+    n_snap = steps // every
+    counts = first['md_step'][1]
+    assert counts['md_step'] == steps and counts['split_t'] == 1 and counts['total'] == steps + 1, counts
     assert counts['one_pass'] == counts['pass_a'] == counts['pass_b'] == 0, counts
-    e_rel = abs(first['split_t'][0] - first['two_pass'][0]) / abs(first['two_pass'][0])
-    assert e_rel < TOL[torch.float64], e_rel
-    print('[19d split_t md] NVE at N=%d M=%d, %d steps a run, snapshot every %d: %s steps/s by split_t, '
-          '%s by two_pass (in turns); first E_pot of the two %.1e apart; launches of a split_t run %s (%s)' % (
-              n_atoms, n_train, steps, every, ' '.join('%.0f' % r for r in rates['split_t']),
-              ' '.join('%.0f' % r for r in rates['two_pass']), e_rel, counts, card))
+    counts = first['split_t'][1]
+    assert counts['split_t'] == counts['total'] == 1 + steps + n_snap and counts['md_step'] == 0, counts
+    counts = first['two_pass'][1]
+    assert counts['pass_a'] == counts['total'] == 1 + steps + n_snap, counts
+    assert counts['split_t'] == counts['md_step'] == 0, counts
+    e_rel = {arm: abs(first[arm][0] - first['two_pass'][0]) / abs(first['two_pass'][0])
+             for arm in ('md_step', 'split_t')}
+    assert max(e_rel.values()) < TOL[torch.float64], e_rel
+    print('[19d split_t md] NVE at N=%d M=%d, %d steps a run, snapshot every %d, steps/s in turns: %s by the '
+          'fused step, %s by the substep around split_t, %s by two_pass; first E_pot against two_pass %.1e, %.1e '
+          'apart; launches of a fused run %s (%s)' % (
+              n_atoms, n_train, steps, every, *(' '.join('%.0f' % r for r in rates[a])
+                                                for a in ('md_step', 'split_t', 'two_pass')),
+              e_rel['md_step'], e_rel['split_t'], first['md_step'][1], card))
     for label, B, T, D in SPLIT_T_SPLITS:
         args = contraction_inputs(B, T, D, torch.float64, False, seed=3, device=device)
         per_kernel = kernel_us(lambda: fp.split_t(*args))
@@ -886,8 +903,24 @@ def phase_split_t(device, card):
         print('    %-8s B=%d T=%d D=%d f64: %s; from graphs at 1, 2 and 4 blocks an SM %s ms (%s)' % (
             label, B, T, D, ', '.join('%s %.2f us' % kv for kv in per_kernel.items()),
             ' '.join('%.4f' % by_sm[k] for k in (1, 2, 4)), card))
+    T, D = eng.tables.Xt.shape
+    inv_m = 1.0 / eng.masses[:, None]
+    r = torch.as_tensor(r0, dtype=torch.float64, device=device).reshape(n_atoms, 3).clone()
+    v = torch.as_tensor(v0, dtype=torch.float64, device=device).clone()
+    f = eng.energy_forces(r)[1].clone()
+    work = fp.MDStepWork(T, D, torch.float64, device)
+    args = (inv_m, eng.tables, eng.sig, eng.std, dt)
+    per_kernel = kernel_us(lambda: fp.md_step(r, v, f, *args, work=work))
+    in_graph = graph_ms(lambda: fp.md_step(r, v, f, *args, work=work))
+    plain_ms = cuda_ms(lambda: fp.md_step_reference(r, v, f, *args, work.blocks), 20)
+    b_ms, b_by = bound(1, T, D, 8)
+    print('    md_step   N=%d T=%d D=%d f64, %d blocks: %s; %.4f ms a step in a graph of %d; bound %.4f ms by %s '
+          '(%.1f%% of the graph step); plain %.4f ms a step, eager (%s)' % (
+              n_atoms, T, D, work.blocks, ', '.join('%s %.2f us' % kv for kv in per_kernel.items()), in_graph,
+              SPLIT_T_GRAPH_CALLS, b_ms, b_by, 100 * b_ms / in_graph, plain_ms, card))
     print('[19e split_t kernels] device us a call of each kernel (profiler, a graph of %d calls); '
-          'SPLIT_T_BLOCKS_PER_SM = %d' % (SPLIT_T_GRAPH_CALLS, fp.SPLIT_T_BLOCKS_PER_SM))
+          'SPLIT_T_BLOCKS_PER_SM = %d; phase 19 %.1f s' % (SPLIT_T_GRAPH_CALLS, fp.SPLIT_T_BLOCKS_PER_SM,
+                                                           time.perf_counter() - t_phase))
     return sweep
 
 
@@ -1012,10 +1045,10 @@ def phase_md(device):
         drifts[dev] = drift
         assert np.isfinite(R).all() and np.abs(R[-1] - R[0]).max() > 1e-2
         assert drift < MD_DRIFT, (dev, drift)
-    # One launch per force evaluation: the first, one per step, one per snapshot,
-    # each by the split-T route (one geometry).
+    # One launch per force evaluation: the first by the split-T route (one
+    # geometry), then one fused step a step, whose energy the snapshots take.
     nve = dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
-    assert nve['split_t'] == nve['total'] == 1 + 2 * MD_STEPS, nve
+    assert nve['split_t'] == 1 and nve['md_step'] == MD_STEPS and nve['total'] == 1 + MD_STEPS, nve
     assert nve['one_pass'] == nve['pass_a'] == 0, nve
     assert len(captures) == 1, captures  # the run's one block graph, replayed for every step but the first
     eng = MDEngine(model, device=device)
@@ -1027,7 +1060,7 @@ def phase_md(device):
                                              total=fused_predict.LAUNCHES).items()}
     print('[6 md] NVE %d steps dt=%g: drift / mean kinetic energy %.2e on cpu, %.2e on %s '
           '(bound %.0e), a block graph replayed a step (captured in %.1f ms); Langevin 50 steps finite; '
-          'one K1 launch per force evaluation, replays counted; launches %s' % (
+          'one K1 launch per force evaluation (a fused step each), replays counted; launches %s' % (
               MD_STEPS, MD_DT, drifts['cpu'], drifts[device], device, MD_DRIFT, 1e3 * captures[0]['s'], counts))
     return counts
 
@@ -1130,7 +1163,7 @@ def graph_md(label, eng, r0, v0, dt, drift_of):
         with eager_oracle(eng):
             ref = eng.run_nve(r0, v0, dt, steps, snapshot_every=every)
         assert all(np.array_equal(a, b) for a, b in zip(out, ref)), (label, every, 'NVE graph != eager')
-        assert nve['total'] == 1 + n_snap * (every + 1), (label, every, nve)
+        assert nve['total'] == 1 + n_snap * every and nve['md_step'] == n_snap * every, (label, every, nve)
         drift = drift_of(out[2] + out[3], out[3])
         assert np.isfinite(out[0]).all() and drift < MD_DRIFT, (label, every, drift)
         fused_predict.reset_launches()
@@ -4344,7 +4377,7 @@ def main():
     main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts,
                   routes_counts, inplace_counts, cg_graph_counts, bench_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
-    assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b', 'split_t')), counts
+    assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b', 'split_t', 'md_step')), counts
     ms, plain_ms = times['at-at', torch.float64]
     bound_ms, bound_by = bound(*SHAPES['at-at'], 8)
     print('[wall] %.1f s from the start of chip_smoke.py, the kernel build included' % (time.perf_counter() - t_start))
@@ -4355,7 +4388,7 @@ def main():
         'launches': counts['total'], 'max_abs_err': max(max_abs, *(s['max_abs_err'] for s in splits)),
         'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
-        'launches_by_path': {k: counts[k] for k in ('one_pass', 'pass_a', 'pass_b', 'split_t')},
+        'launches_by_path': {k: counts[k] for k in ('one_pass', 'pass_a', 'pass_b', 'split_t', 'md_step')},
         'cg_matvec_shapes': splits,
     }]}))
     print(smi)

@@ -68,6 +68,18 @@
 // over the L1, and comes from L2. HBM sees each row once a call. The block
 // partials go to a scratch buffer and a second small kernel adds them in
 // block order. No atomics, so the same bits every run; FP64 or FP32 FMAs.
+//
+// The MD step, split T's instance fused_predict_kernel<scalar_t, 1, NveStep>
+// (ops/fused_predict.md_step), replaces the JAX package's compiled scan body
+// of velocity Verlet (sgdml_tpu/md.py:_run_nve, whose force evaluation is the
+// TPU kernel sgdml_tpu/ops/pallas_predict.py:_kernel): where PyTorch replays
+// some 25 kernels a step around K1 (the drift, the descriptor and its
+// Jacobian, centring, the Jacobian-transpose map, the kicks), each a graph
+// node of 1-2 us on 63 numbers, the step is one launch. Its bound is split
+// T's: the table bytes from L2 (3.4 MB at the aspirin width, 1 us), plus
+// launch and tail latency. Everything but the table rows fits one block (21
+// atoms, 210 pairs, 63 state values), so every block derives its own query
+// from the state and one block, the last to finish, ends the step (NveStep).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -832,10 +844,191 @@ __device__ __forceinline__ scalar_t warp_scatter_sum(scalar_t (&v)[MAXB], int la
   return v[0];
 }
 
+// The split-T kernel's step policy: how a block stages its queries before
+// the rows, and what it does after them. Queries, the default, copies the B
+// query rows from xq and does nothing after: the contraction alone, whose
+// block partials reduce_kernel adds.
+template <typename scalar_t>
+struct Queries {
+  __device__ __forceinline__ void stage(scalar_t* xq_s, const scalar_t* __restrict__ xq, int B, int D) const {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < B * D; i += ST_THREADS) xq_s[i] = xq[i];
+  }
+
+  __device__ __forceinline__ void finish(scalar_t*, const scalar_t*, int) const {}
+};
+
+// Products, sums and differences rounded each on its own, never contracted
+// into an FMA: the step's elementwise arithmetic as PyTorch's separate
+// kernels (and md_step_reference) round it.
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double drsqrt(double x) { return rsqrt(x); }
+__device__ __forceinline__ float drsqrt(float x) { return rsqrtf(x); }
+
+// Atom pair p = (a, b), a > b, in numpy.tril_indices(N, -1) order: p = a (a - 1) / 2 + b.
+__device__ __forceinline__ void tril_pair(int p, int& a, int& b) {
+  int r = static_cast<int>(0.5f * (1.0f + sqrtf(8.0f * p + 1.0f)));  // then corrected to the exact row
+  while (r * (r - 1) / 2 > p) --r;
+  while (r * (r + 1) / 2 <= p) ++r;
+  a = r;
+  b = p - r * (r - 1) / 2;
+}
+
+// Column c of the rows j0 <= j < j1 of src (row stride ld), added in order
+// from zero as reduce_kernel adds them: loaded R at a time (zeros past j1)
+// before any is added. Read past L1: other blocks wrote them during this
+// kernel.
+template <int R, typename scalar_t>
+__device__ __forceinline__ scalar_t ordered_sum(const scalar_t* src, int j0, int j1, int c, size_t ld) {
+  scalar_t acc = 0;
+  for (int j = j0; j < j1; j += R) {
+    scalar_t x[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = j + k < j1 ? __ldcg(src + (j + k) * ld + c) : scalar_t(0);
+#pragma unroll
+    for (int k = 0; k < R; ++k) acc += x[k];
+  }
+  return acc;
+}
+
+// The ticket of a block that has written its share, taken by one thread
+// after a barrier behind which the block's writes lie: one atomic add that
+// releases them at the GPU's scope and acquires the writes of the blocks
+// that took the ticket before (no full fence). Returns the count before
+// this block's.
+__device__ __forceinline__ unsigned take_ticket(unsigned* ticket) {
+  unsigned seen;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(seen) : "l"(ticket) : "memory");
+  return seen;
+}
+
+// One velocity-Verlet step of MD at B = 1, as the split-T kernel's policy
+// (md.MDEngine.run_nve's substep: the drift, the descriptor, K1, the
+// Jacobian-transpose map and the kick, in one launch). Every block stages
+// the drifted positions r' = r + dt (v + dt/2 f / m) and the centred
+// descriptor of r' (the pair loop of ops/descriptor.descriptor_jacobian) in
+// place of a copy of xq; no block writes the state before all have read it.
+// After the rows one block finishes the step: the partials of each run of
+// `per` consecutive blocks are added, in block order, by the run's last block
+// to finish (a ticket a run), and the run sums, in run order, by the last run
+// to finish (one more ticket): reduce_kernel's sums, to the bit. That block
+// forms F_d = s xq - sum, the forces F = std J^T F_d by the incidence sum (for
+// each atom over its pairs in pair order), and writes r <- r', v <- v_half +
+// dt/2 F / m, f <- F and E_raw. The tickets are the only atomics and count
+// blocks, never values; each is set back to zero by the block that read it
+// last, so every launch (and every CUDA graph replay) finds them at zero.
+// (A second kernel of one block in place of the tickets made a step twice as
+// long: PERF.md, section 6.)
+template <typename scalar_t>
+struct NveStep {
+  scalar_t* r;            // (N, 3) positions, advanced in place
+  scalar_t* v;            // (N, 3) velocities
+  scalar_t* f;            // (N, 3) forces
+  const scalar_t* inv_m;  // (N,) inverse masses
+  const scalar_t* mu;     // (D,) the tables' mean descriptor
+  scalar_t* runs;         // (n_runs, D + 2) the run sums of the block partials
+  unsigned* tickets;      // n_runs + 1 block counters, zero between launches
+  scalar_t* e_out;        // (1,) E_raw at the new positions
+  scalar_t dt, half_dt, label_std;  // the step, half of it, the model's label scale
+  int N, per, n_runs;
+
+  // Shared memory past the staged query: r' and v_half (3N each), the
+  // inverse masses (N), 1/d^3 (D), the column sums (D + 2) and the ticket's
+  // verdict (one element; no static shared memory, which would cut the
+  // dynamic limit below ST_SMEM_MAX).
+  static size_t extra(int N, int D) { return 7 * (size_t)N + 2 * (size_t)D + 3; }
+
+  __device__ __forceinline__ void stage(scalar_t* xq_s, const scalar_t* /*xq*/, int /*B*/, int D) const {
+    scalar_t* rd = xq_s + D;
+    scalar_t* vh = rd + 3 * N;
+    scalar_t* im = vh + 3 * N;
+    scalar_t* id3 = im + N;
+    for (int n = threadIdx.x; n < N; n += ST_THREADS) im[n] = inv_m[n];  // for the kick, without a load
+    scalar_t mu_next = threadIdx.x < D ? mu[threadIdx.x] : scalar_t(0);  // on its way during the drift
+    for (int i = threadIdx.x; i < 3 * N; i += ST_THREADS) {
+      const scalar_t v_half = add_rn(v[i], mul_rn(mul_rn(half_dt, f[i]), inv_m[i / 3]));
+      vh[i] = v_half;
+      rd[i] = add_rn(r[i], mul_rn(dt, v_half));
+    }
+    __syncthreads();
+    for (int p = threadIdx.x; p < D; p += ST_THREADS) {
+      const scalar_t mu_p = mu_next;
+      if (p + ST_THREADS < D) mu_next = mu[p + ST_THREADS];
+      int a, b;
+      tril_pair(p, a, b);
+      const scalar_t dx = sub_rn(rd[3 * a], rd[3 * b]), dy = sub_rn(rd[3 * a + 1], rd[3 * b + 1]),
+                     dz = sub_rn(rd[3 * a + 2], rd[3 * b + 2]);
+      const scalar_t inv_d = drsqrt(add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz)));
+      xq_s[p] = sub_rn(inv_d, mu_p);
+      id3[p] = mul_rn(mul_rn(inv_d, inv_d), inv_d);
+    }
+  }
+
+  // F_d, the forces, the kick and the new state from the column sums tot
+  // (D + 2: the force partials, E_raw, the cx sum); one block.
+  __device__ __forceinline__ void advance(const scalar_t* xq_s, scalar_t* tot, int D) const {
+    const scalar_t* rd = xq_s + D;
+    const scalar_t* vh = rd + 3 * N;
+    const scalar_t* im = vh + 3 * N;
+    const scalar_t* id3 = im + N;
+    const scalar_t s = tot[D + 1];
+    for (int p = threadIdx.x; p < D; p += ST_THREADS) tot[p] = s * xq_s[p] - tot[p];  // F_d, as reduce_kernel
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * N; i += ST_THREADS) {
+      const int n = i / 3, c = i % 3;
+      scalar_t acc = 0;
+#pragma unroll 4
+      for (int b = 0; b < n; ++b) {  // pairs (n, b): the incidence -1
+        const int p = n * (n - 1) / 2 + b;
+        acc = sub_rn(acc, mul_rn(mul_rn(sub_rn(rd[3 * n + c], rd[3 * b + c]), id3[p]), tot[p]));
+      }
+#pragma unroll 4
+      for (int a = n + 1; a < N; ++a) {  // pairs (a, n): +1
+        const int p = a * (a - 1) / 2 + n;
+        acc = add_rn(acc, mul_rn(mul_rn(sub_rn(rd[3 * a + c], rd[3 * n + c]), id3[p]), tot[p]));
+      }
+      const scalar_t F = mul_rn(acc, label_std);
+      r[i] = rd[i];
+      v[i] = add_rn(vh[i], mul_rn(mul_rn(half_dt, F), im[n]));
+      f[i] = F;
+    }
+    if (threadIdx.x == 0) e_out[0] = tot[D];
+  }
+
+  __device__ __forceinline__ void finish(scalar_t* xq_s, const scalar_t* part, int D) const {
+    scalar_t* tot = xq_s + D + 7 * N + D;
+    volatile int& last = *reinterpret_cast<int*>(tot + D + 2);
+    const size_t ld = D + 2;
+    const int k = blockIdx.x / per, j0 = k * per, j1 = min((int)gridDim.x, j0 + per);
+    __syncthreads();  // this block's partial written
+    if (threadIdx.x == 0) last = take_ticket(tickets + k) == unsigned(j1 - j0 - 1);
+    __syncthreads();
+    if (!last) return;
+    for (int c = threadIdx.x; c < D + 2; c += ST_THREADS) runs[k * ld + c] = ordered_sum<8>(part, j0, j1, c, ld);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      tickets[k] = 0;
+      last = take_ticket(tickets + n_runs) == unsigned(n_runs - 1);
+    }
+    __syncthreads();
+    if (!last) return;
+    // The run sums in order (reduce_kernel adds zeros for its empty runs too: no sum but -0 changes).
+    for (int c = threadIdx.x; c < D + 2; c += ST_THREADS) tot[c] = ordered_sum<ST_RUNS>(runs, 0, n_runs, c, ld);
+    if (threadIdx.x == 0) tickets[n_runs] = 0;
+    __syncthreads();
+    advance(xq_s, tot, D);
+  }
+};
+
 // Block j owns table rows [j rows, (j + 1) rows) (none past T) and takes them
 // ST_CHUNK at a time, one a warp. Dynamic shared memory: the chunk's planes
 // cx, cj and ep (MAXB x ST_CHUNK each), |xq|^2 (MAXB), then the B staged
-// queries (B x D). Thread ST_THREADS - 1 - b (idle
+// queries (B x D), then what the step policy Step stages past them. Thread ST_THREADS - 1 - b (idle
 // in the column loop when D < ST_THREADS - B) adds query b's row sums of ep
 // and cx. One query's |xq|^2 is summed by each warp beside its first gram
 // (FOLD), which saves a barrier; more queries' once, before the rows.
@@ -843,13 +1036,13 @@ __device__ __forceinline__ scalar_t warp_scatter_sum(scalar_t (&v)[MAXB], int la
 // sum_t ep, sum_t cx] (row stride D + 2), and the reduction kernel finishes.
 // Phase 2 reads the chunk's rows a second time, thread = column, from the
 // L1 or L2 that phase 1's reads filled (see the note at the head).
-template <typename scalar_t, int MAXB>
+template <typename scalar_t, int MAXB, typename Step = Queries<scalar_t>>
 __global__ void __launch_bounds__(ST_THREADS, MAXB <= 4 ? 2 : 1)
 fused_predict_kernel(const scalar_t* __restrict__ xq, const scalar_t* __restrict__ xt,
                      const scalar_t* __restrict__ ja, const scalar_t* __restrict__ xt_sq,
                      const scalar_t* __restrict__ tja, const scalar_t* __restrict__ ae,
                      const scalar_t sig, const int B, const int T, const int D, const int rows,
-                     scalar_t* __restrict__ part) {
+                     scalar_t* __restrict__ part, const Step step) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   scalar_t* cx_s = reinterpret_cast<scalar_t*>(smem_raw);
   scalar_t* cj_s = cx_s + MAXB * ST_CHUNK;
@@ -868,8 +1061,7 @@ fused_predict_kernel(const scalar_t* __restrict__ xq, const scalar_t* __restrict
     row.at(xt + (size_t)(t_begin + warp) * D, ja + (size_t)(t_begin + warp) * D, D);
     row.load(lane);
   }
-#pragma unroll 4
-  for (int i = tid; i < B * D; i += ST_THREADS) xq_s[i] = xq[i];
+  step.stage(xq_s, xq, B, D);
   __syncthreads();
   if constexpr (!FOLD) {
     for (int b = warp; b < B; b += ST_WARPS) {
@@ -946,6 +1138,7 @@ fused_predict_kernel(const scalar_t* __restrict__ xq, const scalar_t* __restrict
     dst[0] = e_acc;
     dst[1] = s_acc;
   }
+  step.finish(xq_s, part, D);
 }
 
 // E_raw[b] and F_d[b] = (sum_j s_j) xq[b] - sum_j P_j from the block
@@ -996,10 +1189,10 @@ reduce_kernel(const scalar_t* __restrict__ xq, const scalar_t* __restrict__ part
 }
 
 // The split-T kernel's type, which names one instance among the overloads.
-template <typename scalar_t>
+template <typename scalar_t, typename Step = Queries<scalar_t>>
 using SplitTKernel = void (*)(const scalar_t*, const scalar_t*, const scalar_t*, const scalar_t*,
                               const scalar_t*, const scalar_t*, scalar_t, int, int, int, int,
-                              scalar_t*);
+                              scalar_t*, Step);
 
 template <typename scalar_t, int MAXB>
 int launch_split_t_b(const void* xq, const void* xt, const void* ja, const void* xt_sq,
@@ -1015,7 +1208,7 @@ int launch_split_t_b(const void* xq, const void* xt, const void* ja, const void*
       static_cast<const scalar_t*>(xq), static_cast<const scalar_t*>(xt),
       static_cast<const scalar_t*>(ja), static_cast<const scalar_t*>(xt_sq),
       static_cast<const scalar_t*>(tja), static_cast<const scalar_t*>(ae),
-      static_cast<scalar_t>(sig), B, T, D, rows, static_cast<scalar_t*>(part));
+      static_cast<scalar_t>(sig), B, T, D, rows, static_cast<scalar_t*>(part), Queries<scalar_t>());
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_kernel<scalar_t, ST_RUNS><<<dim3((D + 1 + 31) / 32, B), ST_RUNS * 32, 0, st>>>(
@@ -1044,6 +1237,36 @@ int launch_split_t(const void* xq, const void* xt, const void* ja, const void* x
   SGDML_SPLIT_T(16)
 #undef SGDML_SPLIT_T
   return static_cast<int>(cudaErrorInvalidValue);  // B > 16
+}
+
+// One NVE step at B = 1 (see NveStep): `blocks` blocks of the split-T kernel.
+template <typename scalar_t>
+int launch_md_step(const void* xt, const void* ja, const void* xt_sq, const void* tja, const void* mu,
+                   const void* inv_m, double sig, double std_, double dt, int N, int T, int D, int blocks,
+                   void* r, void* v, void* f, void* part, void* runs, void* tickets, void* e_out,
+                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks < 1 || N < 2 || D != N * (N - 1) / 2) return static_cast<int>(cudaErrorInvalidValue);
+  using Step = NveStep<scalar_t>;
+  const SplitTKernel<scalar_t, Step> kernel = fused_predict_kernel<scalar_t, 1, Step>;
+  err = allow_smem<scalar_t, 201>(reinterpret_cast<const void*>(kernel), ST_SMEM_MAX, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t tail = D + Step::extra(N, D);
+  const size_t smem = sizeof(scalar_t) * (3 * ST_CHUNK + 1 + tail);
+  if (smem > ST_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int per = (blocks + ST_RUNS - 1) / ST_RUNS;
+  Step step{static_cast<scalar_t*>(r), static_cast<scalar_t*>(v), static_cast<scalar_t*>(f),
+            static_cast<const scalar_t*>(inv_m), static_cast<const scalar_t*>(mu),
+            static_cast<scalar_t*>(runs), static_cast<unsigned*>(tickets), static_cast<scalar_t*>(e_out),
+            static_cast<scalar_t>(dt), static_cast<scalar_t>(0.5 * dt), static_cast<scalar_t>(std_),
+            N, per, (blocks + per - 1) / per};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<blocks, ST_THREADS, smem, st>>>(
+      nullptr, static_cast<const scalar_t*>(xt), static_cast<const scalar_t*>(ja),
+      static_cast<const scalar_t*>(xt_sq), static_cast<const scalar_t*>(tja), nullptr,
+      static_cast<scalar_t>(sig), 1, T, D, (T + blocks - 1) / blocks, static_cast<scalar_t*>(part), step);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1133,6 +1356,27 @@ int sgdml_split_t_f64(const void* xq, const void* xt, const void* ja, const void
                       void* part, void* e_out, void* f_out, int device, void* stream) {
   return launch_split_t<double>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, blocks, part, e_out, f_out,
                                 device, stream);
+}
+
+// One NVE step of MD on one geometry (N atoms, D = N (N - 1) / 2) against
+// the centred tables: r, v, f (N x 3) advanced in place, E_raw (1) at the new
+// positions; `blocks` split-T blocks with scratch part (blocks x (D + 2)),
+// runs (32 x (D + 2)) and 33 unsigned tickets, zero before the first launch
+// (each launch leaves them at zero).
+int sgdml_md_step_f32(const void* xt, const void* ja, const void* xt_sq, const void* tja, const void* mu,
+                      const void* inv_m, double sig, double std_, double dt, int N, int T, int D, int blocks,
+                      void* r, void* v, void* f, void* part, void* runs, void* tickets, void* e_out, int device,
+                      void* stream) {
+  return launch_md_step<float>(xt, ja, xt_sq, tja, mu, inv_m, sig, std_, dt, N, T, D, blocks, r, v, f, part, runs,
+                               tickets, e_out, device, stream);
+}
+
+int sgdml_md_step_f64(const void* xt, const void* ja, const void* xt_sq, const void* tja, const void* mu,
+                      const void* inv_m, double sig, double std_, double dt, int N, int T, int D, int blocks,
+                      void* r, void* v, void* f, void* part, void* runs, void* tickets, void* e_out, int device,
+                      void* stream) {
+  return launch_md_step<double>(xt, ja, xt_sq, tja, mu, inv_m, sig, std_, dt, N, T, D, blocks, r, v, f, part, runs,
+                                tickets, e_out, device, stream);
 }
 
 const char* sgdml_cuda_error_string(int err) {

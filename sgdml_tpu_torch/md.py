@@ -4,8 +4,12 @@ The trajectory stays on the device. Positions, velocities and forces are
 static tensors that each block of steps updates in place; each snapshot is
 written into a trajectory allocated on the device up front, at a slot index
 that the device itself advances; the trajectory comes back to the host once,
-at the end. A step is a few dozen small device operations around one (E, F)
-prediction (the fused kernel on a GPU).
+at the end. An NVE step is one ``fused_predict.md_step`` wherever K1 at one
+geometry takes the split-T route (on a GPU one kernel launch: the drift, the
+descriptor, the contraction, the force projection and the kick; on the CPU
+its plain version), and each snapshot's energy is the last step's. Elsewhere,
+and in every Langevin step, a step is a few dozen small device operations
+around one (E, F) prediction (the fused kernel on a GPU).
 
 Enqueued one by one from the host, those operations set the pace of a step.
 So on a GPU a block (``snapshot_every`` steps and the snapshot; at most
@@ -28,6 +32,7 @@ import torch
 from . import resolve_device
 from .models.gdml import as_model_dict, model_to_torch
 from .ops import descriptor as desc_ops
+from .ops import fused_predict
 from .predict import build_tables, center_tables, predict_from_tables
 from .utils import graphs, profiling
 from .utils.io import ATOMIC_MASSES
@@ -88,16 +93,26 @@ class MDEngine:
         x = np.asarray(x).reshape(self.n_atoms, 3)
         return torch.tensor(x, dtype=self.dtype, device=self.device)
 
-    def _trajectory(self, r0, v0, n_steps, snapshot_every, substep, noise=None, gen=None):
+    def _fused_nve(self) -> bool:
+        """Whether an NVE step is one ``fused_predict.md_step``: where K1 at
+        one geometry of the model's width takes the split-T route."""
+        return fused_predict.route(*self.tables.Xt.shape, 1) == 'split_t'
+
+    def _trajectory(self, r0, v0, n_steps, snapshot_every, substep, noise=None, gen=None, energy=None):
         """Run ``n_steps // snapshot_every`` blocks of ``snapshot_every``
         substeps and a snapshot; return numpy (R (S,N,3), V, E_pot (S,),
         E_kin).
 
         ``substep(r, v, f, i)`` is the ``i``-th substep of a program's run of
-        them. With ``noise`` (a static ``(k, N, 3)`` buffer), each program
-        call first draws its substeps' rows of it from ``gen``, eagerly: a
-        graph replays its kernels, not its draws, so a captured draw would
-        give every block the same noise.
+        them; it may update ``r, v, f`` in place and return them. With
+        ``noise`` (a static ``(k, N, 3)`` buffer), each program call first
+        draws its substeps' rows of it from ``gen``, eagerly: a graph replays
+        its kernels, not its draws, so a captured draw would give every block
+        the same noise. With ``energy`` (each substep one fused step,
+        ``energy()`` the unscaled energy of the last one), the snapshot takes
+        its energy from the block's last step, not from a new prediction, and
+        each program call adds its steps to the counter ``md.fused_steps``, on
+        the host.
 
         The call is the root span ``md.trajectory`` (with its steps), each
         snapshot's block ``md.blocks`` and the trajectory's copy to the host
@@ -125,17 +140,23 @@ class MDEngine:
                     rk, vk, fk = r, v, f
                     for i in range(k):
                         rk, vk, fk = substep(rk, vk, fk, i)
-                    r.copy_(rk)
-                    v.copy_(vk)
-                    f.copy_(fk)
+                    for dst, src in ((r, rk), (v, vk), (f, fk)):
+                        if src is not dst:
+                            dst.copy_(src)
                     if snapshot:
-                        E, _ = self.energy_forces(r)
+                        E = self.energy_forces(r)[0] if energy is None else (energy() * self.std + self.c)[0]
                         ke = 0.5 * torch.sum(self.masses[:, None] * v * v)
                         for out, x in zip(traj, (r, v, E, ke)):
                             out.index_copy_(0, slot, x[None])
                         slot.add_(1)
 
                 run = graphs.Program(body, self._graphs, pool)
+                if energy is not None:
+                    def counted():
+                        run()
+                        profiling.count('md.fused_steps', k)
+
+                    return counted
                 if noise is None:
                     return run
 
@@ -156,8 +177,23 @@ class MDEngine:
                 return tuple(x.cpu().numpy() for x in traj)
 
     def run_nve(self, r0, v0, dt, n_steps, snapshot_every: int = 1):
-        """NVE (velocity Verlet). Returns (R (S,N,3), V, E_pot (S,), E_kin)."""
+        """NVE (velocity Verlet). Returns (R (S,N,3), V, E_pot (S,), E_kin).
+
+        Where K1 at one geometry takes the split-T route, each step is one
+        ``fused_predict.md_step`` (one kernel on a GPU) and each snapshot's
+        energy the last step's; elsewhere the step's operations run one by
+        one around ``predict_from_tables``."""
         inv_m = 1.0 / self.masses[:, None]
+        if self._fused_nve():
+            work = (fused_predict.MDStepWork(*self.tables.Xt.shape, self.dtype, self.device)
+                    if self.device.type == 'cuda' else None)
+            last = []  # the last step's E_raw
+
+            def step(r, v, f, i):
+                last[:] = [fused_predict.md_step(r, v, f, inv_m, self.tables, self.sig, self.std, dt, work=work)]
+                return r, v, f
+
+            return self._trajectory(r0, v0, n_steps, snapshot_every, step, energy=lambda: last[0])
 
         def substep(r, v, f, i):
             v_half = v + 0.5 * dt * f * inv_m

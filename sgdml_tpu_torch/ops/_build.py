@@ -79,6 +79,9 @@ def load_library() -> ctypes.CDLL:
         'sgdml_two_pass': [ptr] * 6 + [f64] + [i32] * 5 + [ptr, ptr, ptr, i32, ptr],
         # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, blocks, part, E, F_d, device, stream
         'sgdml_split_t': [ptr] * 6 + [f64] + [i32] * 4 + [ptr, ptr, ptr, i32, ptr],
+        # xt, ja, xt_sq, tja, mu, inv_m, sig, std, dt, N, T, D, blocks,
+        # r, v, f, part, runs, tickets, E, device, stream
+        'sgdml_md_step': [ptr] * 6 + [f64] * 3 + [i32] * 4 + [ptr] * 7 + [i32, ptr],
     }
     for stem, types in argtypes.items():
         for suffix in ('_f32', '_f64'):
@@ -91,14 +94,16 @@ def load_library() -> ctypes.CDLL:
 
 
 def kernel_name(mangled: str) -> str:
-    """A kernel's function, scalar type and integer template argument from
-    its mangled name, e.g. ``planes_kernel<double>`` or
-    ``fused_predict_kernel<float, 4>``; the mangled name if it has none."""
-    kind = re.search(r'([a-z_]+_kernel)I([df])(?:Li(\d+)E)?', mangled)
+    """A kernel's function, scalar type, integer template argument and step
+    policy (other than the default ``Queries``) from its mangled name, e.g.
+    ``planes_kernel<double>``, ``fused_predict_kernel<float, 4>`` or
+    ``fused_predict_kernel<double, 1, NveStep>``; the mangled name if it has
+    none."""
+    kind = re.search(r'([a-z_]+_kernel)I([df])(?:Li(\d+)E(?:NS_\d+([A-Za-z]+)I)?)?', mangled)
     if not kind:
         return mangled
-    return '%s<%s%s>' % (kind.group(1), {'d': 'double', 'f': 'float'}[kind.group(2)],
-                         ', ' + kind.group(3) if kind.group(3) else '')
+    args = [{'d': 'double', 'f': 'float'}[kind.group(2)], kind.group(3), kind.group(4)]
+    return '%s<%s>' % (kind.group(1), ', '.join(a for a in args if a and a != 'Queries'))
 
 
 def ptxas_report(lib: ctypes.CDLL) -> dict:

@@ -19,6 +19,12 @@ also launch on their own (:func:`planes`, :func:`forces`). Each of
 beside it (:func:`split_t_reference`, :func:`planes_reference`,
 :func:`forces_reference`) that mirrors the kernel's scratch layout, its
 partial sums and the order in which it adds them.
+
+:func:`md_step` is one velocity-Verlet step of MD at B = 1 in one launch:
+the split-T kernel with the drift and the descriptor before its rows and
+the reduction, the Jacobian-transpose map and the kick after them
+(``csrc/fused_predict.cu``: ``NveStep``); :func:`md_step_reference` is its
+plain version.
 """
 
 from __future__ import annotations
@@ -31,14 +37,15 @@ import torch
 import torch.nn.functional as nnf
 
 from . import _build
+from . import descriptor as desc_ops
 from .kernel import Mat52Coeffs
 
 __all__ = [
-    'K_STEP', 'LAUNCHES', 'ONE_PASS_MAX_STEPS', 'PATH_LAUNCHES', 'SPLIT_T_MAX_B', 'TILE',
+    'K_STEP', 'LAUNCHES', 'MDStepWork', 'ONE_PASS_MAX_STEPS', 'PATH_LAUNCHES', 'SPLIT_T_MAX_B', 'TILE',
     'count_replay', 'fused_predict_tables', 'fused_predict_tables_reference', 'forces',
-    'forces_reference', 'one_pass', 'planes', 'planes_reference', 'recording_launches',
-    'reset_launches', 'route', 'split_k', 'split_t', 'split_t_blocks', 'split_t_reference',
-    'two_pass',
+    'forces_reference', 'md_step', 'md_step_reference', 'one_pass', 'planes', 'planes_reference',
+    'recording_launches', 'reset_launches', 'route', 'split_k', 'split_t', 'split_t_blocks',
+    'split_t_reference', 'two_pass',
 ]
 
 _SQRT5 = math.sqrt(5.0)
@@ -80,13 +87,13 @@ SPLIT_T_XQ_BYTES = 64 * 1024
 _MIN_SPLIT_STEPS = 8
 
 # Kernel launches in this process. LAUNCHES counts calls of the contraction
-# that launched either route; PATH_LAUNCHES counts each kernel's launches, in
+# that launched any route (an MD step is one); PATH_LAUNCHES counts each kernel's launches, in
 # the wrapper that launches it and nowhere else, so that a run can show which
 # kernels its path went through. A launch enqueued while a CUDA graph is
 # captured does not run then but at each replay: the capture records it
 # (``recording_launches``) and each replay counts it (``count_replay``).
 LAUNCHES = 0
-PATH_LAUNCHES = {'one_pass': 0, 'pass_a': 0, 'pass_b': 0, 'split_t': 0}
+PATH_LAUNCHES = {'one_pass': 0, 'pass_a': 0, 'pass_b': 0, 'split_t': 0, 'md_step': 0}
 _RECORDING = []  # the counts of the graph being captured
 
 
@@ -186,11 +193,15 @@ def split_k(B: int, D: int, T: int, n_sms: int):
     return _cdiv(n_k, per), per
 
 
+def _check_kind(x, name):
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError('%s takes CPU or CUDA tensors, got %s' % (name, x.device))
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError('%s takes float32 or float64, got %s' % (name, x.dtype))
+
+
 def _check(Xq, Xt, JA, xt_sq, tja, alphas_E_lin):
-    if Xq.device.type not in ('cpu', 'cuda'):
-        raise ValueError('fused_predict_tables takes CPU or CUDA tensors, got %s' % Xq.device)
-    if Xq.dtype not in (torch.float32, torch.float64):
-        raise ValueError('fused_predict_tables takes float32 or float64, got %s' % Xq.dtype)
+    _check_kind(Xq, 'fused_predict_tables')
     if Xq.dim() != 2:
         raise ValueError('Xq must be (B, D), got shape %s' % (tuple(Xq.shape),))
     B, D = Xq.shape
@@ -510,3 +521,116 @@ def fused_predict_tables(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
 
 
 _LAUNCH = {'split_t': _launch_split_t, 'one_pass': _launch_one_pass, 'two_pass': _launch_two_pass}
+
+
+# One NVE step of MD at B = 1 (csrc/fused_predict.cu: NveStep).
+
+def _step_smem_fits(n_atoms: int, D: int, itemsize: int) -> bool:
+    """Whether the step's block takes a query of width D and the state of
+    n_atoms atoms in its shared memory on sm_90 (227 KB;
+    csrc/fused_predict.cu:launch_md_step): every width that split T takes
+    at B = 1 (``route``: at most SPLIT_T_XQ_BYTES of f64 descriptor)."""
+    return itemsize * (3 * SPLIT_T_WARPS + 1 + 3 * D + 7 * n_atoms + 3) <= 227 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _atom_pairs(n_atoms: int, device: torch.device):
+    """``(idx, sign)``, each ``(N, N - 1)``: the pairs of each atom in pair
+    order and the incidence of the atom in each (-1 in ``(n, b)``, +1 in
+    ``(a, n)``), the order in which the step adds an atom's forces."""
+    pairs = desc_ops.tril_pairs(n_atoms)
+    idx = [[p for p, (a, b) in enumerate(pairs) if n in (a, b)] for n in range(n_atoms)]
+    sign = [[-1.0 if pairs[p][0] == n else 1.0 for p in row] for n, row in enumerate(idx)]
+    return torch.as_tensor(idx, device=device), torch.as_tensor(sign, device=device)
+
+
+def md_step_reference(r, v, f, inv_m, tables, sig, std, dt, blocks):
+    """Plain version of :func:`md_step`, with the kernel's arithmetic: the
+    drift ``v_half = v + dt/2 f inv_m``, ``r' = r + dt v_half``; the centred
+    descriptor of ``r'`` and ``1/d^3``; ``(E_raw, F_d)`` by
+    :func:`split_t_reference` over ``blocks`` blocks; the forces ``F = std
+    J^T F_d``, each atom's sum over its pairs in pair order; then ``v =
+    v_half + dt/2 F inv_m``. Updates ``r``, ``v``, ``f`` in place and returns
+    ``E_raw (1,)`` at ``r'``."""
+    n = r.shape[0]
+    inv_m = inv_m.reshape(n, 1)
+    a, b = torch.as_tensor(desc_ops.tril_pairs(n).T, device=r.device)
+    h = 0.5 * dt
+    v_half = v + h * f * inv_m
+    r_new = r + dt * v_half
+    diffs = r_new[a] - r_new[b]
+    inv_d = torch.rsqrt((diffs[:, 0] * diffs[:, 0] + diffs[:, 1] * diffs[:, 1]) + diffs[:, 2] * diffs[:, 2])
+    E, F_d = split_t_reference((inv_d - tables.mu)[None], tables.Xt, tables.JA, tables.xt_sq, tables.tja, None,
+                               sig, blocks)
+    w = diffs * (inv_d * inv_d * inv_d)[:, None] * F_d[0, :, None]
+    idx, sign = _atom_pairs(n, r.device)
+    acc = torch.zeros_like(r)
+    for j in range(n - 1):
+        acc = acc + sign[:, j, None].to(r.dtype) * w[idx[:, j]]
+    F = acc * std
+    v_new = v_half + h * F * inv_m
+    r.copy_(r_new)
+    v.copy_(v_new)
+    f.copy_(F)
+    return E
+
+
+class MDStepWork:
+    """The step kernel's device scratch for a table of T rows of width D cut
+    into ``blocks`` blocks (default: :func:`split_t_blocks` for the card's
+    SMs): the block partials, the run sums, the tickets (zero, and each
+    launch leaves them so) and ``E`` (E_raw, ``(1,)``). Kept across steps: a
+    CUDA graph of steps replays over the same buffers."""
+
+    def __init__(self, T: int, D: int, dtype, device, blocks=None):
+        device = torch.device(device)
+        if blocks is None:
+            blocks = split_t_blocks(T, _sm_count(device.index if device.index is not None
+                                                 else torch.cuda.current_device()))
+        self.blocks = blocks
+        self.part = torch.empty(blocks * (D + 2), dtype=dtype, device=device)
+        self.runs = torch.empty(SPLIT_T_REDUCE_RUNS * (D + 2), dtype=dtype, device=device)
+        self.tickets = torch.zeros(SPLIT_T_REDUCE_RUNS + 1, dtype=torch.int32, device=device)
+        self.E = torch.empty(1, dtype=dtype, device=device)
+
+
+def md_step(r, v, f, inv_m, tables, sig, std, dt, blocks=None, work=None):
+    """One velocity-Verlet step of MD on one geometry: ``r``, ``v``, ``f``
+    ``(N, 3)`` advanced in place by ``dt``, with the forces of the model
+    whose centred tables are ``tables`` (``predict.Tables``), kernel width
+    ``sig`` and label scale ``std``; ``inv_m`` the ``N`` inverse masses.
+    Returns ``E_raw (1,)`` at the new positions (the energy is ``E_raw std +
+    c``).
+
+    CUDA tensors launch the step kernel on the current stream (one
+    contraction in ``LAUNCHES``, one ``md_step`` in ``PATH_LAUNCHES``), its
+    scratch in ``work`` (an :class:`MDStepWork`, allocated here when None;
+    its ``E`` is the returned tensor); CPU tensors run
+    :func:`md_step_reference`. ``blocks`` cuts the table as
+    :func:`split_t` does (default: :func:`split_t_blocks`, on the CPU for one
+    SM). Raises ValueError for a width the kernel does not take."""
+    n, (T, D) = r.shape[0], tables.Xt.shape
+    if r.dim() != 2 or r.shape[1] != 3 or D != n * (n - 1) // 2 or inv_m.numel() != n:
+        raise ValueError('md_step takes r (N, 3) and N inverse masses against tables of width N (N - 1) / 2, '
+                         'got r %s, inv_m %s and D=%d' % (tuple(r.shape), tuple(inv_m.shape), D))
+    _check_kind(r, 'md_step')
+    _check_named(r, {'r': (r, (n, 3)), 'v': (v, (n, 3)), 'f': (f, (n, 3)), 'inv_m': (inv_m, tuple(inv_m.shape)),
+                     'mu': (tables.mu, (D,)), 'Xt': (tables.Xt, (T, D)), 'JA': (tables.JA, (T, D)),
+                     'xt_sq': (tables.xt_sq, (T,)), 'tja': (tables.tja, (T,))})
+    if not _step_smem_fits(n, D, r.element_size()):
+        raise ValueError("the MD step takes a geometry whose descriptor and state fit a block's shared memory, "
+                         'got N=%d, D=%d in %s' % (n, D, r.dtype))
+    if blocks is not None and blocks < 1:
+        raise ValueError('blocks must be at least 1, got %d' % blocks)
+    if r.device.type == 'cpu':
+        return md_step_reference(r, v, f, inv_m, tables, sig, std, dt, blocks or split_t_blocks(T, 1))
+    if work is None:
+        work = MDStepWork(T, D, r.dtype, r.device, blocks)
+    elif blocks is not None and blocks != work.blocks:
+        raise ValueError('blocks=%d, but work was made for %d' % (blocks, work.blocks))
+    _call(_build.load_library(), 'sgdml_md_step', ('md_step',), r, tables.Xt.data_ptr(), tables.JA.data_ptr(),
+          tables.xt_sq.data_ptr(), tables.tja.data_ptr(), tables.mu.data_ptr(), inv_m.data_ptr(), float(sig),
+          float(std), float(dt), n, T, D, work.blocks, r.data_ptr(), v.data_ptr(),
+          f.data_ptr(), work.part.data_ptr(), work.runs.data_ptr(), work.tickets.data_ptr(), work.E.data_ptr(),
+          *_device_args(r), contraction=True)
+    return work.E
