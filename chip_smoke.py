@@ -26,12 +26,11 @@ each a plain assertion that ends the run with a traceback when it fails:
    instructions (``DMMA``) in the SASS of the f64 two-pass kernels;
 3. K1 against its plain PyTorch version on the card, f32 and f64, with and
    without the energy constraint, launched twice for the same bits: the
-   route that ``route(T, D)`` picks at a ragged shape, the ethanol width, the
-   aspirin width and the full AT-AT width at B = 1, 512 and 10,000; both
-   routes at the ragged and aspirin shapes; pass A's planes and pass B's
-   forces each against its own plain version. Then kernel and plain times
-   at those shapes, and both routes' times across widths (the measurement
-   that sets ``ONE_PASS_MAX_STEPS``), and the two passes' times on their own;
+   route that ``route(D, B)`` picks at a ragged shape, the ethanol width, the
+   aspirin width and the full AT-AT width at B = 1, 512 and 10,000; pass A's
+   planes and pass B's forces each against its own plain version. Then
+   kernel and plain times at those shapes, and the two passes' times on
+   their own;
 4. the golden model (trained by the original sGDML) through
    ``GDMLPredict(device='cuda')`` against the reference's predictions;
 5. serving at full AT-AT width (N=60, M=3000, D=1770) through
@@ -246,17 +245,17 @@ each a plain assertion that ends the run with a traceback when it fails:
    anchor and at ethanol M=1000, eager against graph in turns (3 each),
    iterations/s and the captures; (c) the list of every graph-against-eager
    check of phases 8, 10, 11, 12 and 18;
-19. (run right after phase 3) K1's split-T route, which ``route(T, D, B)``
+19. (run right after phase 3) K1's split-T route, which ``route(D, B)``
    picks for B <= ``SPLIT_T_MAX_B``: (a) against the plain version in f32
    and f64, with and without the energy constraint, two calls bit for bit,
    at a ragged shape with 1, 3 and 16 queries and 1, 5 and more blocks than
    table rows, at the golden model's width and at the rows of (b); (b) at
    aspirin B = 1, 2, 8, AT-AT B = 1, 8 and ethanol B = 1, each call
    replayed from a CUDA graph as MD replays it: its time, its bound, the
-   one-pass and two-pass routes' and the plain version's times; (c) the
-   three routes' times at B = 1 ... 64 at the aspirin, AT-AT and ethanol
-   widths, and at ethanol M = 200 and the golden model's, where the one-pass
-   route takes larger batches (the measurement that sets ``SPLIT_T_MAX_B``); (d)
+   two-pass route's and the plain version's times; (c) both routes' times
+   at B = 1 ... 64 at the aspirin, AT-AT and ethanol widths, and at ethanol
+   M = 200 and the golden model's small tables (the measurement that sets
+   ``SPLIT_T_MAX_B``); (d)
    ``MDEngine.run_nve`` at the aspirin width (N = 21, M = 1000), steps per
    second through its graphs in three arms in turns: the fused step
    (``md_step``), the step's operations one by one around split T (the
@@ -299,6 +298,7 @@ import numpy as np
 import torch
 
 from sgdml_tpu_torch import bench, bench_large, cli, perm, tune
+from sgdml_tpu_torch.bench import PEAK_BYTES_PER_S, PEAK_FLOPS, k1_flops
 from sgdml_tpu_torch.datasets.synthetic import generate_md_dataset, generate_symmetric_md_dataset
 from sgdml_tpu_torch.intf import ase_calc
 from sgdml_tpu_torch.md import MDEngine
@@ -338,20 +338,14 @@ SHAPES = {
     'at-at': (512, 3000, 1770),
     'at-at-10k': (10_000, 3000, 1770),
 }
-# Both routes are checked here, elsewhere the one route(T, D) picks; both
-# are timed here and at AT-AT width B=512, to hold the two designs side by side.
-BOTH_ROUTES = ('ragged', 'ethanol', 'aspirin')
 # Pass A and pass B are checked on their own here (ragged with 3 K splits).
 PASSES = {'ragged': 3, 'at-at-1': None, 'at-at': None}
-# The route-setting measurement: both routes at these widths (N = 5, 9, 15,
-# 21, 30 atoms), table sizes and batches.
-SWEEP_D, SWEEP_T, SWEEP_B = (10, 36, 105, 210, 435), (30, 100, 200, 400, 1000), (1, 1024)
 
 # Phase 19, the split-T route: the checked shapes (label, B, T, D; the
 # ragged one also with the forced block counts SPLIT_T_BLOCKS), the rows
 # timed from graphs (label, B, T, D), the route sweep's batches and widths
-# (label, T, D; the last two where the one-pass route takes larger B), the
-# calls captured in each timing graph, and MD at the
+# (label, T, D; the last two the small tables), the calls captured in each
+# timing graph, and MD at the
 # aspirin width (N, M, steps, turns an arm, snapshot_every, dt).
 SPLIT_T_CHECKS = (('ragged', 1, 37, 45), ('ragged', 3, 37, 45), ('ragged', 16, 37, 45),
                   ('golden', 1, 30, 10))
@@ -573,10 +567,8 @@ BENCH_LARGE_ENV = {
     'ozaki_mesh': {'SGDML_BENCH_MAXS': '1200'},
 }
 
-# H100 SXM data sheet: FP64 tensor-core and FP32 peak (both 67 TFLOP/s),
-# dense int8 tensor-core peak (1,979 TOP/s) and HBM3 bandwidth, for the
-# bounds of K1 and of the int8 products.
-H100_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
+# H100 SXM data sheet: the dense int8 tensor-core peak (1,979 TOP/s), for the
+# bounds of the int8 products (the FP64 and bytes peaks: sgdml_tpu_torch.bench).
 H100_INT8_OPS = 1979e12
 
 # What a later phase holds an earlier phase's run against: phase 5's AT-AT
@@ -691,17 +683,15 @@ def phase_kernel_vs_plain(device):
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_abs, n_cases = 0.0, 0
     for label, (B, T, D) in SHAPES.items():
-        routes = ('one_pass', 'two_pass') if label in BOTH_ROUTES else (fp.route(T, D, B),)
+        name = fp.route(D, B)
         for dtype in (torch.float64, torch.float32):
             for with_aE in (False, True):
                 args = contraction_inputs(B, T, D, dtype, with_aE, seed=B + T + D, device=device)
                 plain = lambda: fp.fused_predict_tables_reference(*args)  # noqa: E731
                 head = '%-9s B=%5d T=%4d D=%4d %s aE=%-5s' % (label, B, T, D, NAME[dtype], with_aE)
-                for r in routes:
-                    run = getattr(fp, r)
-                    max_abs = max(max_abs, check('%s %s' % (head, r), lambda: run(*args), plain,
-                                                 TOL[dtype]))
-                    n_cases += 1
+                max_abs = max(max_abs, check('%s %s' % (head, name), lambda: getattr(fp, name)(*args), plain,
+                                             TOL[dtype]))
+                n_cases += 1
                 if label in PASSES:
                     split = fp.split_k(B, D, T, n_sms)
                     if PASSES[label]:
@@ -723,23 +713,17 @@ def phase_kernel_vs_plain(device):
     for label, (B, T, D) in SHAPES.items():
         if label == 'ragged':
             continue
+        name = fp.route(D, B)
         for dtype in (torch.float64, torch.float32):
             args = contraction_inputs(B, T, D, dtype, False, seed=1, device=device)
-            both = label in BOTH_ROUTES or label == 'at-at'
-            line = []
-            for name in ('one_pass', 'two_pass') if both else (fp.route(T, D, B),):
-                run = getattr(fp, name)
-                ms, plain_ms = time_pair(lambda: run(*args),
-                                         lambda: fp.fused_predict_tables_reference(*args))
-                if name == fp.route(T, D, B):
-                    times[label, dtype] = (ms, plain_ms)
-                line.append('%s %.3f ms vs plain %.3f ms (%.1f TFLOP/s)' % (
-                    name, ms, plain_ms, 8.0 * B * T * D / ms * 1e-9))
+            ms, plain_ms = time_pair(lambda: getattr(fp, name)(*args),
+                                     lambda: fp.fused_predict_tables_reference(*args))
+            times[label, dtype] = (ms, plain_ms)
             b_ms, b_by = bound(B, T, D, args[0].element_size())
-            line.append('bound %.4f ms by %s, %s at %.1f%% of it' % (
-                b_ms, b_by, fp.route(T, D, B), 100 * b_ms / times[label, dtype][0]))
-            print('    %-9s B=%5d T=%4d D=%4d %s  %s' % (label, B, T, D, NAME[dtype], '; '.join(line)))
-            if fp.route(T, D, B) == 'two_pass':
+            print('    %-9s B=%5d T=%4d D=%4d %s  %s %.3f ms vs plain %.3f ms (%.1f TFLOP/s); bound %.4f ms by %s, '
+                  '%.1f%% of it' % (label, B, T, D, NAME[dtype], name, ms, plain_ms,
+                                    B * k1_flops(T, D) / ms * 1e-9, b_ms, b_by, 100 * b_ms / ms))
+            if name == 'two_pass':
                 out, split = fp.planes(*args), fp.split_k(B, D, T, n_sms)
                 a_ms, b_ms = time_pair(lambda: fp.planes(*args),
                                        lambda: fp.forces(*args[:3], *out, *split))
@@ -747,14 +731,6 @@ def phase_kernel_vs_plain(device):
                       '%.3f ms (%.1f TFLOP/s), %d K split(s)' % (
                           label, NAME[dtype], a_ms, 4.0 * B * T * D / a_ms * 1e-9, b_ms,
                           4.0 * B * T * D / b_ms * 1e-9, split[0]))
-    for D in SWEEP_D:
-        for T in SWEEP_T:
-            for B in SWEEP_B:
-                args = contraction_inputs(B, T, D, torch.float64, False, seed=2, device=device)
-                one, two = time_pair(lambda: fp.one_pass(*args), lambda: fp.two_pass(*args))
-                print('    route sweep f64 D=%3d T=%4d B=%4d: one_pass %.4f ms, two_pass %.4f ms '
-                      '-> %s (route(T, D, B) = %s)' % (D, T, B, one, two,
-                                                    'one_pass' if one <= two else 'two_pass', fp.route(T, D, B)))
     print('[3b times] kernel and plain timed in turns in this call')
     return max_abs, times
 
@@ -827,30 +803,26 @@ def phase_split_t(device, card):
         for dtype in (torch.float64, torch.float32):
             args = contraction_inputs(B, T, D, dtype, False, seed=1, device=device)
             ms = {name: graph_ms(lambda: getattr(fp, name)(*args))
-                  for name in ('split_t', 'two_pass', 'one_pass', 'fused_predict_tables_reference')}
+                  for name in ('split_t', 'two_pass', 'fused_predict_tables_reference')}
             b_ms, b_by = bound(B, T, D, args[0].element_size())
             print('    %-8s B=%d T=%d D=%d %s, from graphs: split_t %.4f ms (%d blocks), bound %.4f ms by %s '
-                  '(%.1f%%); two_pass %.4f ms, one_pass %.4f ms, plain %.4f ms; route %s (%s)' % (
+                  '(%.1f%%); two_pass %.4f ms, plain %.4f ms; route %s (%s)' % (
                       label, B, T, D, NAME[dtype], ms['split_t'], fp.split_t_blocks(T, n_sms), b_ms, b_by,
-                      100 * b_ms / ms['split_t'], ms['two_pass'], ms['one_pass'],
-                      ms['fused_predict_tables_reference'], fp.route(T, D, B), card))
+                      100 * b_ms / ms['split_t'], ms['two_pass'], ms['fused_predict_tables_reference'],
+                      fp.route(D, B), card))
     print('[19b split_t rows] timed from CUDA graphs of %d calls in this call' % SPLIT_T_GRAPH_CALLS)
 
     sweep = {}
     for label, T, D in SPLIT_T_SWEEP:
         for B in SPLIT_T_SWEEP_B:
             args = contraction_inputs(B, T, D, torch.float64, False, seed=2, device=device)
-            names = ['two_pass']
-            if fp._split_t_takes(B, D, 8):
-                names.append('split_t')
-            if label != 'at-at':  # one block walks 5,264 steps of the AT-AT table: milliseconds a call
-                names.append('one_pass')
+            names = ['two_pass'] + (['split_t'] if fp._split_t_takes(B, D, 8) else [])
             for name in names:
                 sweep[label, B, name] = graph_ms(lambda: getattr(fp, name)(*args))
             best = min(names, key=lambda n: sweep[label, B, n])
-            print('    route sweep f64 %-8s T=%4d D=%4d B=%2d: %s -> fastest %s, route(T, D, B) = %s' % (
+            print('    route sweep f64 %-11s T=%4d D=%4d B=%2d: %s -> fastest %s, route(D, B) = %s' % (
                 label, T, D, B, ', '.join('%s %.4f ms' % (n, sweep[label, B, n]) for n in names), best,
-                fp.route(T, D, B)))
+                fp.route(D, B)))
     print('[19c split_t sweep] SPLIT_T_MAX_B = %d (%s)' % (fp.SPLIT_T_MAX_B, card))
 
     n_atoms, n_train, steps, turns, every, dt = SPLIT_T_MD
@@ -880,7 +852,7 @@ def phase_split_t(device, card):
     n_snap = steps // every
     counts = first['md_step'][1]
     assert counts['md_step'] == steps and counts['split_t'] == 1 and counts['total'] == steps + 1, counts
-    assert counts['one_pass'] == counts['pass_a'] == counts['pass_b'] == 0, counts
+    assert counts['pass_a'] == counts['pass_b'] == 0, counts
     counts = first['split_t'][1]
     assert counts['split_t'] == counts['total'] == 1 + steps + n_snap and counts['md_step'] == 0, counts
     counts = first['two_pass'][1]
@@ -933,8 +905,8 @@ def phase_golden(device):
     counts = dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
     np.testing.assert_allclose(E, ref['e_pred'], rtol=1e-9, atol=1e-8)
     np.testing.assert_allclose(F, ref['f_pred'], rtol=1e-8, atol=1e-9)
-    (T, D), B = pred.tables.Xt.shape, pred._bucket(len(E))
-    path = path_key(fused_predict.route(T, D, B))
+    D, B = pred.tables.Xt.shape[1], pred._bucket(len(E))
+    path = path_key(fused_predict.route(D, B))
     assert counts[path] > 0 and counts['total'] > 0, counts
     print('[4 golden] GDMLPredict(cuda, f64) on %d geometries: max |dE| %.2e, max |dF| %.2e '
           'against the reference; launches %s' % (
@@ -1006,7 +978,7 @@ def phase_serving(device, card, n_atoms=60, n_train=3000, requests=GRAPH_SERVE_B
                   '%d launch(es)' % (NAME[dtype], B, e_err, f_err, TOL[dtype], fused_predict.LAUNCHES - before))
             assert e_err <= TOL[dtype] and f_err <= TOL[dtype], (dtype, B, e_err, f_err)
     counts = dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
-    assert counts['pass_a'] > 0 and counts['pass_b'] > 0 and counts['one_pass'] == 0, counts
+    assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
     assert counts['split_t'] > 0, counts  # the small requests
 
     for dtype, pred in preds.items():
@@ -1049,7 +1021,7 @@ def phase_md(device):
     # geometry), then one fused step a step, whose energy the snapshots take.
     nve = dict(fused_predict.PATH_LAUNCHES, total=fused_predict.LAUNCHES)
     assert nve['split_t'] == 1 and nve['md_step'] == MD_STEPS and nve['total'] == 1 + MD_STEPS, nve
-    assert nve['one_pass'] == nve['pass_a'] == 0, nve
+    assert nve['pass_a'] == 0, nve
     assert len(captures) == 1, captures  # the run's one block graph, replayed for every step but the first
     eng = MDEngine(model, device=device)
     fused_predict.reset_launches()
@@ -1693,7 +1665,7 @@ def phase_train(device, card):
     phase_train_reference(device)
     ethanol = phase_train_ethanol(device, card)
     counts = launch_counts()
-    assert counts['total'] > 0 and counts['one_pass'] > 0 and counts['pass_a'] > 0, counts
+    assert counts['total'] > 0 and counts['pass_a'] > 0, counts
     print('[7 train] assembly matches the goldens and the plain path; the reference recipes and the '
           'ethanol M=%d force MAE reproduced; M=%d trained; launches %s; %.1f s' % (
               ETHANOL_MAE[0], ETHANOL_M[-1], counts, time.perf_counter() - t0))
@@ -1796,7 +1768,7 @@ def cg_split(label, X, Jc, dperms, sig, lam, n_atoms, idxs, card, turns=0):
           'route %s (%s)' % (
               label, F.shape[0], n, f_bytes / 1e9, it_ms, mv_ms, k1_ms, 100 * k1_ms / it_ms, apply_ms,
               100 * apply_ms / it_ms, 2 * f_bytes / apply_ms * 1e-6, it_ms - mv_ms - apply_ms, B, T, D, k1_ms,
-              plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(T, D, B), card))
+              plain_ms, b_ms, b_by, 100 * b_ms / k1_ms, fused_predict.route(D, B), card))
     return {'label': label, 'B': B, 'T': T, 'D': D, 'ms': k1_ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
             'bound_by': b_by, 'max_abs_err': max_abs, 'iteration_ms': it_ms, 'matvec_ms': mv_ms,
             'apply_ms': apply_ms, 'graph': graph_entry(graph)}
@@ -2010,7 +1982,7 @@ def phase_cg(device, ethanol, card):
         counts = {k: counts[k] + during[k] for k in counts}
         splits.append(split)
         recipes.append(recipe)
-    assert counts['one_pass'] > 0 and counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
+    assert counts['pass_a'] > 0 and counts['pass_b'] > 0, counts
     print('[8 cg] anchor within %d%% of the JAX CPU f64 counts; ethanol CG agrees with the dense model; aspirin '
           '(63,000 unknowns) converged; AT-AT (540,000 unknowns) ran at the memory cap; launches %s; %.1f s' % (
               100 * CG_ANCHOR_TOL[0], counts, time.perf_counter() - t0))
@@ -2140,9 +2112,9 @@ def grid_split(label, L32, X, Jc, dperms, sig, lam, n_atoms, iters, card):
           'bytes floor %.3f) and its %d single-vector leaf triangular solves %.3f; K1 at B=%d T=%d D=%d f64 %.3f ms '
           'vs plain %.3f ms, bound %.4f ms by %s (%.1f%%), route %s (%s)' % (
               label, k, k, b, f_bytes / 1e9, it_ms, GRID_SPLIT_ITERS, mv_ms, k1['ms'], solve_ms,
-              2 * f_bytes / solve_ms * 1e-6, 2 * f_bytes / H100_BYTES_PER_S * 1e3, 2 * k, leaf_ms, k1['B'], k1['T'],
+              2 * f_bytes / solve_ms * 1e-6, 2 * f_bytes / PEAK_BYTES_PER_S * 1e3, 2 * k, leaf_ms, k1['B'], k1['T'],
               k1['D'], k1['ms'], k1['plain_ms'], k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'],
-              fused_predict.route(k1['T'], k1['D'], k1['B']), card))
+              fused_predict.route(k1['D'], k1['B']), card))
     return dict(k1, label=label, iteration_ms=it_ms, matvec_ms=mv_ms, apply_ms=solve_ms, leaf_solves_ms=leaf_ms,
                 solver_iters=int(iters), graph=graph_entry(graph))
 
@@ -2766,7 +2738,7 @@ def int8_bound(m, k, n):
     """(ms, 'bytes' or 'operations'): the least time of an (m, k) x (k, n)
     int8 product with an int32 result on an H100 SXM."""
     t_ops = 2.0 * m * k * n / H100_INT8_OPS * 1e3
-    t_bytes = (m * k + k * n + 4 * m * n) / H100_BYTES_PER_S * 1e3
+    t_bytes = (m * k + k * n + 4 * m * n) / PEAK_BYTES_PER_S * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
@@ -3232,7 +3204,7 @@ def pair_split(label, sstrips, leaves, X, Jc, dperms, sig, lam, n_atoms, iters, 
     graph = refine_graph_chunks(label, A_apply, M_apply, v, card)
     s_bytes = sum(st.slices.numel() for st in sstrips if st is not None)
     l_bytes = sum(d.slices.numel() for d in leaves)
-    floor = (2 * s_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3
+    floor = (2 * s_bytes + 2 * l_bytes) / PEAK_BYTES_PER_S * 1e3
     print('    %s refinement iteration (%d x %d blocks of %d; int8 strips %.2f GB, leaf stacks %.2f GB): %.3f ms in a '
           'chunk of %d; its parts timed alone: matvec %.3f (K1 %.3f), the strip solve from its CUDA graph %.3f '
           '(enqueued in %.3f ms; its reads floor %.3f, %.1f%%) = the eager one\'s bits, the eager solve %.3f '
@@ -3243,7 +3215,7 @@ def pair_split(label, sstrips, leaves, X, Jc, dperms, sig, lam, n_atoms, iters, 
               host_graph_ms, floor, 100 * floor / solve_ms, eager_ms, host_eager_ms, ms['forward'],
               s_bytes / ms['forward'] * 1e-6, ms['transposed'], s_bytes / ms['transposed'] * 1e-6, 2 * k,
               ms['leaves'], 2 * l_bytes / ms['leaves'] * 1e-6, k1['B'], k1['T'], k1['D'], k1['ms'], k1['plain_ms'],
-              k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'], fused_predict.route(k1['T'], k1['D'], k1['B']),
+              k1['bound_ms'], k1['bound_by'], 100 * k1['bound_ms'] / k1['ms'], fused_predict.route(k1['D'], k1['B']),
               card))
     return dict(k1, label=label, iteration_ms=it_ms, matvec_ms=mv_ms, apply_ms=solve_ms, eager_apply_ms=eager_ms,
                 host_apply_ms=host_graph_ms, host_eager_apply_ms=host_eager_ms, forward_ms=ms['forward'],
@@ -3291,8 +3263,8 @@ def pair_products(sstrips, leaves, card):
     upd_ms, split_ms = cuda_ms(update, 5), cuda_ms(split, 5)
     S = ozaki.DEFAULT_SLICES
     pairs = S * (S + 1) // 2
-    int8_ms = max(pairs * 2.0 * b**3 / H100_INT8_OPS, 2 * S * b * b / H100_BYTES_PER_S) * 1e3
-    dgemm_ms = max(2.0 * b**3 / H100_FLOPS, 3 * 8 * b * b / H100_BYTES_PER_S) * 1e3
+    int8_ms = max(pairs * 2.0 * b**3 / H100_INT8_OPS, 2 * S * b * b / PEAK_BYTES_PER_S) * 1e3
+    dgemm_ms = max(2.0 * b**3 / PEAK_FLOPS, 3 * 8 * b * b / PEAK_BYTES_PER_S) * 1e3
     print('    library products at b=%d (%s):' % (b, card))
     print('      trailing update: ozaki_gemm_nt (7 slices, %d slice pairs, lo parts) %.3f ms (%.0f int8 TOP/s; bound '
           '%.3f ms by operations, %.1f%%) vs torch.matmul f64 on pair_to_f64 of the same blocks %.3f ms (%.1f '
@@ -3315,10 +3287,10 @@ def pair_products(sstrips, leaves, card):
     print('      strip solve: solve_strips_int8 (7-slice int8 strips, %.2f GB) %.3f ms (reads floor %.3f ms, %.1f%%) vs '
           'the pair-form solve_strips (f32 + bf16 strips, %.2f GB, each block in f64) %.3f ms (reads floor %.3f ms, '
           '%.1f%%); the same leaf stacks (%.2f GB); %.2e apart (relative; bound %.0e)' % (
-              s_bytes / 1e9, s8_ms, (2 * s_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3,
-              100 * (2 * s_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3 / s8_ms, p_bytes / 1e9, sp_ms,
-              (2 * p_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3,
-              100 * (2 * p_bytes + 2 * l_bytes) / H100_BYTES_PER_S * 1e3 / sp_ms, l_bytes / 1e9, agree,
+              s_bytes / 1e9, s8_ms, (2 * s_bytes + 2 * l_bytes) / PEAK_BYTES_PER_S * 1e3,
+              100 * (2 * s_bytes + 2 * l_bytes) / PEAK_BYTES_PER_S * 1e3 / s8_ms, p_bytes / 1e9, sp_ms,
+              (2 * p_bytes + 2 * l_bytes) / PEAK_BYTES_PER_S * 1e3,
+              100 * (2 * p_bytes + 2 * l_bytes) / PEAK_BYTES_PER_S * 1e3 / sp_ms, l_bytes / 1e9, agree,
               PAIR_SOLVE_TOL))
     assert err <= 1e-9 and agree <= PAIR_SOLVE_TOL, (err, agree)
     del pstrips
@@ -3434,7 +3406,7 @@ def phase_stack_apply(device, card):
     """``--stack-apply``: the slice-stack apply's int8 products in the
     layouts ``ozaki.matvec_sliced_long`` and ``_t`` could take, at the AT-AT
     stack that 11a's plan gives the card's free memory (random slices), each
-    over one pass of the stack, with its GB/s against the bytes bound; then
+    over one read of the stack, with its GB/s against the bytes bound; then
     ``_gram_apply`` on that stack, which reads it twice."""
     ns, k = it_mod.Iterative(max_memory=memory_budget(device) / 1024**3, device=device).resolve_factor_slices(3000, 60)
     rows, ch, n_ch = -(-k * 180 // 16) * 16, -(-45 * 180 // 16) * 16, -(-3000 // 45)
@@ -3445,9 +3417,9 @@ def phase_stack_apply(device, card):
     w[:8] = torch.randint(-96, 97, (8, rows), dtype=torch.int8, device=device, generator=g)
     wc = w[:8].contiguous().T  # a column-major (rows, 8)
     flat = stack.view(ns * rows, -1)
-    one_pass = stack.numel() / H100_BYTES_PER_S * 1e3
-    print('    stack-apply layouts: %d slices x %d rows x %d columns (k=%d), %.2f GB, one pass at least %.3f ms (%s)' % (
-        ns, rows, stack.shape[2], k, stack.numel() / 1e9, one_pass, card))
+    read_ms = stack.numel() / PEAK_BYTES_PER_S * 1e3
+    print('    stack-apply layouts: %d slices x %d rows x %d columns (k=%d), %.2f GB, one read at least %.3f ms (%s)' % (
+        ns, rows, stack.shape[2], k, stack.numel() / 1e9, read_ms, card))
     variants = (
         ('F v, per chunk: (S rows, chunk) x column-major (chunk, 8)',
          lambda: [torch._int_mm(flat[:, c * ch:(c + 1) * ch], sv[:8, c * ch:(c + 1) * ch].T) for c in range(n_ch)]),
@@ -3464,7 +3436,7 @@ def phase_stack_apply(device, card):
         torch.cuda.synchronize()
         ms = cuda_ms(fn, 3)
         print('      %-88s %9.3f ms, %5.0f GB/s, %4.1f%% of the bytes bound' % (
-            label, ms, stack.numel() / ms * 1e-6, 100 * one_pass / ms))
+            label, ms, stack.numel() / ms * 1e-6, 100 * read_ms / ms))
     del sv, w, wc
     F = it_mod.SliceFactor(stack, torch.ones(n_ch, device=device), ch, rows)
     v = torch.as_tensor(np.random.default_rng(0).normal(size=n_ch * ch), device=device)
@@ -3473,7 +3445,7 @@ def phase_stack_apply(device, card):
     ms = cuda_ms(lambda: it_mod._gram_apply(F, v), 3)
     print('      %-88s %9.3f ms, %5.0f GB/s, %4.1f%% of the bytes bound (%s)' % (
         'the apply F^T (F v) (it_mod._gram_apply; reads the stack twice)', ms, 2 * stack.numel() / ms * 1e-6,
-        200 * one_pass / ms, card))
+        200 * read_ms / ms, card))
 
 
 def phase_strip_apply(device, card):
@@ -3508,8 +3480,8 @@ def phase_strip_apply(device, card):
     a24[:8] = vt[:8]
     s_bytes, l_bytes = sum(st.numel() for st in strips), leaves.numel()
     print('    strip-apply layouts at k=%d, b=%d: strips %.2f GB (one read at least %.3f ms), leaf stacks %.2f GB (%.3f '
-          'ms) (%s)' % (k, b, s_bytes / 1e9, s_bytes / H100_BYTES_PER_S * 1e3, l_bytes / 1e9,
-                       l_bytes / H100_BYTES_PER_S * 1e3, card))
+          'ms) (%s)' % (k, b, s_bytes / 1e9, s_bytes / PEAK_BYTES_PER_S * 1e3, l_bytes / 1e9,
+                       l_bytes / PEAK_BYTES_PER_S * 1e3, card))
     mm = torch._int_mm
     variants = (
         ('forward: every slice\'s rows (S rows, b) x column-major (b, 16) [the route]', s_bytes,
@@ -3532,7 +3504,7 @@ def phase_strip_apply(device, card):
         torch.cuda.synchronize()
         ms = cuda_ms(fn, 3)
         print('      %-86s %9.3f ms, %5.0f GB/s, %4.1f%% of the bytes bound' % (
-            label, ms, n_bytes / ms * 1e-6, 100 * n_bytes / H100_BYTES_PER_S * 1e3 / ms))
+            label, ms, n_bytes / ms * 1e-6, 100 * n_bytes / PEAK_BYTES_PER_S * 1e3 / ms))
 
 
 def phase_atat_factors(device, card):
@@ -3924,9 +3896,9 @@ def phase_mesh_pair(device, mesh, grid, card):
               steps['_diag_factor'][1], steps['_diag_factor'][0], steps['_panel'][1], steps['_panel'][0],
               steps['_panel_operands'][1], steps['_panel_operands'][0], steps['_trailing_update'][1],
               steps['_trailing_update'][0], t['solve'], it_ms, cg['matvec_ms'], strip_bytes / 1e9,
-              strip_bytes / cg['matvec_ms'] * 1e-6, strip_bytes / H100_BYTES_PER_S * 1e3, cg['forward_ms'],
+              strip_bytes / cg['matvec_ms'] * 1e-6, strip_bytes / PEAK_BYTES_PER_S * 1e3, cg['forward_ms'],
               cg['transposed_ms'], 2 * pair_half / 1e9, 2 * pair_half / solves_ms * 1e-6,
-              2 * pair_half / H100_BYTES_PER_S * 1e3, peak / 1e9, 14.0 * n * n / 1e9,
+              2 * pair_half / PEAK_BYTES_PER_S * 1e3, peak / 1e9, 14.0 * n * n / 1e9,
               (14.0 * n * n + MESH_PAIR_TRANSIENT_BYTES) / 1e9, mae, len(R), grid['mae'], 100 * MESH_MAE_SHARE, d_f64,
               MESH_PAIR_F64_TOL, d_pair, MESH_PAIR_12A_TOL, RESULTS['13b']['times']['total'],
               grid['times']['total'], RESULTS['12a']['times']['total'], during, card))
@@ -4305,9 +4277,9 @@ def bound(B, T, D, itemsize):
     """(ms, 'bytes' or 'operations'): the least time of one contraction on
     an H100 SXM: 8 B T D operations at 67 TFLOP/s (FP64 tensor core and FP32
     alike) or its inputs read and outputs written once at 3.35 TB/s."""
-    flops = 8.0 * B * T * D
+    flops = B * k1_flops(T, D)
     n_bytes = itemsize * (B * D + 2 * T * D + 2 * T + B + B * D)
-    t_ops, t_bytes = flops / H100_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
@@ -4377,7 +4349,7 @@ def main():
     main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts,
                   routes_counts, inplace_counts, cg_graph_counts, bench_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
-    assert all(counts[k] > 0 for k in ('one_pass', 'pass_a', 'pass_b', 'split_t', 'md_step')), counts
+    assert all(counts[k] > 0 for k in ('pass_a', 'pass_b', 'split_t', 'md_step')), counts
     ms, plain_ms = times['at-at', torch.float64]
     bound_ms, bound_by = bound(*SHAPES['at-at'], 8)
     print('[wall] %.1f s from the start of chip_smoke.py, the kernel build included' % (time.perf_counter() - t_start))
@@ -4388,7 +4360,7 @@ def main():
         'launches': counts['total'], 'max_abs_err': max(max_abs, *(s['max_abs_err'] for s in splits)),
         'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
-        'launches_by_path': {k: counts[k] for k in ('one_pass', 'pass_a', 'pass_b', 'split_t', 'md_step')},
+        'launches_by_path': {k: counts[k] for k in ('pass_a', 'pass_b', 'split_t', 'md_step')},
         'cg_matvec_shapes': splits,
     }]}))
     print(smi)

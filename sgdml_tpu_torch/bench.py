@@ -45,10 +45,12 @@ BASELINE_PATH = pathlib.Path(__file__).resolve().parent.parent / 'BENCH_BASELINE
 BASELINE_NOTE = ('BENCH_BASELINE.json: the reference sGDML NumPy path (with its process auto-tuner) '
                  'on one host CPU of another machine, tests/measure_reference_baseline.py')
 
-# H100 SXM data sheet: the FP64 tensor-core peak. K1 does 8 T D operations
-# a geometry (two (B, D) x (D, T) products for the Gram and the Jacobian
-# terms, two (B, T) x (T, D) for the forces).
+# H100 SXM data sheet: the FP64 tensor-core peak (and FP32's, the same) and
+# the HBM3 bandwidth. K1 does 8 T D operations a geometry (two (B, D) x
+# (D, T) products for the Gram and the Jacobian terms, two (B, T) x (T, D)
+# for the forces).
 PEAK_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 GATE_MAE = 1e-4  # the float64 force MAE against the reference's
 HEADLINE_MAE = 1e-3  # a dtype's force MAE against float64's, for the headline
 

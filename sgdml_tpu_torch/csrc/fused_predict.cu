@@ -16,20 +16,13 @@
 // per table build.
 //
 // What bounds it on this card: four B x T x D products, 8 B T D flop, against
-// the (B, T) coefficient planes, which are 1/D of that work. Three routes,
-// chosen by B, T and D in ops/fused_predict.py:route (measurements in
-// PERF.md); the first two:
+// the (B, T) coefficient planes, which are 1/D of that work. Two routes,
+// chosen by B and D in ops/fused_predict.py:route (measurements in PERF.md):
 //
-//  * One pass, for narrow descriptors (ethanol, D = 36). The (B, T) planes
-//    never leave the chip: a block owns TB query rows and walks all table
-//    tiles itself, so nothing carries over between blocks, there are no
-//    atomics, and the result is the same from run to run. One launch per
-//    call, which is what MD on small molecules needs. Plain FP32 or FP64
-//    FMAs; each shared-memory load feeds one FMA, and small batches fill few
-//    SMs, so it does not scale to wide descriptors.
-//  * Two passes, for wide descriptors (AT-AT, D = 1770). At that width a
-//    block's (rows, D) force accumulator does not fit on chip (64 x 1770 f64
-//    is 906 KB), while writing the planes to device memory costs ~1/D of the
+//  * Two passes, for every batch above split T's: bulk prediction, the
+//    serving buckets, CG's matvecs (B = T). A block's (rows, D) force
+//    accumulator does not fit on chip at wide descriptors (64 x 1770 f64 is
+//    906 KB), while writing the planes to device memory costs ~1/D of the
 //    products. So the contraction is two tiled matrix products with the
 //    planes in between, the shape of attention with a head too wide to keep:
 //      pass A (planes): grid (B tiles x T tiles); gram and xq.ja of a 64 x 64
@@ -47,27 +40,26 @@
 //    (an f32 row of D = 1770 is not a multiple of 16 bytes) and ragged B, T
 //    and D edges need no padding in device memory.
 //
-// A third route, split T, replaces the same TPU kernel
-// (sgdml_tpu/ops/pallas_predict.py:_kernel) at small B: one geometry a call
-// in MD and the ASE calculator, or a few in a small predict bucket. Both
-// routes above spread the query axis over the card, so at B = 1 the one-pass
-// route runs one block and the two-pass route 16 blocks of zero-filled
-// 64-row tiles, then 64 and then one, in three launches. At B = 1
-// the work is 8 T D flop against 2 T D table elements: the bound is the table
-// bytes (3.4 MB at the aspirin width, which stay in the 50 MB L2 across MD
-// steps) and, below a few microseconds, launch and tail latency. So split T
-// spreads the table axis instead: block j of about one per SM owns a run of
-// consecutive table rows, stages the B <= 16 queries in shared memory once,
-// and a warp takes one row at a time: 16-byte loads of xt[t] and ja[t]
+//  * Split T, for at most 16 queries: one geometry a call in MD and the ASE
+//    calculator, or a few in a small predict bucket.
+//
+// Two passes spread the query axis over the card, so at B = 1 they run 16
+// blocks of zero-filled 64-row tiles, then 64 and then one, in three launches.
+// At B = 1 the work is 8 T D flop against 2 T D table elements: the bound is
+// the table bytes (3.4 MB at the aspirin width, which stay in the 50 MB L2
+// across MD steps) and, below a few microseconds, launch and tail latency. So
+// split T spreads the table axis instead: block j of about one per SM owns a
+// run of consecutive table rows, stages the B <= 16 queries in shared memory
+// once, and a warp takes one row at a time: 16-byte loads of xt[t] and ja[t]
 // (element loads on ragged edges), gram and xq.ja for every query by a warp
 // reduction, the planes by plane_terms. A row's planes exist only once its
-// whole dot is summed, so the block then reads the chunk's rows a second
-// time, a thread a column, and adds cx xt + cj ja into its partial forces.
-// That second read finds the rows on chip or in L2: at D = 210 an f64 chunk
-// of 8 row pairs is 27 KB and stays in the SM's L1; at D = 1770 it is 226 KB,
-// over the L1, and comes from L2. HBM sees each row once a call. The block
-// partials go to a scratch buffer and a second small kernel adds them in
-// block order. No atomics, so the same bits every run; FP64 or FP32 FMAs.
+// whole dot is summed, so the block then reads the chunk's rows a second time,
+// a thread a column, and adds cx xt + cj ja into its partial forces. That
+// second read finds the rows on chip or in L2: at D = 210 an f64 chunk of 8
+// row pairs is 27 KB and stays in the SM's L1; at D = 1770 it is 226 KB, over
+// the L1, and comes from L2. HBM sees each row once a call. The block partials
+// go to a scratch buffer and a second small kernel adds them in block order.
+// No atomics, so the same bits every run; FP64 or FP32 FMAs.
 //
 // The MD step, split T's instance fused_predict_kernel<scalar_t, 1, NveStep>
 // (ops/fused_predict.md_step), replaces the JAX package's compiled scan body
@@ -128,18 +120,6 @@ __device__ __forceinline__ void plane_terms(scalar_t g, scalar_t q, scalar_t xq_
   cj = w2;
 }
 
-// ===========================================================================
-// One pass (narrow descriptors).
-// ===========================================================================
-
-constexpr int TB = 16;        // query rows per block
-constexpr int TT = 32;        // table rows per tile (one per lane)
-constexpr int DK = 32;        // descriptor columns per shared-memory chunk
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-static_assert(TB == 2 * NWARPS, "each warp owns two query rows");
-static_assert(TT == 32 && DK == 32, "lanes index table rows and columns");
-
 template <typename scalar_t>
 __device__ __forceinline__ scalar_t warp_sum(scalar_t v) {
 #pragma unroll
@@ -147,146 +127,8 @@ __device__ __forceinline__ scalar_t warp_sum(scalar_t v) {
   return v;
 }
 
-// Copy rows [r0, r0 + R) x columns [k0, k0 + DK) of a (n_rows, D) row-major
-// matrix into dst[R][DK + 1], with zeros outside the matrix.
-template <typename scalar_t, int R>
-__device__ __forceinline__ void load_chunk(scalar_t (*dst)[DK + 1],
-                                           const scalar_t* __restrict__ src,
-                                           int r0, int n_rows, int k0, int D) {
-  for (int i = threadIdx.x; i < R * DK; i += NTHREADS) {
-    const int r = i / DK, c = i % DK;
-    const int row = r0 + r, k = k0 + c;
-    dst[r][c] = (row < n_rows && k < D) ? src[(size_t)row * D + k] : scalar_t(0);
-  }
-}
-
-// Each warp owns two query rows for the whole kernel, so the row sums of the
-// planes are warp shuffles and need no shared memory.
-template <typename scalar_t>
-__global__ void __launch_bounds__(NTHREADS)
-fused_predict_kernel(const scalar_t* __restrict__ xq, const scalar_t* __restrict__ xt,
-                     const scalar_t* __restrict__ ja, const scalar_t* __restrict__ xt_sq,
-                     const scalar_t* __restrict__ tja, const scalar_t* __restrict__ ae,
-                     const scalar_t sig, const int B, const int T, const int D,
-                     scalar_t* __restrict__ e_out, scalar_t* __restrict__ f_out) {
-  __shared__ scalar_t xq_s[TB][DK + 1];
-  __shared__ scalar_t xt_s[TT][DK + 1];
-  __shared__ scalar_t ja_s[TT][DK + 1];
-  __shared__ scalar_t cx_s[TB][TT + 1];  // w1 + w3: weight of -xt (and, summed, of +xq)
-  __shared__ scalar_t cj_s[TB][TT + 1];  // w2: weight of -ja
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int b0 = blockIdx.x * TB;
-  const int rows[2] = {warp, warp + NWARPS};  // this warp's rows within the block
-  const Coeffs<scalar_t> cf = coeffs(sig);
-
-  // |xq|^2 of this warp's rows; every lane ends with the full sum.
-  scalar_t xq_sq[2], e_acc[2] = {0, 0}, s_acc[2] = {0, 0};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int b = b0 + rows[r];
-    scalar_t acc = 0;
-    if (b < B)
-      for (int k = lane; k < D; k += 32) {
-        const scalar_t v = xq[(size_t)b * D + k];
-        acc += v * v;
-      }
-    xq_sq[r] = warp_sum(acc);
-  }
-
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    // Phase 1: gram = xq.xt and xq.ja for the (TB, TT) tile; lane = table row.
-    scalar_t g[2] = {0, 0}, q[2] = {0, 0};
-    for (int k0 = 0; k0 < D; k0 += DK) {
-      load_chunk<scalar_t, TB>(xq_s, xq, b0, B, k0, D);
-      load_chunk<scalar_t, TT>(xt_s, xt, t0, T, k0, D);
-      load_chunk<scalar_t, TT>(ja_s, ja, t0, T, k0, D);
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < DK; ++c) {
-        const scalar_t vt = xt_s[lane][c], vj = ja_s[lane][c];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const scalar_t vq = xq_s[rows[r]][c];
-          g[r] += vq * vt;
-          q[r] += vq * vj;
-        }
-      }
-      __syncthreads();
-    }
-
-    // Coefficient planes.
-    const int t = t0 + lane;
-    const bool t_ok = t < T;
-    const scalar_t xts = t_ok ? xt_sq[t] : scalar_t(0);
-    const scalar_t tj = t_ok ? tja[t] : scalar_t(0);
-    const scalar_t aet = (ae != nullptr && t_ok) ? ae[t] : scalar_t(0);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      scalar_t ep, cx, cj;
-      plane_terms(g[r], q[r], xq_sq[r], xts, tj, ae != nullptr, aet, t_ok, cf, ep, cx, cj);
-      cx_s[rows[r]][lane] = cx;
-      cj_s[rows[r]][lane] = cj;
-      e_acc[r] += warp_sum(ep);
-      s_acc[r] += warp_sum(cx);
-    }
-    __syncthreads();
-
-    // Phase 2: F_d[b, k] -= sum_t cx[b, t] xt[t, k] + cj[b, t] ja[t, k]; lane = column.
-    for (int k0 = 0; k0 < D; k0 += DK) {
-      load_chunk<scalar_t, TT>(xt_s, xt, t0, T, k0, D);
-      load_chunk<scalar_t, TT>(ja_s, ja, t0, T, k0, D);
-      __syncthreads();
-      scalar_t f[2] = {0, 0};
-#pragma unroll 8
-      for (int tt = 0; tt < TT; ++tt) {
-        const scalar_t vt = xt_s[tt][lane], vj = ja_s[tt][lane];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) f[r] += cx_s[rows[r]][tt] * vt + cj_s[rows[r]][tt] * vj;
-      }
-      const int k = k0 + lane;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int b = b0 + rows[r];
-        if (b < B && k < D) {
-          scalar_t* dst = f_out + (size_t)b * D + k;
-          *dst = (t0 == 0 ? scalar_t(0) : *dst) - f[r];  // the first tile initialises
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // F_d += (sum_t cx) xq, and the energies. The same thread wrote each
-  // element of F_d above (k = k0 + lane), so no barrier is needed.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int b = b0 + rows[r];
-    if (b >= B) continue;
-    for (int k = lane; k < D; k += 32) f_out[(size_t)b * D + k] += s_acc[r] * xq[(size_t)b * D + k];
-    if (lane == 0) e_out[b] = e_acc[r];
-  }
-}
-
-template <typename scalar_t>
-int launch(const void* xq, const void* xt, const void* ja, const void* xt_sq,
-           const void* tja, const void* ae, double sig, int B, int T, int D,
-           void* e_out, void* f_out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + TB - 1) / TB);
-  fused_predict_kernel<scalar_t><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const scalar_t*>(xq), static_cast<const scalar_t*>(xt),
-      static_cast<const scalar_t*>(ja), static_cast<const scalar_t*>(xt_sq),
-      static_cast<const scalar_t*>(tja), static_cast<const scalar_t*>(ae),
-      static_cast<scalar_t>(sig), B, T, D,
-      static_cast<scalar_t*>(e_out), static_cast<scalar_t*>(f_out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ===========================================================================
-// Two passes (wide descriptors).
+// Two passes (batches above split T's).
 // ===========================================================================
 
 constexpr int TILE = 64;    // rows and columns of a block tile (ops/fused_predict.py:TILE)
@@ -1188,17 +1030,11 @@ reduce_kernel(const scalar_t* __restrict__ xq, const scalar_t* __restrict__ part
   else if (c == D) e_out[b] = acc;
 }
 
-// The split-T kernel's type, which names one instance among the overloads.
-template <typename scalar_t, typename Step = Queries<scalar_t>>
-using SplitTKernel = void (*)(const scalar_t*, const scalar_t*, const scalar_t*, const scalar_t*,
-                              const scalar_t*, const scalar_t*, scalar_t, int, int, int, int,
-                              scalar_t*, Step);
-
 template <typename scalar_t, int MAXB>
 int launch_split_t_b(const void* xq, const void* xt, const void* ja, const void* xt_sq,
                      const void* tja, const void* ae, double sig, int B, int T, int D, int blocks,
                      void* part, void* e_out, void* f_out, int device, cudaStream_t st) {
-  const SplitTKernel<scalar_t> kernel = fused_predict_kernel<scalar_t, MAXB>;
+  const auto kernel = fused_predict_kernel<scalar_t, MAXB>;
   cudaError_t err = allow_smem<scalar_t, 100 + MAXB>(reinterpret_cast<const void*>(kernel), ST_SMEM_MAX, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = sizeof(scalar_t) * (3 * MAXB * ST_CHUNK + MAXB + (size_t)B * D);
@@ -1249,7 +1085,7 @@ int launch_md_step(const void* xt, const void* ja, const void* xt_sq, const void
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks < 1 || N < 2 || D != N * (N - 1) / 2) return static_cast<int>(cudaErrorInvalidValue);
   using Step = NveStep<scalar_t>;
-  const SplitTKernel<scalar_t, Step> kernel = fused_predict_kernel<scalar_t, 1, Step>;
+  const auto kernel = fused_predict_kernel<scalar_t, 1, Step>;
   err = allow_smem<scalar_t, 201>(reinterpret_cast<const void*>(kernel), ST_SMEM_MAX, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t tail = D + Step::extra(N, D);
@@ -1276,21 +1112,6 @@ int launch_md_step(const void* xt, const void* ja, const void* xt_sq, const void
 // cudaGetLastError() after its launches (0 on success); the launches are
 // asynchronous on `stream`, and nothing is allocated here.
 extern "C" {
-
-// One pass: E_raw (B,) and F_d (B, D).
-int sgdml_fused_predict_f32(const void* xq, const void* xt, const void* ja,
-                            const void* xt_sq, const void* tja, const void* ae,
-                            double sig, int B, int T, int D, void* e_out,
-                            void* f_out, int device, void* stream) {
-  return launch<float>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, e_out, f_out, device, stream);
-}
-
-int sgdml_fused_predict_f64(const void* xq, const void* xt, const void* ja,
-                            const void* xt_sq, const void* tja, const void* ae,
-                            double sig, int B, int T, int D, void* e_out,
-                            void* f_out, int device, void* stream) {
-  return launch<double>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, e_out, f_out, device, stream);
-}
 
 // Pass A: planes (B, 2 Tp), e_part and s_part (B, Tp / 64), Tp = T rounded up to 64.
 int sgdml_planes_f32(const void* xq, const void* xt, const void* ja, const void* xt_sq,

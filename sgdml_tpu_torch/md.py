@@ -96,7 +96,7 @@ class MDEngine:
     def _fused_nve(self) -> bool:
         """Whether an NVE step is one ``fused_predict.md_step``: where K1 at
         one geometry of the model's width takes the split-T route."""
-        return fused_predict.route(*self.tables.Xt.shape, 1) == 'split_t'
+        return fused_predict.route(self.tables.Xt.shape[1], 1) == 'split_t'
 
     def _trajectory(self, r0, v0, n_steps, snapshot_every, substep, noise=None, gen=None, energy=None):
         """Run ``n_steps // snapshot_every`` blocks of ``snapshot_every``

@@ -69,8 +69,6 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     argtypes = {
-        # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, E, F_d, device, stream
-        'sgdml_fused_predict': [ptr] * 6 + [f64, i32, i32, i32, ptr, ptr, i32, ptr],
         # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, planes, e_part, s_part, device, stream
         'sgdml_planes': [ptr] * 6 + [f64, i32, i32, i32, ptr, ptr, ptr, i32, ptr],
         # xq, xt, ja, planes, e_part, s_part, B, T, D, splits, per, partial, E, F_d, device, stream

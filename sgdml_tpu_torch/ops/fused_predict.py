@@ -8,13 +8,12 @@ forces ``F_d (B, D)`` of ``sgdml_tpu/predict.py:_predict_from_tables_body``
 for CUDA tensors and runs :func:`fused_predict_tables_reference`, the plain
 PyTorch version, for CPU tensors.
 
-It has three routes, picked by :func:`route` from the batch B, the table
-size T and the descriptor width D: :func:`split_t` for small B, the table
-rows spread over the card and the blocks' partial sums added by a second
-small kernel; above it :func:`one_pass`, one kernel with the ``(B, T)``
-coefficient planes kept on chip, and :func:`two_pass`, two tiled products
-with the planes in device memory between them. The two-pass route's passes
-also launch on their own (:func:`planes`, :func:`forces`). Each of
+It has two routes, picked by :func:`route` from the batch B and the
+descriptor width D: :func:`split_t` for small B, the table rows spread over
+the card and the blocks' partial sums added by a second small kernel, and
+:func:`two_pass` above it, two tiled products with the ``(B, T)``
+coefficient planes in device memory between them. The two-pass route's
+passes also launch on their own (:func:`planes`, :func:`forces`). Each of
 :func:`split_t`, :func:`planes` and :func:`forces` has a plain version
 beside it (:func:`split_t_reference`, :func:`planes_reference`,
 :func:`forces_reference`) that mirrors the kernel's scratch layout, its
@@ -41,9 +40,9 @@ from . import descriptor as desc_ops
 from .kernel import Mat52Coeffs
 
 __all__ = [
-    'K_STEP', 'LAUNCHES', 'MDStepWork', 'ONE_PASS_MAX_STEPS', 'PATH_LAUNCHES', 'SPLIT_T_MAX_B', 'TILE',
+    'K_STEP', 'LAUNCHES', 'MDStepWork', 'PATH_LAUNCHES', 'SPLIT_T_MAX_B', 'TILE',
     'count_replay', 'fused_predict_tables', 'fused_predict_tables_reference', 'forces',
-    'forces_reference', 'md_step', 'md_step_reference', 'one_pass', 'planes', 'planes_reference',
+    'forces_reference', 'md_step', 'md_step_reference', 'planes', 'planes_reference',
     'recording_launches', 'reset_launches', 'route', 'split_k', 'split_t', 'split_t_blocks',
     'split_t_reference', 'two_pass',
 ]
@@ -56,14 +55,6 @@ _SQRT5 = math.sqrt(5.0)
 TILE = 64
 K_STEP = 16
 
-# A block of the one-pass kernel walks the table in 32-row tiles, and each
-# tile in 32-wide chunks of D: ceil(T / 32) ceil(D / 32) steps one after the
-# other, whatever B. Up to this many steps it beats the two-pass route (one
-# kernel against three); above, the two-pass route wins. Set from both routes'
-# times on an H100 across T = 30 ... 1000 and D = 10 ... 435 (PERF.md,
-# section 6): D alone does not decide it.
-ONE_PASS_MAX_STEPS = 16
-
 # The split-T route (csrc/fused_predict.cu: ST_WARPS, ST_RUNS): the warps of
 # a block, one table row each at a time, so that a block owns at least this
 # many rows; the blocks it launches for each SM (two hold more loads in
@@ -74,11 +65,10 @@ SPLIT_T_BLOCKS_PER_SM = 2
 SPLIT_T_REDUCE_RUNS = 32
 
 # Batches of up to SPLIT_T_MAX_B queries whose f64 descriptors (B x D) take
-# up to SPLIT_T_XQ_BYTES take the split-T route; others the one-pass or
-# two-pass route. Set from the three routes' times on an H100 at B = 1 ... 64
-# (PERF.md, section 6): split T is the fastest up to B = 16 at D = 210 and
-# D = 36, and up to B = 4 at D = 1770 (4 x 1770 x 8 bytes; at B = 8 the
-# two-pass route wins).
+# up to SPLIT_T_XQ_BYTES take the split-T route; others the two-pass route.
+# Set from both routes' times on an H100 at B = 1 ... 64 (PERF.md, section
+# 6): split T is the fastest up to B = 16 at D = 210 and D = 36, and up to
+# B = 4 at D = 1770 (4 x 1770 x 8 bytes; at B = 8 the two-pass route wins).
 SPLIT_T_MAX_B = 16
 SPLIT_T_XQ_BYTES = 64 * 1024
 
@@ -93,7 +83,7 @@ _MIN_SPLIT_STEPS = 8
 # captured does not run then but at each replay: the capture records it
 # (``recording_launches``) and each replay counts it (``count_replay``).
 LAUNCHES = 0
-PATH_LAUNCHES = {'one_pass': 0, 'pass_a': 0, 'pass_b': 0, 'split_t': 0, 'md_step': 0}
+PATH_LAUNCHES = {'pass_a': 0, 'pass_b': 0, 'split_t': 0, 'md_step': 0}
 _RECORDING = []  # the counts of the graph being captured
 
 
@@ -106,7 +96,7 @@ def reset_launches():
 
 
 def _add(counts):
-    """Add ``counts`` (``{'total': n, 'one_pass': n, ...}``) to the launch
+    """Add ``counts`` (``{'total': n, 'pass_a': n, ...}``) to the launch
     counts."""
     global LAUNCHES
     LAUNCHES += counts.get('total', 0)
@@ -164,14 +154,10 @@ def _split_t_takes(B: int, D: int, itemsize: int) -> bool:
     return B <= 16 and itemsize * (3 * maxb * SPLIT_T_WARPS + maxb + B * D) <= 227 * 1024
 
 
-def route(T: int, D: int, B: int) -> str:
+def route(D: int, B: int) -> str:
     """``'split_t'`` for at most :data:`SPLIT_T_MAX_B` queries of at most
-    :data:`SPLIT_T_XQ_BYTES` of f64 descriptors; otherwise ``'one_pass'``
-    while the one-pass kernel's ``ceil(T / 32) ceil(D / 32)`` serial steps
-    are at most :data:`ONE_PASS_MAX_STEPS`, ``'two_pass'`` above."""
-    if B <= SPLIT_T_MAX_B and B * D * 8 <= SPLIT_T_XQ_BYTES:
-        return 'split_t'
-    return 'one_pass' if _cdiv(T, 32) * _cdiv(D, 32) <= ONE_PASS_MAX_STEPS else 'two_pass'
+    :data:`SPLIT_T_XQ_BYTES` of f64 descriptors, ``'two_pass'`` otherwise."""
+    return 'split_t' if B <= SPLIT_T_MAX_B and B * D * 8 <= SPLIT_T_XQ_BYTES else 'two_pass'
 
 
 def split_t_blocks(T: int, n_sms: int) -> int:
@@ -380,16 +366,6 @@ def _call(lib, stem, paths, x, *args, contraction=False):
 # The route launchers take checked CUDA tensors, the library and the (device
 # index, stream) pair, and allocate only their outputs and scratch.
 
-def _launch_one_pass(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig):
-    (B, D), T = Xq.shape, Xt.shape[0]
-    E = torch.empty(B, dtype=Xq.dtype, device=Xq.device)
-    F_d = torch.empty(B, D, dtype=Xq.dtype, device=Xq.device)
-    _call(lib, 'sgdml_fused_predict', ('one_pass',), Xq, Xq.data_ptr(), Xt.data_ptr(),
-          JA.data_ptr(), xt_sq.data_ptr(), tja.data_ptr(), _ptr(aE), float(sig), B, T, D,
-          E.data_ptr(), F_d.data_ptr(), *dev, contraction=True)
-    return E, F_d
-
-
 def _launch_two_pass(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig):
     """Pass A then pass B in one call, their scratch in one allocation."""
     (B, D), T = Xq.shape, Xt.shape[0]
@@ -460,16 +436,6 @@ def forces(Xq, Xt, JA, planes_, e_part, s_part, splits, per):
     return E, F_d
 
 
-def one_pass(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
-    """The one-pass route: one kernel launch on CUDA tensors, the plain
-    version on CPU tensors."""
-    _check(Xq, Xt, JA, xt_sq, tja, alphas_E_lin)
-    if Xq.device.type == 'cpu':
-        return fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig)
-    return _launch_one_pass(_build.load_library(), _device_args(Xq), Xq, Xt, JA, xt_sq, tja,
-                            alphas_E_lin, sig)
-
-
 def two_pass(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
     """The two-pass route: pass A then pass B, K split by :func:`split_k`
     for the card, on CUDA tensors; the plain passes, in one K run, on CPU
@@ -509,18 +475,15 @@ def fused_predict_tables(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
     :func:`fused_predict_tables_reference` for the arguments).
 
     CUDA tensors launch the kernel on the current stream, by the route that
-    :func:`route` picks for T, D and B; CPU tensors run the plain version. All
+    :func:`route` picks for D and B; CPU tensors run the plain version. All
     tensors share one device and one dtype (float32 or float64) and must be
     contiguous for the kernel.
     """
     _check(Xq, Xt, JA, xt_sq, tja, alphas_E_lin)
     if Xq.device.type == 'cpu':
         return fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig)
-    launch = _LAUNCH[route(Xt.shape[0], Xq.shape[1], Xq.shape[0])]
+    launch = _launch_split_t if route(Xq.shape[1], Xq.shape[0]) == 'split_t' else _launch_two_pass
     return launch(_build.load_library(), _device_args(Xq), Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig)
-
-
-_LAUNCH = {'split_t': _launch_split_t, 'one_pass': _launch_one_pass, 'two_pass': _launch_two_pass}
 
 
 # One NVE step of MD at B = 1 (csrc/fused_predict.cu: NveStep).

@@ -176,8 +176,8 @@ def _rel(ours, ref):
 def test_two_pass_plain_versions_match_reference_and_jax(n_atoms, m, n_perms, b, with_aE, dtype, splits):
     """Pass A's planes and per-tile row sums, then pass B cut into ``splits``
     K runs (3 runs of 3, 3 and 2 steps cut T=37, 39 and 40 at no tile edge),
-    composed: equal to the one-pass plain version and, after the scaling
-    and the Jacobian map, to the JAX package's ``predict_from_tables``.
+    composed: equal to ``fused_predict_tables_reference`` and, after the
+    scaling and the Jacobian map, to the JAX package's ``predict_from_tables``.
     Bounds relative to max |value|: f64 1e-12, f32 1e-5."""
     X, JA_flat, dperms, Xq, Jcq, aE = _problem(n_atoms, m, n_perms, b, seed=11)
     sig, std, c = 6.0, 1.7, -3.2
@@ -211,7 +211,7 @@ def test_two_pass_plain_versions_match_reference_and_jax(n_atoms, m, n_perms, b,
 def test_two_pass_partial_sums_over_several_table_tiles():
     """T=150 spans three table tiles: the per-tile row sums add up to the
     plain planes' row sums, and the rule's K split (here 2 runs, cutting
-    T at no tile edge) gives the one-pass result."""
+    T at no tile edge) gives ``fused_predict_tables_reference``'s result."""
     g = torch.Generator().manual_seed(3)
     B, T, D = 7, 150, 20
     Xq = torch.randn(B, D, generator=g, dtype=torch.float64) * 0.3
@@ -232,15 +232,18 @@ def test_two_pass_partial_sums_over_several_table_tiles():
 _ABOVE_SPLIT_T = fused_predict.SPLIT_T_MAX_B + 1  # a batch past the split-T route
 
 
+# The table size T names each shape; the route does not read it.
 @pytest.mark.parametrize(
     'T,D,B,expected',
     [
-        (32 * fused_predict.ONE_PASS_MAX_STEPS, 32, _ABOVE_SPLIT_T, 'one_pass'),      # at the bound
-        (32 * fused_predict.ONE_PASS_MAX_STEPS + 1, 32, _ABOVE_SPLIT_T, 'two_pass'),  # one step over
-        (32, 32 * fused_predict.ONE_PASS_MAX_STEPS, _ABOVE_SPLIT_T, 'one_pass'),
-        (32, 32 * fused_predict.ONE_PASS_MAX_STEPS + 1, _ABOVE_SPLIT_T, 'two_pass'),
-        (1, 1, _ABOVE_SPLIT_T, 'one_pass'),
-        (30, 10, _ABOVE_SPLIT_T, 'one_pass'),       # the golden model: N=5, M=30
+        (512, 32, _ABOVE_SPLIT_T, 'two_pass'),
+        # The descriptors' bytes at their edge: 2 queries of 4096 f64 take
+        # SPLIT_T_XQ_BYTES exactly, one column more does not.
+        (513, fused_predict.SPLIT_T_XQ_BYTES // 16, 2, 'split_t'),
+        (32, fused_predict.SPLIT_T_XQ_BYTES // 16 + 1, 2, 'two_pass'),
+        (32, 512, _ABOVE_SPLIT_T, 'two_pass'),
+        (1, 1, _ABOVE_SPLIT_T, 'two_pass'),
+        (30, 10, _ABOVE_SPLIT_T, 'two_pass'),       # the golden model: N=5, M=30
         (1000, 36, _ABOVE_SPLIT_T, 'two_pass'),     # ethanol width, M=1000
         (3000, 1770, _ABOVE_SPLIT_T, 'two_pass'),   # AT-AT width
         # The split-T route: at its batch bound and one over.
@@ -254,12 +257,11 @@ _ABOVE_SPLIT_T = fused_predict.SPLIT_T_MAX_B + 1  # a batch past the split-T rou
         # The descriptors' bytes: 4 AT-AT queries in SPLIT_T_XQ_BYTES, 5 not.
         (3000, 1770, 4, 'split_t'),
         (3000, 1770, 5, 'two_pass'),
-        # A table of one one-pass step (the golden model) takes split T up
-        # to the batch bound too.
+        # The golden model's small table takes split T up to the batch bound too.
         (30, 10, 1, 'split_t'),
         (30, 10, 3, 'split_t'),
         (30, 10, fused_predict.SPLIT_T_MAX_B, 'split_t'),
-        (200, 36, fused_predict.SPLIT_T_MAX_B, 'split_t'),  # ethanol M=200: 14 steps
+        (200, 36, fused_predict.SPLIT_T_MAX_B, 'split_t'),  # ethanol M=200
         # atat.serve_test's bucket of 256, and CG matvecs (B = T): unchanged.
         (3000, 1770, 256, 'two_pass'),
         (600, 1770, 600, 'two_pass'),
@@ -267,7 +269,17 @@ _ABOVE_SPLIT_T = fused_predict.SPLIT_T_MAX_B + 1  # a batch past the split-T rou
     ],
 )
 def test_route_at_its_edges(T, D, B, expected):
-    assert fused_predict.route(T, D, B) == expected
+    assert fused_predict.route(D, B) == expected
+
+
+def test_chip_smoke_bound_counts_with_the_package_peaks():
+    """``chip_smoke.bound`` takes its operations from ``bench.k1_flops`` and
+    its peaks from ``bench``: K1's least time at AT-AT B=512 (by
+    operations) and at aspirin B=1 (by bytes), to the bit."""
+    import chip_smoke
+
+    assert chip_smoke.bound(512, 3000, 1770, 8) == (0.3246232835820896, 'operations')
+    assert chip_smoke.bound(1, 1000, 210, 8) == (0.001008766567164179, 'bytes')
 
 
 @pytest.mark.parametrize(
@@ -289,7 +301,7 @@ def test_split_k_rule(B, D, T, n_sms, expected):
     assert (splits - 1) * per < n_k <= splits * per  # no empty run
 
 
-@pytest.mark.parametrize('fn', ['one_pass', 'two_pass', 'planes', 'forces', 'split_t'])
+@pytest.mark.parametrize('fn', ['two_pass', 'planes', 'forces', 'split_t'])
 def test_route_and_pass_wrappers_take_plain_versions_for_cpu_tensors(monkeypatch, fn):
     """CPU tensors never reach the kernel build or a launch count."""
 
@@ -319,7 +331,7 @@ def test_route_and_pass_wrappers_take_plain_versions_for_cpu_tensors(monkeypatch
 def test_reset_launches_zeroes_every_count(monkeypatch):
     monkeypatch.setattr(fused_predict, 'LAUNCHES', 7)
     monkeypatch.setitem(fused_predict.PATH_LAUNCHES, 'pass_a', 3)
-    monkeypatch.setitem(fused_predict.PATH_LAUNCHES, 'one_pass', 2)
+    monkeypatch.setitem(fused_predict.PATH_LAUNCHES, 'split_t', 2)
     fused_predict.reset_launches()
     assert fused_predict.LAUNCHES == 0 and set(fused_predict.PATH_LAUNCHES.values()) == {0}
 
@@ -384,8 +396,8 @@ def test_split_t_plain_version_matches_reference_and_jax(n_atoms, m, n_perms, wi
     """The split-T route's plain version: the table cut into one run, into 5
     runs of 8 rows (T=37 and 39 end in a shorter run), or into more runs
     than rows (the runs past T empty), the block partials added as the
-    reduction adds them; equal to the one-pass plain version and, after the
-    scaling and the Jacobian map, to the JAX package's ``predict_from_tables``.
+    reduction adds them; equal to ``fused_predict_tables_reference`` and,
+    after the scaling and the Jacobian map, to the JAX package's ``predict_from_tables``.
     Bounds relative to max |value|: f64 1e-12, f32 1e-5."""
     X, JA_flat, dperms, Xq, Jcq, aE = _problem(n_atoms, m, n_perms, B, seed=11)
     sig, std, c = 6.0, 1.7, -3.2

@@ -158,10 +158,10 @@ def test_launches_are_recorded_at_capture_and_counted_at_replay(monkeypatch):
     """A launch inside a capture is recorded, not counted; each replay
     counts what its capture recorded; a capture outside the recording (or a
     recording without a capture) raises."""
-    for name, value in [('LAUNCHES', 0), ('PATH_LAUNCHES', {'one_pass': 0, 'pass_a': 0, 'pass_b': 0, 'split_t': 0})]:
+    for name, value in [('LAUNCHES', 0), ('PATH_LAUNCHES', {'pass_a': 0, 'pass_b': 0, 'split_t': 0})]:
         monkeypatch.setattr(fused_predict, name, value)
     two_pass = {'pass_a': 1, 'pass_b': 1, 'total': 1}
-    fused_predict._count({'one_pass': 1, 'total': 1}, capturing=False)
+    fused_predict._count({'split_t': 1, 'total': 1}, capturing=False)
     with fused_predict.recording_launches() as recorded:
         fused_predict._count(two_pass, capturing=True)
         fused_predict._count(two_pass, capturing=True)
@@ -170,7 +170,7 @@ def test_launches_are_recorded_at_capture_and_counted_at_replay(monkeypatch):
     for _ in range(3):
         fused_predict.count_replay(recorded)
     assert fused_predict.LAUNCHES == 7
-    assert fused_predict.PATH_LAUNCHES == {'one_pass': 1, 'pass_a': 6, 'pass_b': 6, 'split_t': 0}
+    assert fused_predict.PATH_LAUNCHES == {'pass_a': 6, 'pass_b': 6, 'split_t': 1}
     with pytest.raises(RuntimeError, match='miscounted'):
         fused_predict._count(two_pass, capturing=True)
     with pytest.raises(RuntimeError, match='miscounted'), fused_predict.recording_launches():

@@ -123,7 +123,7 @@ def test_nve_takes_the_fused_step_where_k1_takes_split_t(models, monkeypatch, sn
     monkeypatch.setattr(md, 'GRAPH_MAX_STEPS', max_steps)
     model, r0 = models[5]
     eng = MDEngine(model, device='cpu')
-    assert fused_predict.route(*eng.tables.Xt.shape, 1) == 'split_t' and eng._fused_nve()
+    assert fused_predict.route(eng.tables.Xt.shape[1], 1) == 'split_t' and eng._fused_nve()
     calls = _counting(monkeypatch)
     profiling.clear()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -151,7 +151,7 @@ def test_a_width_past_split_t_keeps_the_substep(models, monkeypatch):
     fused = MDEngine(model, device='cpu').run_nve(r0, v0, DT, 20, snapshot_every=10)
     monkeypatch.setattr(fused_predict, 'SPLIT_T_XQ_BYTES', 8 * 210 - 8)
     eng = MDEngine(model, device='cpu')
-    assert fused_predict.route(*eng.tables.Xt.shape, 1) != 'split_t' and not eng._fused_nve()
+    assert fused_predict.route(eng.tables.Xt.shape[1], 1) != 'split_t' and not eng._fused_nve()
     calls = _counting(monkeypatch)
     out = eng.run_nve(r0, v0, DT, 20, snapshot_every=10)
     assert calls == []
