@@ -48,9 +48,13 @@ each a plain assertion that ends the run with a traceback when it fails:
    molecule with and without discovered permutations); (c) the ethanol
    recipe of ``bench.py`` at M = 200, whose held-out force MAE must be the
    JAX package's, and at M = 1000 (27,000 unknowns), with each phase's
-   seconds, the peak device memory and K1's launches, and the assembly at
-   the JAX package's 64 MB tile budget and at the port's, in turns. K1 runs
-   in the integration constant and in every validation prediction;
+   seconds, the peak device memory and K1's launches; (d) the
+   permutation-summed Hessian kernel (``csrc/perm_hessian.cu``) against its
+   plain version on the card at the aspirin width with P = 1 and P = 6 (six
+   seeded atom permutations) and at the AT-AT width, f64 and
+   f32, launched twice for the same bits, then its time beside its bound and
+   the plain version's time at M = 1000 (aspirin) and M = 300 (AT-AT). K1
+   runs in the integration constant and in every validation prediction;
 8. training by CG on the card (``GDMLTrain(device='cuda').train(task,
    solver='cg')`` and ``Iterative.solve``), K1 in every matvec: (a) the
    ill-conditioned anchor of ``tests/dev_sigma_warmstart.py`` (M=200, five
@@ -387,7 +391,7 @@ GRAPH_MD_TURNS = 3
 # (N, frames, data seed, split seed, M, sig, lam, warm k, first rung, the
 # 8-slice plan's k, and the CG driver's constants that make it stall after
 # every chunk of 5 and re-anchor every chunk); and a line for each check.
-CG_EAGER_ITERS = {'ethanol': 738, 'aspirin': 15, 'slice stack': 13, 'grid': 1736, 'pair': 152}
+CG_EAGER_ITERS = {'ethanol': 738, 'aspirin': 15, 'slice stack': 13, 'grid': 1739, 'pair': 152}
 GRAPH_CHUNKS, GRAPH_CG_TURNS = 2, 3
 EVENTFUL = (6, 300, 4, 41, 24, 8.0, 1e-10, 3, 'ozaki10', 5)
 EVENTFUL_CONSTANTS = {'CG_STEPS_HIST_LEN': 4, 'EFF_RESTART_THRESH': 100, 'CG_CHUNK_ITERS': 5,
@@ -401,6 +405,15 @@ GRAPH_CHECKS = []
 # force MAE at M = 200 that the JAX package's bench recorded (BENCH_r05.json;
 # the original sGDML gives 0.031677) and the tolerance on it.
 ASSEMBLY_RAGGED = (7, 23)
+# 7d: the permutation-summed Hessian kernel's shapes (label, N, P, M, sig):
+# checked against the plain version in full at M_CHECK points, timed at M
+# (the aspirin cells' M = 1000, the AT-AT width at 300: a 23 GB K); its
+# bounds against the plain version (max |delta| over max |value|; sums in
+# another order), as tests/test_torch_kernel.py's card tests.
+PERM_HESSIAN = (('aspirin P=1', 21, 1, 1000, 20.0), ('aspirin P=6', 21, 6, 1000, 20.0),
+                ('AT-AT P=1', 60, 1, 300, 25.0))
+PERM_HESSIAN_M_CHECK = 64
+PERM_HESSIAN_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 ETHANOL = (9, 12_000, 0, 1, 500, 10.0, 1e-10)
 ETHANOL_M = (200, 1000)
 ETHANOL_MAE = (200, 0.03168, 1e-4)
@@ -1588,8 +1601,7 @@ def phase_train_reference(device):
 
 def phase_train_ethanol(device, card):
     """7c: the ethanol recipe of bench.py at M = 200 (force MAE against the
-    JAX package's) and at M = 1000 (phase seconds and peak memory), and the
-    assembly at the JAX package's 64 MB tile budget and at the port's."""
+    JAX package's) and at M = 1000 (phase seconds and peak memory)."""
     n_atoms, n_frames, seed, split_seed, n_valid, sig, lam = ETHANOL
     t0 = time.perf_counter()
     ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_frames, seed=seed)
@@ -1631,44 +1643,106 @@ def phase_train_ethanol(device, card):
         if m == ETHANOL_MAE[0]:
             assert abs(mae - ETHANOL_MAE[1]) <= ETHANOL_MAE[2], mae
 
-    # The tile budget: the JAX package's 64 MB against the port's, at M = 1000.
-    X, Jc = desc_ops.descriptor_batch(
-        torch.as_tensor(task['R_train'].reshape(m, -1), dtype=torch.float64, device=device), n_atoms)
-    dperms = desc_perm_table(task['perms'])
-    tiles = {'64 MB': kernel_ops._tile_sizes(m, n_atoms, 64 * 1024**2, 8),
-             'port': kernel_ops.default_tile_sizes(m, n_atoms, 1)}
-    secs = {name: [] for name in tiles}
-    peaks = {}
-    for name in ('64 MB', 'port', 'port', '64 MB'):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        K = kernel_ops.assemble_kernel(X, Jc, dperms, sig, n_atoms, tile_i=tiles[name][0], tile_j=tiles[name][1])
-        torch.cuda.synchronize()
-        secs[name].append(time.perf_counter() - t0)
-        peaks[name] = (torch.cuda.max_memory_allocated() - base - K.numel() * 8) / 1e9
-        del K
-    for name, (ti, tj) in tiles.items():
-        print('    assembly M=%d at the %s tile budget: tiles %d x %d (%d tiles), %.3f and %.3f s in turns; '
-              'peak above K %.3f GB (%s)' % (m, name, ti, tj, -(-m // ti) * -(-m // tj), *secs[name],
-                                             peaks[name], card))
     return ds, task, model
+
+
+def perm_hessian_inputs(n_atoms, m, n_perms, dtype, device):
+    """Descriptors of m seeded displacements of a seeded random geometry, the
+    permuted tables of the identity and n_perms - 1 seeded atom
+    permutations, and the static tables: the operands of
+    ``kernel_ops.perm_summed_block_``."""
+    rng = np.random.default_rng(1)
+    pos = rng.normal(size=(n_atoms, 3)) * 0.8 * n_atoms ** (1 / 3)
+    perms = np.stack([np.arange(n_atoms)] + [rng.permutation(n_atoms) for _ in range(n_perms - 1)])
+    R = pos[None] + 0.1 * np.random.default_rng(4).normal(size=(m, n_atoms, 3))
+    X, Jc = desc_ops.descriptor_batch(torch.as_tensor(R.reshape(m, -1), dtype=dtype, device=device), n_atoms)
+    dperms = desc_perm_table(perms)
+    Xp, Jcp = kernel_ops.perm_tables(X, Jc, dperms)
+    consts = kernel_ops._tile_constants(kernel_ops._perms_key(dperms), n_atoms, X.device, dtype)
+    return X, Jc, Xp, Jcp, consts
+
+
+def perm_hessian_bound(m, n_atoms, n_perms, itemsize):
+    """(ms, 'bytes' or 'operations'): the least time of the kernel's work on
+    an H100 SXM, K's M^2 (3N)^2 values written once at 3.35 TB/s or the M^2 P
+    blocks' 81 D + 27 N^2 operations each (benchmark/counts_sym.py) at 67
+    TFLOP/s."""
+    dim_d = n_atoms * (n_atoms - 1) // 2
+    t_ops = m * m * n_perms * (81.0 * dim_d + 27.0 * n_atoms**2) / PEAK_FLOPS * 1e3
+    t_bytes = itemsize * (3.0 * n_atoms * m) ** 2 / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def phase_train_kernel(device, card):
+    """7d: the permutation-summed Hessian kernel against its plain version
+    on the card (a strided view, scale -1, launched twice for the same bits),
+    then its time beside its bound and the plain version's at the shapes of
+    the dense training cells."""
+    n_launch = kernel_ops.LAUNCHES
+    for label, n_atoms, n_perms, _, sig in PERM_HESSIAN:
+        m = PERM_HESSIAN_M_CHECK
+        n3 = 3 * n_atoms
+        for dtype in (torch.float64, torch.float32):
+            X, Jc, Xp, Jcp, consts = perm_hessian_inputs(n_atoms, m, n_perms, dtype, device)
+            rows, cols = slice(3, m - 2), slice(1, m)  # ragged ranges
+            shape = ((m - 5) * n3, (m - 1) * n3)
+
+            def run(fn):
+                out = torch.full((shape[0] + 2, shape[1] + 5), float('nan'), dtype=dtype, device=device)
+                fn(out[1:1 + shape[0], 3:3 + shape[1]], X[rows], Jc[rows], Xp[cols], Jcp[cols], sig, consts,
+                   scale=-1.0)
+                return (out,)
+
+            check('7d %-11s %s M=%d ragged' % (label, NAME[dtype], m),
+                  lambda: tuple(torch.nan_to_num(o) for o in run(kernel_ops.perm_summed_block_)),
+                  lambda: tuple(torch.nan_to_num(o) for o in run(kernel_ops.perm_summed_block_reference_)),
+                  PERM_HESSIAN_TOL[dtype])
+            # Nothing outside the view is touched.
+            assert torch.equal(run(kernel_ops.perm_summed_block_)[0].isnan(),
+                               run(kernel_ops.perm_summed_block_reference_)[0].isnan()), label
+            del X, Jc, Xp, Jcp
+    for label, n_atoms, n_perms, m, sig in PERM_HESSIAN:
+        X, Jc, Xp, Jcp, consts = perm_hessian_inputs(n_atoms, m, n_perms, torch.float64, device)
+        tiles = kernel_ops.default_tile_sizes(m, n_atoms, n_perms)
+        n = 3 * n_atoms * m
+        K = torch.empty(n, n, dtype=torch.float64, device=device)
+        args = (K, X, Jc, Xp, Jcp, sig, consts)
+        launches = kernel_ops.LAUNCHES
+        ms_k = cuda_ms(lambda: kernel_ops.perm_summed_block_(*args), 1)  # warm
+        ms_k = cuda_ms(lambda: kernel_ops.perm_summed_block_(*args), 3)
+        assert kernel_ops.LAUNCHES == launches + 4
+        ms_p = cuda_ms(lambda: kernel_ops.perm_summed_block_reference_(*args, tile_i=tiles[0], tile_j=tiles[1]), 1)
+        bound_ms, by = perm_hessian_bound(m, n_atoms, n_perms, 8)
+        print('    7d %-11s f64 M=%d (K %.2f GB): kernel %.3f ms, bound %.3f ms (%s), %.1f%% of it; plain version '
+              '(tiles %d x %d) %.1f ms, %.0fx the kernel (%s)' % (
+                  label, m, 8 * n * n / 1e9, ms_k, bound_ms, by, 100 * bound_ms / ms_k, tiles[0], tiles[1], ms_p,
+                  ms_p / ms_k, card))
+        del K, args, X, Jc, Xp, Jcp
+        torch.cuda.empty_cache()
+    return kernel_ops.LAUNCHES - n_launch
 
 
 def phase_train(device, card):
     """7: training on the card, the main path for K1 through the integration
-    constant and the validation predictions."""
+    constant and the validation predictions, and for the permutation-summed
+    Hessian kernel through every dense assembly."""
     t0 = time.perf_counter()
     fused_predict.reset_launches()
+    ph_launches = kernel_ops.LAUNCHES
     phase_train_goldens(device)
     phase_train_reference(device)
     ethanol = phase_train_ethanol(device, card)
     counts = launch_counts()
     assert counts['total'] > 0 and counts['pass_a'] > 0, counts
+    ph_main = kernel_ops.LAUNCHES - ph_launches
+    assert ph_main > 0, 'no dense assembly went through the permutation-summed Hessian kernel'
+    t_d = time.perf_counter()
+    ph_check = phase_train_kernel(device, card)
     print('[7 train] assembly matches the goldens and the plain path; the reference recipes and the '
-          'ethanol M=%d force MAE reproduced; M=%d trained; launches %s; %.1f s' % (
-              ETHANOL_MAE[0], ETHANOL_M[-1], counts, time.perf_counter() - t0))
+          'ethanol M=%d force MAE reproduced; M=%d trained; launches %s; the Hessian kernel %d launches on '
+          'the main path, %d in 7d (%.1f s); %.1f s' % (
+              ETHANOL_MAE[0], ETHANOL_M[-1], counts, ph_main, ph_check, time.perf_counter() - t_d,
+              time.perf_counter() - t0))
     return counts, ethanol
 
 

@@ -80,6 +80,8 @@ def load_library() -> ctypes.CDLL:
         # xt, ja, xt_sq, tja, mu, inv_m, sig, std, dt, N, T, D, blocks,
         # r, v, f, part, runs, tickets, E, device, stream
         'sgdml_md_step': [ptr] * 6 + [f64] * 3 + [i32] * 4 + [ptr] * 7 + [i32, ptr],
+        # x, jc, xp, jcp, gs, pim, sig, scale, N, P, I, T, out, ld, device, stream
+        'sgdml_perm_hessian': [ptr] * 6 + [f64] * 2 + [i32] * 4 + [ptr, ctypes.c_int64, i32, ptr],
     }
     for stem, types in argtypes.items():
         for suffix in ('_f32', '_f64'):

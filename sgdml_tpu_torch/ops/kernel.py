@@ -35,13 +35,22 @@ packed triangle of ``ops/blockchol.py`` (the analytic solver's grid route),
 :func:`assemble_kernel_columns` assembles a column subset ``K[:, cols]`` for
 the iterative solver's Nystrom preconditioner, in the matmul form of
 :func:`column_force_tile`, written row tile by row tile into a preallocated
-tensor. Assembly is plain PyTorch (cuBLAS products and elementwise kernels)
+tensor.
+
+The force blocks of :func:`assemble_kernel`, of the grid and pair routes and
+of the mesh's strips (``parallel/spmd.py``) go through
+:func:`perm_summed_block_`: on CUDA tensors one launch of the hand-written
+kernel ``csrc/perm_hessian.cu``, which sums over the permutations on chip
+and stores each value once, straight into the output matrix; on CPU
+tensors (and for ``mm='ozaki'``) its plain version, the tile loop above.
+Everything else is plain PyTorch (cuBLAS products and elementwise kernels)
 on any device.
 
 While a profiler session is on (``utils/profiling.py``),
 :func:`assemble_kernel` adds to the counter ``assembly.perm_blocks`` the
-(row geometry, column geometry, permutation) Hessian blocks it computed,
-``tile_i tile_j P`` a tile.
+(row geometry, column geometry, permutation) Hessian blocks of its force
+block, ``M^2 P``, and :func:`perm_summed_block_` adds those the kernel
+computed to ``assembly.kernel_blocks``.
 """
 
 from __future__ import annotations
@@ -54,12 +63,14 @@ import torch
 
 from ..utils import profiling
 from ._precision import _true_f32
+from . import _build
 from . import ozaki
 from .descriptor import incidence
 from .pairchol import pair_split
 
 __all__ = [
     'COLUMN_TILE_BUDGET_BYTES',
+    'LAUNCHES',
     'Mat52Coeffs',
     'TILE_BUDGET_BYTES',
     'assemble_kernel',
@@ -77,6 +88,8 @@ __all__ = [
     'hessian_tile',
     'hessian_tile_compressed',
     'perm_incidence',
+    'perm_summed_block_',
+    'perm_summed_block_reference_',
     'perm_tables',
     'tile_peak_bytes',
 ]
@@ -90,6 +103,10 @@ _SQRT5 = math.sqrt(5.0)
 # later), so 1 GiB fits with room to spare, and 16x the budget cuts the
 # tiles, and with them the launches, 13-fold at ethanol M = 1000.
 TILE_BUDGET_BYTES = 1 << 30
+
+# Launches of the permutation-summed Hessian kernel (csrc/perm_hessian.cu) in
+# this process: one a perm_summed_block_ call on CUDA tensors.
+LAUNCHES = 0
 
 
 class Mat52Coeffs:
@@ -321,6 +338,98 @@ def hessian_tile_compressed(
     return acc.permute(0, 2, 3, 1, 4, 5).reshape(dim_i, 3 * n_atoms, dim_t, 3 * n_atoms)
 
 
+def _check_block(out, Xi, Jci, Xtp, Jctp, consts):
+    """Raise ValueError unless the operands of :func:`perm_summed_block_`
+    have its shapes, one device and one dtype, and ``out`` unit column
+    stride."""
+    n3 = 3 * consts[0].shape[1]
+    (dim_i, dim_d), (dim_t, n_perms) = Xi.shape, Xtp.shape[:2]
+    shapes = {'out': (out, (dim_i * n3, dim_t * n3)), 'Jci': (Jci, (dim_i, dim_d, 3)),
+              'Xtp': (Xtp, (dim_t, n_perms, dim_d)), 'Jctp': (Jctp, (dim_t, n_perms, dim_d, 3))}
+    for name, (x, shape) in shapes.items():
+        if tuple(x.shape) != shape:
+            raise ValueError('%s has shape %s, expected %s' % (name, tuple(x.shape), shape))
+        if x.device != Xi.device or x.dtype != Xi.dtype:
+            raise ValueError('%s is %s on %s; Xi is %s on %s' % (name, x.dtype, x.device, Xi.dtype, Xi.device))
+    if out.stride(1) != 1:
+        raise ValueError('out must have unit column stride, got strides %s' % (out.stride(),))
+
+
+def perm_summed_block_reference_(out, Xi, Jci, Xtp, Jctp, sig, consts, scale=1.0, tile_i=None, tile_j=None,
+                                 mm='native'):
+    """Plain version of :func:`perm_summed_block_`, on any device:
+    :func:`_perm_summed_tile` on tiles of ``tile_i`` x ``tile_j`` geometries
+    (default: all of them in one tile), each copied into ``out`` through a
+    permuted view and scaled. Returns ``out``."""
+    _check_mm(mm, Xi.dtype)
+    _check_block(out, Xi, Jci, Xtp, Jctp, consts)
+    n_atoms = consts[0].shape[1]
+    n3, dim_i, dim_t = 3 * n_atoms, Xi.shape[0], Xtp.shape[0]
+    tile_i, tile_j = tile_i or dim_i, tile_j or dim_t
+    for i0 in range(0, dim_i, tile_i):
+        i1 = min(dim_i, i0 + tile_i)
+        for j0 in range(0, dim_t, tile_j):
+            j1 = min(dim_t, j0 + tile_j)
+            blk = _perm_summed_tile(Xi[i0:i1], Jci[i0:i1], Xtp[j0:j1], Jctp[j0:j1], sig, *consts, mm=mm)
+            view = out[i0 * n3:i1 * n3, j0 * n3:j1 * n3].view(i1 - i0, n_atoms, 3, j1 - j0, n_atoms, 3)
+            view.copy_(blk.permute(0, 2, 3, 1, 4, 5))
+            if scale != 1.0:
+                view.mul_(scale)
+            del blk  # not held while the next tile's planes are made
+    return out
+
+
+def perm_summed_block_(out, Xi, Jci, Xtp, Jctp, sig, consts, scale=1.0, tile_i=None, tile_j=None, mm='native'):
+    """Write ``scale`` times the permutation-summed Hessian blocks of row
+    geometries ``Xi (I, D)``, ``Jci (I, D, 3)`` against column geometries
+    ``Xtp (T, P, D)``, ``Jctp (T, P, D, 3)`` (:func:`perm_tables`) into
+    ``out``, a 2-D view ``(I 3N, T 3N)`` with unit column stride: the block of
+    ``(i, t)`` at rows ``i 3N + (m, a)`` and columns ``t 3N + (n, b)``, the
+    values of :func:`hessian_tile_compressed`. ``consts`` is
+    :func:`_tile_constants`' tuple. Returns ``out``.
+
+    On CUDA tensors with ``mm='native'``, one launch of the kernel
+    (``csrc/perm_hessian.cu``), counted in :data:`LAUNCHES`; it raises
+    where the launch fails. On CPU tensors, and for ``mm='ozaki'`` (the
+    TPU's f64 emulation, kept in PyTorch), the plain version
+    :func:`perm_summed_block_reference_` on ``tile_i`` x ``tile_j`` tiles.
+    """
+    global LAUNCHES
+    if Xi.device.type == 'cpu' or mm == 'ozaki':
+        return perm_summed_block_reference_(out, Xi, Jci, Xtp, Jctp, sig, consts, scale, tile_i, tile_j, mm)
+    _check_mm(mm, Xi.dtype)
+    _check_block(out, Xi, Jci, Xtp, Jctp, consts)
+    if Xi.device.type != 'cuda' or Xi.dtype not in (torch.float32, torch.float64):
+        raise ValueError('perm_summed_block_ takes float32 or float64 CPU or CUDA tensors, got %s on %s'
+                         % (Xi.dtype, Xi.device))
+    n_atoms = consts[0].shape[1]
+    if n_atoms < 3:
+        raise ValueError('the CUDA kernel takes molecules of 3 atoms or more, got %d' % n_atoms)
+    (dim_i, _), (dim_t, n_perms) = Xi.shape, Xtp.shape[:2]
+    if dim_i == 0 or dim_t == 0:
+        return out
+    for name, x in (('Xi', Xi), ('Jci', Jci), ('Xtp', Xtp), ('Jctp', Jctp)):
+        if not x.is_contiguous():
+            raise ValueError('%s must be contiguous for the CUDA kernel' % name)
+    # The Gram tables as the kernel reads them: sgn (g_idx + 1), 0 on the
+    # diagonal slots, and the diagonal columns, as int32.
+    _, _, g_idx, sgn, _, diag_col = consts
+    gs = (torch.sign(sgn).to(torch.int32) * (g_idx.to(torch.int32) + 1)).contiguous()
+    pim = diag_col.to(torch.int32).contiguous()
+    lib = _build.load_library()
+    fn = lib.sgdml_perm_hessian_f64 if Xi.dtype == torch.float64 else lib.sgdml_perm_hessian_f32
+    index = Xi.device.index if Xi.device.index is not None else torch.cuda.current_device()
+    err = fn(Xi.data_ptr(), Jci.data_ptr(), Xtp.data_ptr(), Jctp.data_ptr(), gs.data_ptr(), pim.data_ptr(),
+             float(sig), float(scale), n_atoms, n_perms, dim_i, dim_t, out.data_ptr(), out.stride(0), index,
+             torch.cuda.current_stream(Xi.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError('perm_hessian kernel launch failed: CUDA error %d (%s)'
+                           % (err, lib.sgdml_cuda_error_string(err).decode()))
+    LAUNCHES += 1
+    profiling.count('assembly.kernel_blocks', dim_i * dim_t * n_perms)
+    return out
+
+
 def _grad_row_tile(Xi, Xt, Jt, sig):
     """Energy-force coupling rows: ``out[i, t, :] = -w(d) d^T J_t`` with
     ``d = x_i - x_t`` (reference sgdml/train.py:235-248). Shape (I, T, 3N)."""
@@ -387,6 +496,9 @@ def assemble_kernel(
         (reference sgdml/train.py:235-300).
     tile_i, tile_j: geometries per row/column tile (default
         :func:`default_tile_sizes`); the last tile of each may be smaller.
+        They tile the plain version of the force block and the
+        energy-constraint borders; on CUDA the force block is one launch of
+        :func:`perm_summed_block_`'s kernel.
 
     Returns
     -------
@@ -409,19 +521,16 @@ def assemble_kernel(
     n_f = m * dim_i
     n_total = n_f + (m if use_E_cstr else 0)
     K = torch.empty((n_total, n_total), dtype=X.dtype, device=X.device)
+    perm_summed_block_(K[:n_f, :n_f], X, Jc, Xp, Jcp, sig, consts, tile_i=tile_i, tile_j=tile_j)
+    profiling.count('assembly.perm_blocks', m * m * n_perms)
+    if not use_E_cstr:
+        return K
     for i0 in range(0, m, tile_i):
         i1 = min(m, i0 + tile_i)
         rows = slice(i0 * dim_i, i1 * dim_i)
         for j0 in range(0, m, tile_j):
             j1 = min(m, j0 + tile_j)
             cols = slice(j0 * dim_i, j1 * dim_i)
-            blk = _perm_summed_tile(X[i0:i1], Jc[i0:i1], Xp[j0:j1], Jcp[j0:j1], sig, *consts)
-            profiling.count('assembly.perm_blocks', (i1 - i0) * (j1 - j0) * n_perms)
-            K[rows, cols].view(i1 - i0, n_atoms, 3, j1 - j0, n_atoms, 3).copy_(
-                blk.permute(0, 2, 3, 1, 4, 5))
-            del blk  # not held while the next tile's planes are made
-            if not use_E_cstr:
-                continue
             # Energy rows under force columns: -grad_x k(x_i, x_t)^T J_t.
             Jt = expand_perm_jacobian(Jcp[j0:j1], s_perm).reshape(-1, dim_d, dim_i)
             fe = _grad_row_tile(X[i0:i1], Xp[j0:j1].reshape(-1, dim_d), Jt, sig)
@@ -441,7 +550,7 @@ def assemble_kernel(
 
 def _grid_block_fn(R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, dtype, tile_i, tile_j, mm):
     """``block(bi, bj)``: the ``(b, b)`` block ``(bi, bj)`` of ``A = -K``
-    in ``dtype``, written tile by tile (the shared loop of
+    in ``dtype``, written by :func:`perm_summed_block_` (the shared loop of
     :func:`assemble_kernel_grid` and :func:`assemble_kernel_grid_pair`)."""
     _check_mm(mm, dtype)
     dim_i = 3 * n_atoms
@@ -461,14 +570,9 @@ def _grid_block_fn(R_desc, R_d_desc, desc_perms, sig, n_atoms, spec, dtype, tile
     def block(bi, bj):
         out = torch.zeros((spec.b, spec.b), dtype=dtype, device=X.device)
         p0, q0 = bi * b_pts, bj * b_pts
-        for i0 in range(p0, min(m, p0 + b_pts), tile_i):
-            i1 = min(m, p0 + b_pts, i0 + tile_i)
-            for j0 in range(q0, min(m, q0 + b_pts), tile_j):
-                j1 = min(m, q0 + b_pts, j0 + tile_j)
-                blk = _perm_summed_tile(X[i0:i1], Jc[i0:i1], Xp[j0:j1], Jcp[j0:j1], sig, *consts, mm=mm)
-                out[(i0 - p0) * dim_i:(i1 - p0) * dim_i, (j0 - q0) * dim_i:(j1 - q0) * dim_i].view(
-                    i1 - i0, n_atoms, 3, j1 - j0, n_atoms, 3).copy_(blk.permute(0, 2, 3, 1, 4, 5)).neg_()
-                del blk  # not held while the next tile's planes are made
+        i1, j1 = max(p0, min(m, p0 + b_pts)), max(q0, min(m, q0 + b_pts))
+        perm_summed_block_(out[:(i1 - p0) * dim_i, :(j1 - q0) * dim_i], X[p0:i1], Jc[p0:i1], Xp[q0:j1], Jcp[q0:j1],
+                           sig, consts, scale=-1.0, tile_i=tile_i, tile_j=tile_j, mm=mm)
         if bi == bj and p0 + b_pts > m:
             out.diagonal()[max(0, m - p0) * dim_i:] = 1.0
         return out

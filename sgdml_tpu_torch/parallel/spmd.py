@@ -47,8 +47,8 @@ import torch
 from ..ops import cyclic, linalg, meshchol
 from ..ops.pairchol import _write_pair
 from ..ops.kernel import (
-    _grad_row_tile, _perm_summed_tile, _perms_key, _tile_constants, _value_tile, assemble_kernel_columns_range,
-    column_force_tile, column_tables, column_tile_rows, default_tile_sizes, expand_perm_jacobian, perm_tables,
+    _grad_row_tile, _perms_key, _tile_constants, _value_tile, assemble_kernel_columns_range, column_force_tile,
+    column_tables, column_tile_rows, default_tile_sizes, expand_perm_jacobian, perm_summed_block_, perm_tables,
 )
 from ..utils.profiling import PhaseTimer
 from .mesh import MeshInfo, agree, all_gather_rows, all_reduce_, check_device, mesh_info
@@ -164,8 +164,11 @@ def assemble_kernel_sharded(R_desc, R_d_desc, desc_perms, sig, n_atoms, mesh, us
     descriptors are zero), and their valid block the single-device
     ``assemble_kernel`` under the layout's permutation.
 
-    Row and column tiles come from the port's tile budget
-    (``ops/kernel.default_tile_sizes``). No communication.
+    The force columns of each rank's block come from one
+    ``ops/kernel.perm_summed_block_`` call (one kernel launch on CUDA); its
+    plain version and the energy-constraint borders take row and column
+    tiles from the port's tile budget (``ops/kernel.default_tile_sizes``).
+    No communication.
     """
     info = mesh_info(mesh)
     check_device(info, R_desc, R_d_desc)
@@ -184,25 +187,28 @@ def assemble_kernel_sharded(R_desc, R_d_desc, desc_perms, sig, n_atoms, mesh, us
     p0 = info.rank * mloc  # this strip's first point
     n_f = mloc * dim_i  # its force rows
     K = torch.empty((rloc, lay.n_rows), dtype=X.dtype, device=X.device)
+    rows_p = slice(p0, p0 + mloc)
+    for h in range(info.size):
+        # Rank h's force columns: interleaved, contiguous within its block.
+        cols_p = slice(h * mloc, (h + 1) * mloc)
+        perm_summed_block_(K[:n_f, h * rloc:h * rloc + n_f], X[rows_p], Jc[rows_p], Xp[cols_p], Jcp[cols_p], sig,
+                           consts, tile_i=tile_i, tile_j=tile_j)
+    if not use_E_cstr:
+        return K, lay
     for i0 in range(0, mloc, tile_i):
         i1 = min(mloc, i0 + tile_i)
         pi = slice(p0 + i0, p0 + i1)
         rows = slice(i0 * dim_i, i1 * dim_i)
-        if use_E_cstr:
-            # Row-side permuted Jacobians, for the force rows under energy
-            # columns (there the permutations act on the row side).
-            Jit = expand_perm_jacobian(Jcp[pi], s_perm).reshape(-1, dim_d, dim_i)
-            Xit = Xp[pi].reshape(-1, dim_d)
+        # Row-side permuted Jacobians, for the force rows under energy
+        # columns (there the permutations act on the row side).
+        Jit = expand_perm_jacobian(Jcp[pi], s_perm).reshape(-1, dim_d, dim_i)
+        Xit = Xp[pi].reshape(-1, dim_d)
         for h in range(info.size):
             for t0 in range(0, mloc, tile_j):
                 t1 = min(mloc, t0 + tile_j)
                 pj = slice(h * mloc + t0, h * mloc + t1)
                 cf = h * rloc + t0 * dim_i  # interleaved column of the tile's first force dof
                 cols = slice(cf, cf + (t1 - t0) * dim_i)
-                blk = _perm_summed_tile(X[pi], Jc[pi], Xp[pj], Jcp[pj], sig, *consts)
-                K[rows, cols].view(i1 - i0, n_atoms, 3, t1 - t0, n_atoms, 3).copy_(blk.permute(0, 2, 3, 1, 4, 5))
-                if not use_E_cstr:
-                    continue
                 ce = slice(h * rloc + mloc * dim_i + t0, h * rloc + mloc * dim_i + t1)
                 # Energy rows under force columns: -grad_x k(x_i, x_t)^T J_t.
                 Jt = expand_perm_jacobian(Jcp[pj], s_perm).reshape(-1, dim_d, dim_i)

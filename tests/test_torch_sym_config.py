@@ -229,15 +229,23 @@ def card():
     return torch.device('cuda')
 
 
+# The in-place route's peak at the cell's size (M = 1000, P = 6) before the
+# assembly was one kernel launch (PERF.md, section 4: 32.72 GB).
+INPLACE_SYM_PEAK_BYTES = 32.72e9
+
+
 @pytest.mark.card
-def test_the_assembly_s_peak_stays_within_the_in_place_estimate(card):
+@pytest.mark.parametrize('m', [200, 1000])
+def test_the_assembly_s_peak_stays_within_the_in_place_estimate(card, m):
     """On the card (``python3 -m pytest --noconftest tests/test_torch_sym_config.py
     -m card``): at the aspirin width's tiles and P = 6, the bytes the
     assembly holds beside K stay within ``est_memory_inplace``'s assembly
-    term, as the route's choice assumes."""
-    from sgdml_tpu_torch.ops.kernel import tile_peak_bytes
+    term, as the route's choice assumes; the kernel writes K in place, so
+    beside K the assembly holds the permuted tables alone, and at the
+    cell's M = 1000 the peak stays at or below the tile loop's."""
+    from sgdml_tpu_torch.ops import kernel
 
-    m, n_atoms = 200, 21
+    n_atoms = 21
     ds = synthetic_sym.generate_md_dataset(n_atoms, m, 10, 5)
     R = torch.as_tensor(ds['R'].reshape(m, -1), device=card)
     X, Jc = desc_ops.descriptor_batch(R, n_atoms)
@@ -245,11 +253,16 @@ def test_the_assembly_s_peak_stays_within_the_in_place_estimate(card):
     torch.cuda.synchronize(card)
     base = torch.cuda.memory_allocated(card)
     torch.cuda.reset_peak_memory_stats(card)
+    launches = kernel.LAUNCHES
     K = assemble_kernel(X, Jc, dp, 20.0, n_atoms)
     torch.cuda.synchronize(card)
-    beside = torch.cuda.max_memory_allocated(card) - base - K.numel() * K.element_size()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    beside = peak - K.numel() * K.element_size()
     dim_d = X.shape[1]
-    assert beside <= tile_peak_bytes(m, n_atoms, 6) + 7 * m * dim_d * 4 * 8, beside
+    assert kernel.LAUNCHES == launches + 1
+    assert beside <= kernel.tile_peak_bytes(m, n_atoms, 6) + 7 * m * dim_d * 4 * 8, beside
+    assert beside <= 7 * m * dim_d * 4 * 8, beside  # the permuted tables and their index
+    assert peak <= INPLACE_SYM_PEAK_BYTES, peak
 
 
 def test_a_symmetric_training_counts_m_squared_p_blocks(sym_task):
