@@ -98,7 +98,8 @@ class MDEngine:
         one geometry of the model's width takes the split-T route."""
         return fused_predict.route(self.tables.Xt.shape[1], 1) == 'split_t'
 
-    def _trajectory(self, r0, v0, n_steps, snapshot_every, substep, noise=None, gen=None, energy=None):
+    def _trajectory(self, r0, v0, n_steps, snapshot_every, substep, noise=None, gen=None, energy=None,
+                    counter=None):
         """Run ``n_steps // snapshot_every`` blocks of ``snapshot_every``
         substeps and a snapshot; return numpy (R (S,N,3), V, E_pot (S,),
         E_kin).
@@ -110,9 +111,9 @@ class MDEngine:
         its kernels, not its draws, so a captured draw would give every block
         the same noise. With ``energy`` (each substep one fused step,
         ``energy()`` the unscaled energy of the last one), the snapshot takes
-        its energy from the block's last step, not from a new prediction, and
-        each program call adds its steps to the counter ``md.fused_steps``, on
-        the host.
+        its energy from the block's last step, not from a new prediction. With
+        ``counter``, each program call adds its steps to that counter, on the
+        host (:meth:`run_nve`'s ``md.fused_steps`` and ``md.unfused_steps``).
 
         The call is the root span ``md.trajectory`` (with its steps), each
         snapshot's block ``md.blocks`` and the trajectory's copy to the host
@@ -151,20 +152,17 @@ class MDEngine:
                         slot.add_(1)
 
                 run = graphs.Program(body, self._graphs, pool)
-                if energy is not None:
-                    def counted():
-                        run()
-                        profiling.count('md.fused_steps', k)
-
-                    return counted
-                if noise is None:
+                if noise is None and counter is None:
                     return run
 
-                def drawn():
-                    noise[:k].normal_(generator=gen)
+                def call():
+                    if noise is not None:
+                        noise[:k].normal_(generator=gen)
                     run()
+                    if counter is not None:
+                        profiling.count(counter, k)
 
-                return drawn
+                return call
 
             full = program(per, False) if n_full else None
             last = program(rest, True)
@@ -182,7 +180,9 @@ class MDEngine:
         Where K1 at one geometry takes the split-T route, each step is one
         ``fused_predict.md_step`` (one kernel on a GPU) and each snapshot's
         energy the last step's; elsewhere the step's operations run one by
-        one around ``predict_from_tables``."""
+        one around ``predict_from_tables``. Under a profiler session the
+        steps are counted by route: ``md.fused_steps`` and
+        ``md.unfused_steps``."""
         inv_m = 1.0 / self.masses[:, None]
         if self._fused_nve():
             work = (fused_predict.MDStepWork(*self.tables.Xt.shape, self.dtype, self.device)
@@ -193,7 +193,8 @@ class MDEngine:
                 last[:] = [fused_predict.md_step(r, v, f, inv_m, self.tables, self.sig, self.std, dt, work=work)]
                 return r, v, f
 
-            return self._trajectory(r0, v0, n_steps, snapshot_every, step, energy=lambda: last[0])
+            return self._trajectory(r0, v0, n_steps, snapshot_every, step, energy=lambda: last[0],
+                                    counter='md.fused_steps')
 
         def substep(r, v, f, i):
             v_half = v + 0.5 * dt * f * inv_m
@@ -202,7 +203,7 @@ class MDEngine:
             v = v_half + 0.5 * dt * f * inv_m
             return r, v, f
 
-        return self._trajectory(r0, v0, n_steps, snapshot_every, substep)
+        return self._trajectory(r0, v0, n_steps, snapshot_every, substep, counter='md.unfused_steps')
 
     def run_langevin(
         self, r0, v0, dt, n_steps, friction=0.01, kT=0.1, seed=0,

@@ -286,9 +286,10 @@ class GDMLTrain:
         Nystrom-preconditioned CG otherwise. Pass ``solver='analytic'`` or
         ``'cg'`` to override. ``solver_max_seconds`` bounds the CG wall clock (an
         unconverged model is returned, and flagged); ``save_progr_callback``
-        receives CG checkpoints; ``factor_slices`` goes to the CG solver, where
-        it sets the slices of the int8 slice-stack factor
-        (``Iterative(factor_mode='ozaki')``; the default factor is f64).
+        receives CG checkpoints; ``factor_slices`` goes to the CG solver,
+        whose ``factor_mode`` stays ``'auto'``, the f64 factor, so the slice
+        count is not used: only ``Iterative(factor_mode='ozaki')`` builds the
+        int8 slice stack.
         The call is the root span ``train`` of its phases' spans.
         """
         with profiling.span('train'):
