@@ -12,6 +12,7 @@ then the slice-stack apply's int8 products in each layout they could take
 task by CG with each factor and first matvec rung (``phase_atat_factors``);
 ``--strip-apply`` phases 1-2 and then the int8 products of the pair route's
 strip solve in each layout they could take (``phase_strip_apply``);
+``--wide`` phases 1-2 and then phase 20, the wide route of K1;
 ``--bench-large`` phases 1-2 and then every mode of
 ``python3 -m sgdml_tpu_torch.bench_large`` at full size, the CG budgets of
 ``BENCH_LARGE_ENV`` stated (``phase_bench``).
@@ -39,7 +40,10 @@ each a plain assertion that ends the run with a traceback when it fails:
    the plain path, and geometries per second;
 6. 200 NVE steps and 50 Langevin steps of MD on the golden model, a block
    graph replayed a step, one K1 launch per force evaluation (the graphs'
-   replays counted);
+   replays counted); (b) 1,000 NVE steps at the buckyball catcher's width
+   (N = 148, T = 600, D = 10,878), K1 by the wide route from the 100-step
+   graphs, against the same steps run eagerly (bit for bit) and with K1 by
+   two passes, and the steps per second of both routes;
 7. training on the card through ``GDMLTrain(device='cuda')``: (a) the dense
    kernel assembly against the reference's golden kernels and against the
    CPU plain path at a ragged shape with two permutations; (b) the
@@ -272,14 +276,30 @@ each a plain assertion that ends the run with a traceback when it fails:
    its device time a call, beside its bound, a step's time in a graph and
    the plain version's.
 
-``python3 chip_smoke.py --split-t`` runs phases 1-2 and 19 alone.
+20. (run right after phase 19) K1's wide route, which ``route(D, B)``
+   picks for B <= ``WIDE_MAX_B`` queries, each past split T's 64 KiB: (a)
+   against the plain version in f32 and f64, with and without the energy
+   constraint, two calls bit for bit, with the card's clusters and with 7,
+   at ragged shapes (D not a multiple of the cluster's 4 blocks, f32 rows
+   off 16 bytes, T not a multiple of the clusters) and at the buckyball
+   catcher's width (N = 148, T = 600, D = 10,878) at B = 1 and 4; (b) at
+   that width and B = 1, 2 and 4, two passes, split T called directly
+   where its shared memory takes the batch, and the wide route, each by
+   CUDA events over ``WIDE_CALLS`` calls, with its share of ``bound`` (the
+   measurement that sets ``WIDE_MAX_B``), the wide kernel and its
+   reduction apart (the profiler, a graph of calls), and the wide route at
+   the route's lower edge (N = 129, D = 8,256).
+
+``python3 chip_smoke.py --split-t`` runs phases 1-2 and 19 alone;
+``--wide`` phases 1-2 and 20 alone; ``--md-wide`` phases 1-2 and 6b alone.
 
 Phases 4-18 are the main path: each sets the launch counts to 0 before it
 drives the path (phases 8-17 before each training run, solve, command,
 program or request) and reads them right after. A launch inside a CUDA
-graph counts at each replay, as the same launch run eagerly would. The last lines are the command's
-wall, the kernels' JSON record, the card's name and power limit, and
-``{"ok": true, ...}``.
+graph counts at each replay, as the same launch run eagerly would. The last
+lines are the command's wall, the kernels' JSON record (with the wide
+route's time at the buckyball width and B = 1 from phase 20 beside its
+bound), the card's name and power limit, and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -365,10 +385,25 @@ SPLIT_T_SPLITS = (('aspirin', 1, 1000, 210), ('aspirin', 8, 1000, 210), ('at-at'
                   ('at-at', 4, 3000, 1770))
 SPLIT_T_MD = (21, 1000, 50_000, 2, 100, 0.01)
 
+# Phase 20, the wide route: the checked shapes (label, B, T, D), the
+# clusters forced besides the card's, the sweep's width (label, T, D) and
+# batches, the calls each sweep time averages, and the route's lower edge.
+WIDE_CHECKS = (('ragged', 1, 37, 8193), ('ragged', 3, 41, 8195), ('ragged', 4, 601, 10_877),
+               ('buckyball', 1, 600, 10_878), ('buckyball', 4, 600, 10_878))
+WIDE_CLUSTERS = 7
+WIDE_SWEEP = ('buckyball', 600, 10_878)
+WIDE_SWEEP_B = (1, 2, 4)
+WIDE_CALLS = 500
+WIDE_EDGE = ('n129', 600, 8256)
+
 # Phase 6: NVE step and initial temperature, picked on the CPU with the
 # plain path so that the energy drift of 200 steps stays far under the
 # bound (1.6e-5 of the mean kinetic energy there).
 MD_DT, MD_KT, MD_STEPS, MD_DRIFT = 0.02, 0.05, 200, 1e-3
+# Phase 6b, NVE past split T's width: the buckyball catcher's 148 atoms on a
+# table of T synthetic frames, the steps of a run, a snapshot (and a graph)
+# every so many steps, dt, and the runs of each route in turns.
+MD_WIDE = (148, 600, 1000, 100, 0.01, 2)
 
 # Phase 17, the one-geometry programs as CUDA graphs: the serving requests
 # held graph against eager at AT-AT and ethanol width (ethanol: N = 9, M =
@@ -909,6 +944,58 @@ def phase_split_t(device, card):
     return sweep
 
 
+def phase_wide(device, card):
+    """Phase 20; returns the sweep's times {(B, route): ms} and the wide
+    route's kernels apart {B: {kernel: us}}."""
+    t_phase = time.perf_counter()
+    fp = fused_predict
+    max_abs, n_cases = 0.0, 0
+    for label, B, T, D in WIDE_CHECKS:
+        for dtype in (torch.float64, torch.float32):
+            for with_aE in (False, True):
+                args = contraction_inputs(B, T, D, dtype, with_aE, seed=B + T + D, device=device)
+                plain = lambda: fp.fused_predict_tables_reference(*args)  # noqa: E731
+                e_scale = float(fp._plane_terms(*args)[0].abs().sum(1).max())  # as phase 19a
+                for clusters in (None, WIDE_CLUSTERS):
+                    what = '%-9s B=%d T=%d D=%d %s aE=%-5s wide, %s clusters' % (
+                        label, B, T, D, NAME[dtype], with_aE, clusters or 'card')
+                    max_abs = max(max_abs, check(what, lambda: fp.wide(*args, clusters=clusters), plain,
+                                                 TOL[dtype], scales=(e_scale, None)))
+                    n_cases += 1
+    n_clusters = {B: fp._wide_max_clusters(0, torch.float64, B) for B in (1, 4)}
+    print('[20a wide vs plain] all %d cases within bounds and bitwise repeatable; max abs error %.3e; '
+          'clusters the card runs at once (f64, B = 1 and 4): %s' % (n_cases, max_abs, n_clusters))
+
+    sweep, kernels = {}, {}
+    label, T, D = WIDE_SWEEP
+    for B in WIDE_SWEEP_B:
+        args = contraction_inputs(B, T, D, torch.float64, False, seed=4, device=device)
+        names = ['two_pass'] + (['split_t'] if fp._split_t_takes(B, D, 8) else []) + ['wide']
+        b_ms, b_by = bound(B, T, D, 8)
+        for name in names:
+            fn = getattr(fp, name)
+            fn(*args)
+            torch.cuda.synchronize()
+            sweep[B, name] = cuda_ms(lambda: fn(*args), WIDE_CALLS)
+        print('    route sweep f64 %-9s T=%d D=%d B=%d: %s; bound %.4f ms by %s -> fastest %s, route(D, B) = %s' % (
+            label, T, D, B, ', '.join('%s %.4f ms (%.1f%%)' % (n, sweep[B, n], 100 * b_ms / sweep[B, n])
+                                      for n in names), b_ms, b_by,
+            min(names, key=lambda n: sweep[B, n]), fp.route(D, B)))
+        kernels[B] = kernel_us(lambda: fp.wide(*args))
+        print('    wide      B=%d T=%d D=%d f64 kernels: %s' % (
+            B, T, D, ', '.join('%s %.2f us' % kv for kv in kernels[B].items())))
+    label, T, D = WIDE_EDGE
+    args = contraction_inputs(1, T, D, torch.float64, False, seed=5, device=device)
+    edge = {name: cuda_ms(lambda: getattr(fp, name)(*args), WIDE_CALLS) for name in ('two_pass', 'wide')}
+    b_ms, b_by = bound(1, T, D, 8)
+    print('    route edge f64 %s T=%d D=%d B=1: %s; bound %.4f ms by %s; route(D, 1) = %s' % (
+        label, T, D, ', '.join('%s %.4f ms (%.1f%%)' % (n, edge[n], 100 * b_ms / edge[n]) for n in edge), b_ms,
+        b_by, fp.route(D, 1)))
+    print('[20b wide sweep] CUDA events over %d calls; WIDE_MAX_B = %d; phase 20 %.1f s (%s)' % (
+        WIDE_CALLS, fp.WIDE_MAX_B, time.perf_counter() - t_phase, card))
+    return sweep, kernels
+
+
 def phase_golden(device):
     model = io.load_dict(os.path.join(GOLDEN, 'model_ref.npz'))
     ref = np.load(os.path.join(GOLDEN, 'train_predict_ref.npz'))
@@ -1047,6 +1134,63 @@ def phase_md(device):
           '(bound %.0e), a block graph replayed a step (captured in %.1f ms); Langevin 50 steps finite; '
           'one K1 launch per force evaluation (a fused step each), replays counted; launches %s' % (
               MD_STEPS, MD_DT, drifts['cpu'], drifts[device], device, MD_DRIFT, 1e3 * captures[0]['s'], counts))
+    return counts
+
+
+def phase_md_wide(device, card):
+    """6b: ``MDEngine.run_nve`` at the buckyball catcher's width (N = 148,
+    T = 600, D = 10,878), K1 by the wide route from the 100-step graphs, the
+    launch counts set to 0 just before and read after; the same steps run
+    eagerly give the same bits, and with K1 by two passes (``WIDE_MAX_B`` =
+    0) the same first snapshot's energy within TOL; steps per second of the
+    two routes in turns. Returns the counts of the checked run."""
+    t0 = time.perf_counter()
+    fp = fused_predict
+    n_atoms, n_train, steps, every, dt, turns = MD_WIDE
+    ds = generate_md_dataset(n_atoms=n_atoms, n_frames=n_train + 1, seed=0)
+    R = ds['R'].reshape(len(ds['R']), -1)
+    model = atat_model(n_atoms, n_train, R[:n_train], ds['z'], device)
+    r0 = ds['R'][n_train]
+    eng = MDEngine(model, device=device)
+    v0 = md_velocities(eng)
+    D = eng.tables.Xt.shape[1]
+    assert fp.route(D, 1) == 'wide' and not eng._fused_nve(), (D, fp.route(D, 1))
+    n_k1 = 1 + steps + steps // every  # the first forces, a step each, a snapshot's energy each
+    fp.reset_launches()
+    with graph_probe() as caps:
+        out = eng.run_nve(r0, v0, dt, steps, snapshot_every=every)
+    counts = launch_counts()
+    assert counts['wide'] == counts['total'] == n_k1, counts
+    assert not any(counts[k] for k in ('pass_a', 'pass_b', 'split_t', 'md_step')), counts
+    assert len(caps) == 1 and all(np.isfinite(x).all() for x in out), caps
+    with eager_oracle(eng):
+        ref = eng.run_nve(r0, v0, dt, steps, snapshot_every=every)
+    assert all(np.array_equal(a, b) for a, b in zip(out, ref)), 'wide NVE graph != eager'
+    arms = {'two_pass': MDEngine(model, device=device), 'wide': eng}
+    rates, first, max_b = {arm: [] for arm in arms}, {}, fp.WIDE_MAX_B
+    try:
+        for arm in tuple(arms) * turns:
+            fp.WIDE_MAX_B = 0 if arm == 'two_pass' else max_b
+            fp.reset_launches()
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            E_pot = arms[arm].run_nve(r0, v0, dt, steps, snapshot_every=every)[2]
+            rates[arm].append(steps / (time.perf_counter() - t_run))
+            first.setdefault(arm, (E_pot[0], launch_counts()))
+    finally:
+        fp.WIDE_MAX_B = max_b
+    two = first['two_pass'][1]
+    assert two['pass_a'] == two['total'] == n_k1 and two['wide'] == 0, two
+    e_rel = abs(first['wide'][0] - first['two_pass'][0]) / abs(first['two_pass'][0])
+    assert e_rel < TOL[torch.float64], e_rel
+    drift = np.abs(out[2] + out[3] - out[2][0] - out[3][0]).max() / out[3].mean()
+    print('[6b md wide] NVE at N=%d M=%d D=%d, %d steps, snapshot every %d, dt=%g: K1 by the wide route from '
+          'the graphs (%d captured) = the eager steps bit for bit; drift / mean kinetic energy %.2e; first '
+          'snapshot energy against two passes %.1e; steps/s in turns, two passes %s, wide %s; launches %s; '
+          '%.1f s (%s)' % (
+              n_atoms, n_train, D, steps, every, dt, len(caps), drift, e_rel,
+              ', '.join('%.1f' % x for x in rates['two_pass']), ', '.join('%.1f' % x for x in rates['wide']),
+              counts, time.perf_counter() - t0, card))
     return counts
 
 
@@ -4383,14 +4527,24 @@ def main():
         phase_split_t(device, smi)
         print(smi)
         return
+    if sys.argv[1:] == ['--wide']:
+        phase_wide(device, smi)
+        print(smi)
+        return
+    if sys.argv[1:] == ['--md-wide']:
+        phase_md_wide(device, smi)
+        print(smi)
+        return
     if sys.argv[1:] == ['--bench-large']:
         phase_bench(device, smi, env=BENCH_LARGE_ENV, with_bench=False)
         print(smi)
         return
     max_abs, times = phase_kernel_vs_plain(device)
     phase_split_t(device, smi)
+    wide_sweep, wide_kernels = phase_wide(device, smi)
     serving_counts, atat = phase_serving(device, smi)
-    main_path = [phase_golden(device), serving_counts, phase_md(device), phase_graphs(device, atat, smi)]
+    main_path = [phase_golden(device), serving_counts, phase_md(device), phase_md_wide(device, smi),
+                 phase_graphs(device, atat, smi)]
     train_counts, ethanol = phase_train(device, smi)
     cg_counts, splits, aspirin_cg, atat_cg = phase_cg(device, ethanol, smi)
     cli_counts = phase_cli(device, ethanol, atat, splits[1]['solver_iters'], smi)
@@ -4423,9 +4577,11 @@ def main():
     main_path += [train_counts, cg_counts, cli_counts, grid_counts, ozaki_counts, pair_counts, mesh_counts,
                   routes_counts, inplace_counts, cg_graph_counts, bench_counts]
     counts = {k: sum(c[k] for c in main_path) for k in main_path[0]}
-    assert all(counts[k] > 0 for k in ('pass_a', 'pass_b', 'split_t', 'md_step')), counts
+    assert all(counts[k] > 0 for k in ('pass_a', 'pass_b', 'split_t', 'md_step', 'wide')), counts
     ms, plain_ms = times['at-at', torch.float64]
     bound_ms, bound_by = bound(*SHAPES['at-at'], 8)
+    _, wide_T, wide_D = WIDE_SWEEP
+    wide_bound_ms, wide_bound_by = bound(1, wide_T, wide_D, 8)
     print('[wall] %.1f s from the start of chip_smoke.py, the kernel build included' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': [{
         'name': 'fused_predict', 'route': 'cuda',
@@ -4434,7 +4590,10 @@ def main():
         'launches': counts['total'], 'max_abs_err': max(max_abs, *(s['max_abs_err'] for s in splits)),
         'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
-        'launches_by_path': {k: counts[k] for k in ('pass_a', 'pass_b', 'split_t', 'md_step')},
+        'launches_by_path': {k: counts[k] for k in ('pass_a', 'pass_b', 'split_t', 'md_step', 'wide')},
+        'wide': {'B': 1, 'T': wide_T, 'D': wide_D, 'ms': wide_sweep[1, 'wide'],
+                 'kernel_ms': 1e-3 * sum(wide_kernels[1].values()),
+                 'bound_ms': wide_bound_ms, 'bound_by': wide_bound_by},
         'cg_matvec_shapes': splits,
     }]}))
     print(smi)

@@ -16,7 +16,7 @@
 // per table build.
 //
 // What bounds it on this card: four B x T x D products, 8 B T D flop, against
-// the (B, T) coefficient planes, which are 1/D of that work. Two routes,
+// the (B, T) coefficient planes, which are 1/D of that work. Three routes,
 // chosen by B and D in ops/fused_predict.py:route (measurements in PERF.md):
 //
 //  * Two passes, for every batch above split T's: bulk prediction, the
@@ -42,6 +42,10 @@
 //
 //  * Split T, for at most 16 queries: one geometry a call in MD and the ASE
 //    calculator, or a few in a small predict bucket.
+//
+//  * Wide, for up to 4 queries, each too wide for split T (129 atoms and
+//    more): split T's table runs, each row's columns also split across a
+//    thread-block cluster (see its section below).
 //
 // Two passes spread the query axis over the card, so at B = 1 they run 16
 // blocks of zero-filled 64-row tiles, then 64 and then one, in three launches.
@@ -1105,6 +1109,416 @@ int launch_md_step(const void* xt, const void* ja, const void* xt_sq, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// ===========================================================================
+// Wide (up to 4 queries, each too wide for split T).
+// ===========================================================================
+//
+// Past split T's 64 KiB of f64 queries (D > 8,192 at B = 1: 129 atoms and
+// more) a warp would hold a whole row pair (174 KB at D = 10,878), and the
+// tables (104 MB at the buckyball catcher's T = 600) are twice the L2, so
+// phase 2 of split T could not find its rows on chip again. The bound is
+// those table bytes, read once (31.2 us at the buckyball width). This route
+// splits the row as well: a cluster of WD_CLUSTER blocks owns a run of
+// consecutive table rows, and block `rank` of it the slice [rank W, (rank +
+// 1) W) of the D columns, W = ceil(D / WD_CLUSTER). A block's loader warps
+// hold a row's slice in registers, a thread WD_COLS columns WD_LOAD_THREADS
+// apart (coalesced 8- or 4-byte loads, so any width and alignment). For
+// each row they form their part of xq.xt and xq.ja; warp 0 adds the warps
+// in order, stores the block's partials into a slot of every block of the
+// cluster (distributed shared memory, st.async, counted by that block's
+// mbarrier), then adds the WD_CLUSTER slots it was sent in rank order, so
+// that every block gets the same planes from plane_terms; the loaders then
+// add cx xt + cj ja into their columns' forces from the registers that
+// still hold the row. HBM and L2 see each row once a call. Only warp 0,
+// which loads no table rows, takes part in the exchange, and the loaders
+// meet it at named block barriers; they hand in the next row's partials
+// before they wait for this row's planes, so that the exchange's latency
+// overlaps their next row's dots, with a third row's loads in flight.
+// Cluster g writes part[g] = [P_g (D), e_g, s_g] in split T's layout and
+// reduce_kernel adds the clusters' partials in order. No atomics: the same
+// bits every run.
+
+constexpr int WD_CLUSTER = 4;                     // ops/fused_predict.py:WIDE_CLUSTER
+constexpr int WD_LOADERS = 15;                    // loader warps of a block, after warp 0
+constexpr int WD_LOAD_THREADS = WD_LOADERS * 32;  // ops/fused_predict.py:WIDE_THREADS
+constexpr int WD_THREADS = WD_LOAD_THREADS + 32;  // 16 warps: 128 registers a thread
+constexpr int WD_COLS = 6;                        // ops/fused_predict.py:WIDE_COLS
+// The named barriers of exchange n: the loaders' partials in (WD_PARTS + n
+// % 2), the planes out (WD_PLANES + n % 2). Two of each, since the loaders
+// hand in exchange n + 1's partials before they take exchange n's planes.
+constexpr int WD_PARTS = 1, WD_PLANES = 3;
+// The runs of reduce_kernel: 4 warps of a block each add a run of about G /
+// 4 cluster partials, loaded 8 at a time; 5 us faster at the buckyball
+// width than split T's 32 runs of one (PERF.md, section 6).
+constexpr int WD_REDUCE_RUNS = 4;                 // ops/fused_predict.py:WIDE_REDUCE_RUNS
+
+// The wide kernel's instance: up to MAXB queries; NBUF table rows held in
+// registers (the row whose planes are on their way, the row being dotted,
+// the next on its way); NX partial dots a row (gram and xq.ja of each query).
+template <int MAXB_>
+struct Wide {
+  static constexpr int MAXB = MAXB_, NBUF = 3, NX = 2 * MAXB_;
+};
+
+template <typename scalar_t>
+struct WideArgs {
+  const scalar_t* xq;
+  const scalar_t* xt;
+  const scalar_t* ja;
+  const scalar_t* xt_sq;
+  const scalar_t* tja;
+  const scalar_t* ae;
+  scalar_t sig;
+  int B, T, D, W;  // W: the columns of a block's slice
+  scalar_t* part;  // (clusters, B, D + 2)
+};
+
+// Dynamic shared memory of an instance, in bytes: two mbarriers, then in
+// scalar_t, each twice (exchanges n and n + 1), the exchange slots
+// [WD_CLUSTER][NX], the loader warps' partials [WD_LOADERS][NX] and the
+// planes [NX] (cx, then cj, of each query); then, for each loader thread's
+// own columns [MAXB][WD_COLS][WD_LOAD_THREADS], the block's slice of the
+// queries and of the force partials.
+template <typename scalar_t, typename Shape>
+constexpr size_t wide_smem() {
+  return 16 + sizeof(scalar_t) * (2 * (WD_CLUSTER + WD_LOADERS + 1) * Shape::NX +
+                                  2 * (size_t)Shape::MAXB * WD_COLS * WD_LOAD_THREADS);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(WD_THREADS) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WD_THREADS) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// The address of shared-memory word `addr` in the cluster's block `rank`.
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// v into `addr` of a block of the cluster, counted as its bytes by the
+// transaction count of that block's mbarrier `bar`.
+__device__ __forceinline__ void st_async(unsigned addr, double v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n" ::"r"(addr),
+               "l"(__double_as_longlong(v)), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned addr, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Row `row` of xt and ja at this loader thread's columns col0 +
+// WD_LOAD_THREADS k, zeros past c1 and for rows at or past t1 (whose planes
+// are zero). Streamed: nothing reads them again in this call.
+template <typename scalar_t>
+__device__ __forceinline__ void wide_load(scalar_t (&x)[WD_COLS], scalar_t (&j)[WD_COLS], const WideArgs<scalar_t>& a,
+                                          int row, int t1, int col0, int c1) {
+  const bool ok = row < t1;
+  const scalar_t* xr = a.xt + (size_t)(ok ? row : 0) * a.D;
+  const scalar_t* jr = a.ja + (size_t)(ok ? row : 0) * a.D;
+#pragma unroll
+  for (int k = 0; k < WD_COLS; ++k) {
+    const int col = col0 + k * WD_LOAD_THREADS;
+    x[k] = ok && col < c1 ? __ldcs(xr + col) : scalar_t(0);
+    j[k] = ok && col < c1 ? __ldcs(jr + col) : scalar_t(0);
+  }
+}
+
+// A loader warp's sums of its threads' v[i] for exchange n into its row of
+// red[n % 2]; then the warp arrives at exchange n's WD_PARTS barrier.
+template <int NX, typename scalar_t>
+__device__ __forceinline__ void loader_parts(int n, const scalar_t (&v)[NX], scalar_t* red, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    const scalar_t s = warp_sum(v[i]);
+    if (lane == 0) red[((n & 1) * WD_LOADERS + warp - 1) * NX + i] = s;
+  }
+  bar_arrive(WD_PARTS + (n & 1));
+}
+
+// The loader thread's part of xq.xt and xq.ja for every query, from the row
+// pair x, j it holds.
+template <int MAXB, typename scalar_t>
+__device__ __forceinline__ void wide_dots(const scalar_t (&x)[WD_COLS], const scalar_t (&j)[WD_COLS],
+                                          const scalar_t* xq_s, int lt, scalar_t (&d)[2 * MAXB]) {
+#pragma unroll
+  for (int i = 0; i < 2 * MAXB; ++i) d[i] = 0;
+#pragma unroll
+  for (int k = 0; k < WD_COLS; ++k)
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b) {
+      const scalar_t q = xq_s[(b * WD_COLS + k) * WD_LOAD_THREADS + lt];
+      d[b] += q * x[k];
+      d[MAXB + b] += q * j[k];
+    }
+}
+
+// Warp 0's exchange n (every block of the cluster makes the same ones in
+// the same order): past exchange n's WD_PARTS barrier, lane i < NX adds the
+// loader warps' partials of value i in warp order and stores the sum into
+// slot [n % 2][rank] of every block of the cluster, each store counted by
+// that block's mbarrier n % 2; lane 0 arms its own mbarrier for the
+// cluster's NX x WD_CLUSTER values. Once they are in, lane i adds the
+// WD_CLUSTER slots of value i in rank order and returns that sum, the same
+// bits in every block. A slot and its mbarrier are used again two exchanges
+// later, which no block reaches before every block has finished this one:
+// its next exchange waits on the stores of all.
+template <int NX, typename scalar_t>
+__device__ __forceinline__ scalar_t exchange(int n, const scalar_t* red, scalar_t* xs, unsigned long long* mbar,
+                                             int rank, int lane) {
+  const int p = n & 1;
+  bar_sync(WD_PARTS + p);
+  const unsigned bar = smem_u32(mbar + p);
+  if (lane == 0) mbar_expect_tx(bar, WD_CLUSTER * NX * sizeof(scalar_t));
+  if (lane < NX) {
+    scalar_t s = 0;
+#pragma unroll
+    for (int w = 0; w < WD_LOADERS; ++w) s += red[(p * WD_LOADERS + w) * NX + lane];
+    const unsigned slot = smem_u32(xs + (p * WD_CLUSTER + rank) * NX + lane);
+#pragma unroll
+    for (int r = 0; r < WD_CLUSTER; ++r) st_async(map_rank(slot, r), s, map_rank(bar, r));
+  }
+  mbar_wait(bar, (n >> 1) & 1);
+  scalar_t tot = 0;
+  if (lane < NX) {
+#pragma unroll
+    for (int r = 0; r < WD_CLUSTER; ++r) tot += xs[(p * WD_CLUSTER + r) * NX + lane];
+  }
+  return tot;
+}
+
+// The wide route's kernel (see the note above); an overload of the split-T
+// kernel's name, so that a trace that names kernels counts it as K1's. Grid:
+// clusters x WD_CLUSTER blocks; cluster g owns rows [g T / G, (g + 1) T / G).
+// Exchange 0 sums |xq|^2, exchange k + 1 row t0 + k. The loaders hand in row
+// k + 1's partials before they wait for row k's planes, so that warp 0's
+// exchange of a row overlaps their dots of the next; row k sits in
+// registers xr[k % 3] from two rows before its dots to its forces.
+template <typename scalar_t, typename Shape>
+__global__ void __cluster_dims__(WD_CLUSTER, 1, 1) __launch_bounds__(WD_THREADS, 1)
+fused_predict_kernel(const WideArgs<scalar_t> a) {
+  constexpr int MAXB = Shape::MAXB, NBUF = Shape::NBUF, NX = Shape::NX;
+  constexpr int SLICE = MAXB * WD_COLS * WD_LOAD_THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem_raw);
+  scalar_t* xs = reinterpret_cast<scalar_t*>(smem_raw + 16);  // [2][WD_CLUSTER][NX]
+  scalar_t* red = xs + 2 * WD_CLUSTER * NX;                    // [2][WD_LOADERS][NX]
+  scalar_t* pl = red + 2 * WD_LOADERS * NX;                    // [2][NX]
+  scalar_t* xq_s = pl + 2 * NX;                                // [MAXB][WD_COLS][WD_LOAD_THREADS]
+  scalar_t* acc_s = xq_s + SLICE;                              // the same layout
+
+  unsigned rank_u;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank_u));
+  const int rank = static_cast<int>(rank_u);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, lt = threadIdx.x - 32;  // lt: loader thread
+  const int g = blockIdx.x / WD_CLUSTER, G = gridDim.x / WD_CLUSTER;
+  const int B = a.B, D = a.D;
+  const int c0 = rank * a.W, c1 = min(D, c0 + a.W), col0 = c0 + lt;
+  const int t0 = static_cast<int>((long long)g * a.T / G), t1 = static_cast<int>((long long)(g + 1) * a.T / G);
+  const Coeffs<scalar_t> cf = coeffs(a.sig);
+
+  if (threadIdx.x == 0) {
+    mbar_init(smem_u32(mbar), 1);
+    mbar_init(smem_u32(mbar + 1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp == 0 && lane < 2 * NX) pl[lane] = 0;  // the planes of queries past B stay zero
+  // Every block's mbarriers ready, and the whole cluster running, before
+  // warp 0 stores into another block's shared memory. The loaders, which
+  // touch none, wait for this barrier only at the end.
+  if (warp == 0) {
+    cluster_arrive_release();
+    cluster_wait();
+  } else {
+    cluster_arrive_relaxed();
+  }
+
+  scalar_t xr[NBUF][WD_COLS], jr[NBUF][WD_COLS];
+  scalar_t xq_sq = 0, e_acc = 0, s_acc = 0;  // warp 0, lane b: |xq_b|^2 and its sums of ep and cx
+  if (warp > 0) {
+#pragma unroll
+    for (int u = 0; u < NBUF - 1; ++u) wide_load(xr[u], jr[u], a, t0 + u, t1, col0, c1);
+    scalar_t sq[NX] = {};
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b)
+#pragma unroll
+      for (int k = 0; k < WD_COLS; ++k) {
+        const int col = col0 + k * WD_LOAD_THREADS, i = (b * WD_COLS + k) * WD_LOAD_THREADS + lt;
+        const scalar_t x = b < B && col < c1 ? a.xq[(size_t)b * D + col] : scalar_t(0);
+        xq_s[i] = x;
+        acc_s[i] = 0;
+        sq[b] += x * x;
+      }
+    loader_parts(0, sq, red, warp, lane);
+    if (t0 < t1) {
+      scalar_t d[NX];
+      wide_dots<MAXB>(xr[0], jr[0], xq_s, lt, d);
+      loader_parts(1, d, red, warp, lane);
+    }
+    bar_sync(WD_PLANES);
+  } else {
+    xq_sq = __shfl_sync(0xffffffffu, exchange<NX>(0, red, xs, mbar, rank, lane), lane % MAXB);
+    bar_arrive(WD_PLANES);
+  }
+
+  for (int t = t0; t < t1; t += NBUF) {
+#pragma unroll
+    for (int u = 0; u < NBUF; ++u) {  // row t + u sits in xr[u]
+      const int row = t + u, n = row - t0 + 1;
+      if (row >= t1) break;  // the same in every block of the cluster
+      if (warp > 0) {
+        const int next = (u + 1) % NBUF, ahead = (u + NBUF - 1) % NBUF;
+        wide_load(xr[ahead], jr[ahead], a, row + NBUF - 1, t1, col0, c1);
+        if (row + 1 < t1) {
+          scalar_t d[NX];
+          wide_dots<MAXB>(xr[next], jr[next], xq_s, lt, d);
+          loader_parts(n + 1, d, red, warp, lane);
+        }
+        bar_sync(WD_PLANES + (n & 1));
+        const scalar_t* pn = pl + (n & 1) * NX;
+#pragma unroll
+        for (int b = 0; b < MAXB; ++b) {
+          const scalar_t cx = pn[b], cj = pn[MAXB + b];
+#pragma unroll
+          for (int k = 0; k < WD_COLS; ++k)
+            acc_s[(b * WD_COLS + k) * WD_LOAD_THREADS + lt] += cx * xr[u][k] + cj * jr[u][k];
+        }
+      } else {
+        scalar_t xts = 0, tj = 0, aet = 0;
+        if (lane < B) {
+          xts = a.xt_sq[row];
+          tj = a.tja[row];
+          aet = a.ae != nullptr ? a.ae[row] : scalar_t(0);
+        }
+        const scalar_t tot = exchange<NX>(n, red, xs, mbar, rank, lane);
+        const scalar_t q = __shfl_down_sync(0xffffffffu, tot, MAXB);  // lane b: xq_b.ja
+        if (lane < B) {
+          scalar_t ep, cx, cj;
+          plane_terms(tot, q, xq_sq, xts, tj, a.ae != nullptr, aet, true, cf, ep, cx, cj);
+          pl[(n & 1) * NX + lane] = cx;
+          pl[(n & 1) * NX + MAXB + lane] = cj;
+          e_acc += ep;
+          s_acc += cx;
+        }
+        bar_arrive(WD_PLANES + (n & 1));
+      }
+    }
+  }
+
+  // Past its last exchange no block touches another's shared memory; the
+  // last cluster barrier keeps each block's until every block is there.
+  if (warp > 0) cluster_wait();  // the first barrier's
+  cluster_arrive_relaxed();
+  scalar_t* dst = a.part + (size_t)g * B * (D + 2);
+  if (warp > 0) {
+#pragma unroll
+    for (int b = 0; b < MAXB; ++b)
+#pragma unroll
+      for (int k = 0; k < WD_COLS; ++k) {
+        const int col = col0 + k * WD_LOAD_THREADS;
+        if (b < B && col < c1) dst[(size_t)b * (D + 2) + col] = acc_s[(b * WD_COLS + k) * WD_LOAD_THREADS + lt];
+      }
+  } else if (rank == 0 && lane < B) {
+    dst[(size_t)lane * (D + 2) + D] = e_acc;
+    dst[(size_t)lane * (D + 2) + D + 1] = s_acc;
+  }
+  cluster_wait();
+}
+
+// Whether the wide kernel takes B queries of width D: a slice of ceil(D /
+// WD_CLUSTER) columns in WD_COLS a loader thread (ops/fused_predict.py:_wide_takes).
+inline bool wide_takes(int B, int D) {
+  return B >= 1 && B <= 4 && D >= 1 && (D + WD_CLUSTER - 1) / WD_CLUSTER <= WD_COLS * WD_LOAD_THREADS;
+}
+
+template <typename scalar_t, int MAXB>
+void (*wide_kernel())(WideArgs<scalar_t>) {
+  return fused_predict_kernel<scalar_t, Wide<MAXB>>;
+}
+
+template <typename scalar_t, int MAXB>
+int launch_wide_b(const WideArgs<scalar_t>& a, int clusters, scalar_t* e_out, scalar_t* f_out, int device,
+                  cudaStream_t st) {
+  const auto kernel = wide_kernel<scalar_t, MAXB>();
+  constexpr size_t smem = wide_smem<scalar_t, Wide<MAXB>>();
+  cudaError_t err = allow_smem<scalar_t, 300 + MAXB>(reinterpret_cast<const void*>(kernel), smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<clusters * WD_CLUSTER, WD_THREADS, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_kernel<scalar_t, WD_REDUCE_RUNS><<<dim3((a.D + 1 + 31) / 32, a.B), WD_REDUCE_RUNS * 32, 0, st>>>(
+      a.xq, a.part, a.B, a.D, clusters, e_out, f_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename scalar_t>
+int launch_wide(const void* xq, const void* xt, const void* ja, const void* xt_sq, const void* tja,
+                const void* ae, double sig, int B, int T, int D, int clusters, void* part, void* e_out,
+                void* f_out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1 || T < 1 || !wide_takes(B, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const WideArgs<scalar_t> a{static_cast<const scalar_t*>(xq), static_cast<const scalar_t*>(xt),
+                             static_cast<const scalar_t*>(ja), static_cast<const scalar_t*>(xt_sq),
+                             static_cast<const scalar_t*>(tja), static_cast<const scalar_t*>(ae),
+                             static_cast<scalar_t>(sig), B, T, D, (D + WD_CLUSTER - 1) / WD_CLUSTER,
+                             static_cast<scalar_t*>(part)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 1) return launch_wide_b<scalar_t, 1>(a, clusters, static_cast<scalar_t*>(e_out),
+                                                static_cast<scalar_t*>(f_out), device, st);
+  return launch_wide_b<scalar_t, 4>(a, clusters, static_cast<scalar_t*>(e_out), static_cast<scalar_t*>(f_out),
+                                    device, st);
+}
+
+// The clusters of the B-query instance that the card runs at once, in *n.
+template <typename scalar_t>
+int wide_max_clusters(int B, int device, int* n) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B < 1 || B > 4) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = B == 1 ? reinterpret_cast<const void*>(wide_kernel<scalar_t, 1>())
+                              : reinterpret_cast<const void*>(wide_kernel<scalar_t, 4>());
+  const size_t smem = B == 1 ? wide_smem<scalar_t, Wide<1>>() : wide_smem<scalar_t, Wide<4>>();
+  err = B == 1 ? allow_smem<scalar_t, 301>(kernel, smem, device) : allow_smem<scalar_t, 304>(kernel, smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(WD_CLUSTER);
+  config.blockDim = dim3(WD_THREADS);
+  config.dynamicSmemBytes = smem;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, kernel, &config));
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. Pointers are device pointers of
@@ -1199,6 +1613,28 @@ int sgdml_md_step_f64(const void* xt, const void* ja, const void* xt_sq, const v
   return launch_md_step<double>(xt, ja, xt_sq, tja, mu, inv_m, sig, std_, dt, N, T, D, blocks, r, v, f, part, runs,
                                 tickets, e_out, device, stream);
 }
+
+// Wide: E_raw (B,) and F_d (B, D) for B <= 4 queries of width D up to
+// 4 x 6 x 480 = 11,520, the table rows cut into `clusters` runs of T /
+// clusters; `part` is scratch of clusters x B x (D + 2) elements.
+int sgdml_wide_f32(const void* xq, const void* xt, const void* ja, const void* xt_sq, const void* tja,
+                   const void* ae, double sig, int B, int T, int D, int clusters, void* part, void* e_out,
+                   void* f_out, int device, void* stream) {
+  return launch_wide<float>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, clusters, part, e_out, f_out, device,
+                            stream);
+}
+
+int sgdml_wide_f64(const void* xq, const void* xt, const void* ja, const void* xt_sq, const void* tja,
+                   const void* ae, double sig, int B, int T, int D, int clusters, void* part, void* e_out,
+                   void* f_out, int device, void* stream) {
+  return launch_wide<double>(xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, clusters, part, e_out, f_out, device,
+                             stream);
+}
+
+// The wide kernel's clusters that run at once on the card for B queries, in *n.
+int sgdml_wide_clusters_f32(int B, int device, int* n) { return wide_max_clusters<float>(B, device, n); }
+
+int sgdml_wide_clusters_f64(int B, int device, int* n) { return wide_max_clusters<double>(B, device, n); }
 
 const char* sgdml_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -77,6 +77,10 @@ def load_library() -> ctypes.CDLL:
         'sgdml_two_pass': [ptr] * 6 + [f64] + [i32] * 5 + [ptr, ptr, ptr, i32, ptr],
         # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, blocks, part, E, F_d, device, stream
         'sgdml_split_t': [ptr] * 6 + [f64] + [i32] * 4 + [ptr, ptr, ptr, i32, ptr],
+        # xq, xt, ja, xt_sq, tja, ae, sig, B, T, D, clusters, part, E, F_d, device, stream
+        'sgdml_wide': [ptr] * 6 + [f64] + [i32] * 4 + [ptr, ptr, ptr, i32, ptr],
+        # B, device, out
+        'sgdml_wide_clusters': [i32, i32, ctypes.POINTER(i32)],
         # xt, ja, xt_sq, tja, mu, inv_m, sig, std, dt, N, T, D, blocks,
         # r, v, f, part, runs, tickets, E, device, stream
         'sgdml_md_step': [ptr] * 6 + [f64] * 3 + [i32] * 4 + [ptr] * 7 + [i32, ptr],
@@ -95,14 +99,17 @@ def load_library() -> ctypes.CDLL:
 
 def kernel_name(mangled: str) -> str:
     """A kernel's function, scalar type, integer template argument and step
-    policy (other than the default ``Queries``) from its mangled name, e.g.
-    ``planes_kernel<double>``, ``fused_predict_kernel<float, 4>`` or
-    ``fused_predict_kernel<double, 1, NveStep>``; the mangled name if it has
+    policy (other than the default ``Queries``) or shape from its mangled
+    name, e.g. ``planes_kernel<double>``, ``fused_predict_kernel<float, 4>``,
+    ``fused_predict_kernel<double, 1, NveStep>`` or
+    ``fused_predict_kernel<double, Wide<4>>``; the mangled name if it has
     none."""
-    kind = re.search(r'([a-z_]+_kernel)I([df])(?:Li(\d+)E(?:NS_\d+([A-Za-z]+)I)?)?', mangled)
+    kind = re.search(r'([a-z_]+_kernel)I([df])(?:Li(\d+)E(?:NS_\d+([A-Za-z]+)I)?|NS_\d+([A-Za-z]+)ILi(\d+)E)?',
+                     mangled)
     if not kind:
         return mangled
-    args = [{'d': 'double', 'f': 'float'}[kind.group(2)], kind.group(3), kind.group(4)]
+    shape = kind.group(5) and '%s<%s>' % (kind.group(5), kind.group(6))
+    args = [{'d': 'double', 'f': 'float'}[kind.group(2)], kind.group(3), kind.group(4), shape]
     return '%s<%s>' % (kind.group(1), ', '.join(a for a in args if a and a != 'Queries'))
 
 

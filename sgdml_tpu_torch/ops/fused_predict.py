@@ -8,16 +8,19 @@ forces ``F_d (B, D)`` of ``sgdml_tpu/predict.py:_predict_from_tables_body``
 for CUDA tensors and runs :func:`fused_predict_tables_reference`, the plain
 PyTorch version, for CPU tensors.
 
-It has two routes, picked by :func:`route` from the batch B and the
+It has three routes, picked by :func:`route` from the batch B and the
 descriptor width D: :func:`split_t` for small B, the table rows spread over
-the card and the blocks' partial sums added by a second small kernel, and
-:func:`two_pass` above it, two tiled products with the ``(B, T)``
-coefficient planes in device memory between them. The two-pass route's
-passes also launch on their own (:func:`planes`, :func:`forces`). Each of
-:func:`split_t`, :func:`planes` and :func:`forces` has a plain version
-beside it (:func:`split_t_reference`, :func:`planes_reference`,
-:func:`forces_reference`) that mirrors the kernel's scratch layout, its
-partial sums and the order in which it adds them.
+the card and the blocks' partial sums added by a second small kernel;
+:func:`wide` for up to :data:`WIDE_MAX_B` queries, each too wide for split
+T, the table rows spread over thread-block clusters and each row's columns
+over a cluster's blocks; and :func:`two_pass` for the rest, two tiled
+products with the ``(B, T)`` coefficient planes in device memory between
+them. The two-pass route's passes also launch on their own (:func:`planes`,
+:func:`forces`). Each of :func:`split_t`, :func:`wide`, :func:`planes` and
+:func:`forces` has a plain version beside it (:func:`split_t_reference`,
+:func:`wide_reference`, :func:`planes_reference`, :func:`forces_reference`)
+that mirrors the kernel's scratch layout, its partial sums and the order in
+which it adds them.
 
 :func:`md_step` is one velocity-Verlet step of MD at B = 1 in one launch:
 the split-T kernel with the drift and the descriptor before its rows and
@@ -29,22 +32,24 @@ plain version.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import math
 
 import torch
 import torch.nn.functional as nnf
 
+from ..utils import profiling
 from . import _build
 from . import descriptor as desc_ops
 from .kernel import Mat52Coeffs
 
 __all__ = [
-    'K_STEP', 'LAUNCHES', 'MDStepWork', 'PATH_LAUNCHES', 'SPLIT_T_MAX_B', 'TILE',
+    'K_STEP', 'LAUNCHES', 'MDStepWork', 'PATH_LAUNCHES', 'SPLIT_T_MAX_B', 'TILE', 'WIDE_MAX_B',
     'count_replay', 'fused_predict_tables', 'fused_predict_tables_reference', 'forces',
     'forces_reference', 'md_step', 'md_step_reference', 'planes', 'planes_reference',
     'recording_launches', 'reset_launches', 'route', 'split_k', 'split_t', 'split_t_blocks',
-    'split_t_reference', 'two_pass',
+    'split_t_reference', 'two_pass', 'wide', 'wide_reference',
 ]
 
 _SQRT5 = math.sqrt(5.0)
@@ -72,6 +77,28 @@ SPLIT_T_REDUCE_RUNS = 32
 SPLIT_T_MAX_B = 16
 SPLIT_T_XQ_BYTES = 64 * 1024
 
+# The wide route (csrc/fused_predict.cu: WD_CLUSTER, WD_LOAD_THREADS,
+# WD_COLS): the blocks of a cluster, each owning a slice of ceil(D /
+# WIDE_CLUSTER) descriptor columns, held WIDE_COLS a thread by its
+# WIDE_THREADS loader threads, so it takes D up to 11,520 (152 atoms); and
+# the queries of its largest instance, Wide<4> (csrc/fused_predict.cu:
+# wide_takes).
+# Batches of up to WIDE_MAX_B queries take it where a query alone is too wide
+# for split T (D > SPLIT_T_XQ_BYTES / 8: 129 atoms and more) and the kernel
+# takes their width. Set from the routes' times on an H100 at the buckyball
+# catcher's width: at B = 1, 2 and 4 the wide route beats two passes 12-19
+# times over (PERF.md, section 6). Narrower batches that split T turns away
+# for their count (B * D * 8 bytes) were not measured and keep two passes.
+WIDE_CLUSTER = 4
+WIDE_THREADS = 480
+WIDE_COLS = 6
+WIDE_MAX_B = 4
+# The runs of the wide route's reduction (csrc/fused_predict.cu:
+# WD_REDUCE_RUNS): consecutive cluster partials added in runs, then the
+# runs in order, as split T's reduction adds its blocks' in
+# SPLIT_T_REDUCE_RUNS runs.
+WIDE_REDUCE_RUNS = 4
+
 # The pass B grid is split along K until it has at least as many blocks as the
 # card has SMs, while each split keeps at least this many K steps.
 _MIN_SPLIT_STEPS = 8
@@ -82,8 +109,10 @@ _MIN_SPLIT_STEPS = 8
 # kernels its path went through. A launch enqueued while a CUDA graph is
 # captured does not run then but at each replay: the capture records it
 # (``recording_launches``) and each replay counts it (``count_replay``).
+# While a profiler session records, the same counts also go to the
+# recorder's counters ``k1.launches`` and ``k1.wide_launches``.
 LAUNCHES = 0
-PATH_LAUNCHES = {'pass_a': 0, 'pass_b': 0, 'split_t': 0, 'md_step': 0}
+PATH_LAUNCHES = {'pass_a': 0, 'pass_b': 0, 'split_t': 0, 'md_step': 0, 'wide': 0}
 _RECORDING = []  # the counts of the graph being captured
 
 
@@ -97,11 +126,13 @@ def reset_launches():
 
 def _add(counts):
     """Add ``counts`` (``{'total': n, 'pass_a': n, ...}``) to the launch
-    counts."""
+    counts, and to the recorder's while a profiler session is on."""
     global LAUNCHES
     LAUNCHES += counts.get('total', 0)
     for key in PATH_LAUNCHES:
         PATH_LAUNCHES[key] += counts.get(key, 0)
+    profiling.count('k1.launches', counts.get('total', 0))
+    profiling.count('k1.wide_launches', counts.get('wide', 0))
 
 
 @contextlib.contextmanager
@@ -154,10 +185,22 @@ def _split_t_takes(B: int, D: int, itemsize: int) -> bool:
     return B <= 16 and itemsize * (3 * maxb * SPLIT_T_WARPS + maxb + B * D) <= 227 * 1024
 
 
+def _wide_takes(B: int, D: int) -> bool:
+    """Whether the wide kernel takes B queries of width D: at most
+    :data:`WIDE_MAX_B` (its largest instance), each block's slice of
+    ceil(D / WIDE_CLUSTER) columns in WIDE_COLS a thread
+    (csrc/fused_predict.cu:wide_takes)."""
+    return 1 <= B <= WIDE_MAX_B and 1 <= D and _cdiv(D, WIDE_CLUSTER) <= WIDE_COLS * WIDE_THREADS
+
+
 def route(D: int, B: int) -> str:
     """``'split_t'`` for at most :data:`SPLIT_T_MAX_B` queries of at most
-    :data:`SPLIT_T_XQ_BYTES` of f64 descriptors, ``'two_pass'`` otherwise."""
-    return 'split_t' if B <= SPLIT_T_MAX_B and B * D * 8 <= SPLIT_T_XQ_BYTES else 'two_pass'
+    :data:`SPLIT_T_XQ_BYTES` of f64 descriptors; else ``'wide'`` for
+    queries each wider than those bytes, as many and as wide as the wide
+    kernel takes; ``'two_pass'`` otherwise."""
+    if B <= SPLIT_T_MAX_B and B * D * 8 <= SPLIT_T_XQ_BYTES:
+        return 'split_t'
+    return 'wide' if D * 8 > SPLIT_T_XQ_BYTES and _wide_takes(B, D) else 'two_pass'
 
 
 def split_t_blocks(T: int, n_sms: int) -> int:
@@ -267,13 +310,18 @@ def fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, wi
 def _plane_terms(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
     """The ``(B, T)`` planes of the kernel's ``plane_terms``: the energy
     term ``ep``, ``cx = w1 + w3`` and ``cj = w2``."""
-    sig = torch.as_tensor(sig, dtype=Xq.dtype, device=Xq.device)
-    xq_sq = torch.sum(Xq * Xq, dim=1)
-    u2 = torch.clamp_min(xq_sq[:, None] - 2.0 * (Xq @ Xt.T) + xt_sq[None, :], 0.0)
+    return _planes_from_dots(Xq @ Xt.T, Xq @ JA.T, torch.sum(Xq * Xq, dim=1), xt_sq, tja, alphas_E_lin, sig)
+
+
+def _planes_from_dots(gram, q, xq_sq, xt_sq, tja, alphas_E_lin, sig):
+    """:func:`_plane_terms` from the dots ``gram = Xq Xt^T``, ``q = Xq JA^T``
+    ``(B, T)`` and ``xq_sq = |Xq|^2 (B,)``."""
+    sig = torch.as_tensor(sig, dtype=gram.dtype, device=gram.device)
+    u2 = torch.clamp_min(xq_sq[:, None] - 2.0 * gram + xt_sq[None, :], 0.0)
     u5 = _SQRT5 * torch.sqrt(u2)
     b1 = (5.0 / (3.0 * sig**3)) * torch.exp(-u5 / sig)
     cj = b1 * (u5 + sig)
-    a = Xq @ JA.T - tja[None, :]
+    a = q - tja[None, :]
     ep = a * cj
     cx = a * b1 * (5.0 / sig)
     if alphas_E_lin is not None:
@@ -330,7 +378,15 @@ def split_t_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, blocks):
     Xt_b, JA_b = (nnf.pad(x, (0, 0, 0, pad)).reshape(blocks, rows, D) for x in (Xt, JA))
     part = torch.cat([torch.einsum('bjr,jrd->jbd', cx, Xt_b) + torch.einsum('bjr,jrd->jbd', cj, JA_b),
                       ep.sum(2).T[:, :, None], cx.sum(2).T[:, :, None]], dim=2)
-    per = _cdiv(blocks, SPLIT_T_REDUCE_RUNS)
+    return _reduce_parts(part, Xq, SPLIT_T_REDUCE_RUNS)
+
+
+def _reduce_parts(part, Xq, runs):
+    """``(E_raw, F_d)`` from the partials ``part (blocks, B, D + 2)`` as the
+    reduction kernel of ``runs`` runs adds them: runs of ``ceil(blocks /
+    runs)`` consecutive partials each, then the runs in order."""
+    blocks, D = part.shape[0], Xq.shape[1]
+    per = _cdiv(blocks, runs)
     total = None
     for j0 in range(0, blocks, per):
         run = part[j0:j0 + per].sum(0)
@@ -338,9 +394,50 @@ def split_t_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, blocks):
     return total[:, D], total[:, D + 1, None] * Xq - total[:, :D]
 
 
+def wide_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, clusters):
+    """Plain version of the wide route, ``(E_raw (B,), F_d (B, D))``.
+
+    The D columns are cut into :data:`WIDE_CLUSTER` slices of ``ceil(D /
+    WIDE_CLUSTER)`` (a cluster's blocks; slices past D are empty), and each
+    slice's partial dots ``xq.xt``, ``xq.ja`` and ``|xq|^2`` are added in
+    slice order before the planes are formed. The T table rows are cut
+    into ``clusters`` runs, run g the rows ``[g T // clusters, (g + 1) T //
+    clusters)``; each gives the partial ``[sum_t cx xt + cj ja, sum_t ep,
+    sum_t cx]``, and these are added as the reduction adds them, in
+    :data:`WIDE_REDUCE_RUNS` runs.
+    """
+    (B, D), T = Xq.shape, Xt.shape[0]
+    width = _cdiv(D, WIDE_CLUSTER)
+    dots = None
+    for rank in range(WIDE_CLUSTER):
+        cols = slice(rank * width, min(D, (rank + 1) * width))
+        xq = Xq[:, cols]
+        part = (xq @ Xt[:, cols].T, xq @ JA[:, cols].T, torch.sum(xq * xq, dim=1))
+        dots = part if dots is None else tuple(a + b for a, b in zip(dots, part))
+    ep, cx, cj = _planes_from_dots(*dots, xt_sq, tja, alphas_E_lin, sig)
+    ends = [g * T // clusters for g in range(clusters + 1)]
+    part = torch.stack([torch.cat([cx[:, t0:t1] @ Xt[t0:t1] + cj[:, t0:t1] @ JA[t0:t1],
+                                   ep[:, t0:t1].sum(1, keepdim=True), cx[:, t0:t1].sum(1, keepdim=True)], dim=1)
+                        for t0, t1 in zip(ends, ends[1:])])
+    return _reduce_parts(part, Xq, WIDE_REDUCE_RUNS)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_max_clusters(index: int, dtype: torch.dtype, B: int) -> int:
+    """The clusters of the wide kernel's instance for B queries that the card
+    runs at once (every SM it can use, one block each)."""
+    lib, n = _build.load_library(), ctypes.c_int(0)
+    err = getattr(lib, 'sgdml_wide_clusters' + ('_f64' if dtype == torch.float64 else '_f32'))(
+        B, index, ctypes.byref(n))
+    if err != 0 or n.value < 1:
+        raise RuntimeError('the wide kernel fits no cluster on device %d: CUDA error %d (%s)'
+                           % (index, err, lib.sgdml_cuda_error_string(err).decode()))
+    return n.value
 
 
 def _ptr(x):
@@ -393,6 +490,22 @@ def _launch_split_t(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig, blocks=None):
     _call(lib, 'sgdml_split_t', ('split_t',), Xq, Xq.data_ptr(), Xt.data_ptr(), JA.data_ptr(),
           xt_sq.data_ptr(), tja.data_ptr(), _ptr(aE), float(sig), B, T, D, blocks, part.data_ptr(),
           E.data_ptr(), F_d.data_ptr(), *dev, contraction=True)
+    return E, F_d
+
+
+def _launch_wide(lib, dev, Xq, Xt, JA, xt_sq, tja, aE, sig, clusters=None):
+    """The wide kernel and its reduction; the cluster partials in one
+    scratch allocation. By default one cluster for each that the card runs
+    at once, and no more than T."""
+    (B, D), T = Xq.shape, Xt.shape[0]
+    if clusters is None:
+        clusters = min(T, _wide_max_clusters(dev[0], Xq.dtype, B))
+    part = torch.empty(clusters * B * (D + 2), dtype=Xq.dtype, device=Xq.device)
+    E = torch.empty(B, dtype=Xq.dtype, device=Xq.device)
+    F_d = torch.empty(B, D, dtype=Xq.dtype, device=Xq.device)
+    _call(lib, 'sgdml_wide', ('wide',), Xq, Xq.data_ptr(), Xt.data_ptr(), JA.data_ptr(), xt_sq.data_ptr(),
+          tja.data_ptr(), _ptr(aE), float(sig), B, T, D, clusters, part.data_ptr(), E.data_ptr(),
+          F_d.data_ptr(), *dev, contraction=True)
     return E, F_d
 
 
@@ -470,6 +583,26 @@ def split_t(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, blocks=None):
                            alphas_E_lin, sig, blocks)
 
 
+def wide(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, clusters=None):
+    """The wide route: the kernel and its reduction on CUDA tensors, the
+    plain version on CPU tensors, with the table cut into ``clusters`` runs
+    (default: one for each cluster the card runs at once, at most T; on the
+    CPU one run). Raises ValueError for a batch the kernel does not take:
+    more than :data:`WIDE_MAX_B` queries, or a slice of more than
+    ``WIDE_COLS x WIDE_THREADS`` columns."""
+    _check(Xq, Xt, JA, xt_sq, tja, alphas_E_lin)
+    B, D = Xq.shape
+    if not _wide_takes(B, D):
+        raise ValueError('the wide route takes at most %d queries of width up to %d, got B=%d, D=%d'
+                         % (WIDE_MAX_B, WIDE_CLUSTER * WIDE_COLS * WIDE_THREADS, B, D))
+    if clusters is not None and clusters < 1:
+        raise ValueError('clusters must be at least 1, got %d' % clusters)
+    if Xq.device.type == 'cpu':
+        return wide_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig, clusters or 1)
+    return _launch_wide(_build.load_library(), _device_args(Xq), Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig,
+                        clusters)
+
+
 def fused_predict_tables(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
     """``(E_raw (B,), F_d (B, D))`` from centered inputs (see
     :func:`fused_predict_tables_reference` for the arguments).
@@ -482,7 +615,8 @@ def fused_predict_tables(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig):
     _check(Xq, Xt, JA, xt_sq, tja, alphas_E_lin)
     if Xq.device.type == 'cpu':
         return fused_predict_tables_reference(Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig)
-    launch = _launch_split_t if route(Xq.shape[1], Xq.shape[0]) == 'split_t' else _launch_two_pass
+    launch = {'split_t': _launch_split_t, 'wide': _launch_wide, 'two_pass': _launch_two_pass}[
+        route(Xq.shape[1], Xq.shape[0])]
     return launch(_build.load_library(), _device_args(Xq), Xq, Xt, JA, xt_sq, tja, alphas_E_lin, sig)
 
 

@@ -1,6 +1,6 @@
 """The benchmark's MD22 buckyball-catcher configuration (``buckyball_catcher``,
 N = 148) and its cell ``buckyball.md_nve`` at small sizes on the CPU: NVE
-past the split-T width takes the unfused substep and follows the plain
+past the split-T width takes the unfused substep (K1 by the wide route) and follows the plain
 reference (``benchmark/reference/md.py``) and the JAX package's MDEngine;
 ``md.unfused_steps`` counts its steps, k a program call, under a profiler
 session only; the reader of ``unfused_step_share.md``; the new files load
@@ -115,7 +115,7 @@ def test_wide_nve_takes_the_unfused_substep_and_follows_the_reference(wide, monk
     _no_fused_step(monkeypatch)
     eng = MDEngine(model, masses=masses, device='cpu')
     D = eng.tables.Xt.shape[1]
-    assert D == 8385 and fused_predict.route(D, 1) == 'two_pass' and not eng._fused_nve()
+    assert D == 8385 and fused_predict.route(D, 1) == 'wide' and not eng._fused_nve()
     R, V, E, ke = eng.run_nve(r0, v0, DT, 100, snapshot_every=50)
     ref = ref_predict.Model(*raw, 'cpu', torch.float64)
     r, v, E_r, ke_r = ref_md.integrate(ref, r0[None], v0[None], masses, DT, 100)
@@ -143,6 +143,19 @@ def test_wide_nve_follows_the_jax_md_engine(wide, monkeypatch, max_steps):
     for ours, theirs, name in zip(out, ref, ('R', 'V', 'E_pot', 'E_kin')):
         assert ours.shape == np.asarray(theirs).shape, name
         np.testing.assert_allclose(ours, np.asarray(theirs), rtol=1e-8, atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize('n_atoms', [129, 148])
+def test_nve_stays_unfused_where_k1_takes_the_wide_route(n_atoms):
+    """At 129 atoms (D = 8,256, the narrowest past split T's 64 KiB) and at
+    the buckyball catcher's 148, K1 at one geometry takes the wide route
+    and the NVE step stays the unfused substep: the fused step kernel holds
+    its query in a block's shared memory, which the wide route does not."""
+    model, _, _ = _random_model(n_atoms, 3)
+    eng = MDEngine(model, masses=_masses(model), device='cpu')
+    D = eng.tables.Xt.shape[1]
+    assert D == n_atoms * (n_atoms - 1) // 2 and D * 8 > fused_predict.SPLIT_T_XQ_BYTES
+    assert fused_predict.route(D, 1) == 'wide' and not eng._fused_nve()
 
 
 # -- md.unfused_steps -------------------------------------------------------------
@@ -234,7 +247,8 @@ def test_the_new_cell_loads_by_name_with_its_metrics():
     assert set(cell.workload) == {'trace_seconds', 'limits'} and cell.workload['limits']['resid'] == 1e-4
     assert cell.traffic['kind'] == 'md' and cell.traffic['chunk_steps'] == 5000
     assert {m['name'] for m in cell.end_to_end} == {'setup_s', 'md_steps_per_s'}
-    assert {m['name'] for m in cell.per_layer} == {'k1_roofline.md', 'idle_share.md', 'mfu.md', 'unfused_step_share.md'}
+    assert {m['name'] for m in cell.per_layer} == {'k1_roofline.md', 'idle_share.md', 'mfu.md', 'unfused_step_share.md',
+                                                  'k1_wide_share.md'}
     for m in cell.end_to_end + cell.per_layer:
         assert callable(harness._reader(BENCH, m['name']))
 
@@ -255,7 +269,7 @@ def test_the_buckyball_configuration_is_md22_s_width_and_goes_to_cg():
     budget = 80e9
     assert Analytic.est_memory_requirement(m, n_atoms, False) > budget
     assert Analytic.est_memory_grid(m, n_atoms) > budget
-    assert fused_predict.route(D, 1) == 'two_pass'
+    assert fused_predict.route(D, 1) == 'wide' and fused_predict.route(D, m) == 'two_pass'
     assert config['cg_tol'] == harness.load_cell(MD_CELL).workload['limits']['resid']
 
 
@@ -330,9 +344,10 @@ def card():
 def test_wide_nve_graphs_repeat_the_eager_steps_on_the_card(card):
     """At the buckyball width (N = 148, T = 600, D = 10,878): 1,000 steps,
     a snapshot every 100, replayed from the 100-step graphs, give the bits
-    of the same steps enqueued one by one; K1 runs by two passes, once a
-    step, once for each snapshot's energy and once for the first forces,
-    and ``md.unfused_steps`` counts every step."""
+    of the same steps enqueued one by one; K1 runs by the wide route, once
+    a step, once for each snapshot's energy and once for the first forces,
+    and ``md.unfused_steps`` counts every step, ``k1.wide_launches`` every
+    K1 launch."""
     model, _, r0 = _random_model(148, 600)
     masses = _masses(model)
     v0 = _velocities(masses)
@@ -343,8 +358,10 @@ def test_wide_nve_graphs_repeat_the_eager_steps_on_the_card(card):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         out = eng.run_nve(r0, v0, DT, 1000, snapshot_every=100)
         steps = profiling.counter('md.unfused_steps')
-    assert steps == 1000 and fused_predict.LAUNCHES == 1011
-    assert fused_predict.PATH_LAUNCHES['pass_a'] == 1011 and fused_predict.PATH_LAUNCHES['md_step'] == 0
+        k1 = profiling.counter('k1.launches'), profiling.counter('k1.wide_launches')
+    assert steps == 1000 and fused_predict.LAUNCHES == 1011 and k1 == (1011, 1011)
+    assert fused_predict.PATH_LAUNCHES['wide'] == 1011
+    assert fused_predict.PATH_LAUNCHES['pass_a'] == fused_predict.PATH_LAUNCHES['md_step'] == 0
     eager = MDEngine(model, masses=masses, device=card)
     eager._graphs = False
     ref = eager.run_nve(r0, v0, DT, 1000, snapshot_every=100)

@@ -2,7 +2,8 @@
 held against the JAX package: the Pallas kernel in interpret mode and the
 XLA ``predict_from_tables``. The CUDA kernel itself runs only on a GPU
 (``python3 chip_smoke.py``); on CPU tensors the wrapper takes the plain
-version and never builds."""
+version and never builds. The wide route's kernel is held against its
+plain version on a card in ``tests/test_torch_wide_card.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,7 @@ from sgdml_tpu.ops.pallas_predict import HAS_PALLAS, pallas_predict_tables
 from sgdml_tpu_torch import predict
 from sgdml_tpu_torch.ops import _build, fused_predict
 from sgdml_tpu_torch.ops.kernel import Mat52Coeffs
+from sgdml_tpu_torch.utils import profiling
 
 
 def _t(x, dtype=torch.float64):
@@ -242,6 +244,7 @@ _ABOVE_SPLIT_T = fused_predict.SPLIT_T_MAX_B + 1  # a batch past the split-T rou
         (513, fused_predict.SPLIT_T_XQ_BYTES // 16, 2, 'split_t'),
         (32, fused_predict.SPLIT_T_XQ_BYTES // 16 + 1, 2, 'two_pass'),
         (32, 512, _ABOVE_SPLIT_T, 'two_pass'),
+        (32, fused_predict.SPLIT_T_XQ_BYTES // 16 + 1, _ABOVE_SPLIT_T, 'two_pass'),
         (1, 1, _ABOVE_SPLIT_T, 'two_pass'),
         (30, 10, _ABOVE_SPLIT_T, 'two_pass'),       # the golden model: N=5, M=30
         (1000, 36, _ABOVE_SPLIT_T, 'two_pass'),     # ethanol width, M=1000
@@ -266,10 +269,53 @@ _ABOVE_SPLIT_T = fused_predict.SPLIT_T_MAX_B + 1  # a batch past the split-T rou
         (3000, 1770, 256, 'two_pass'),
         (600, 1770, 600, 'two_pass'),
         (1000, 210, 1000, 'two_pass'),
+        # The wide route past split T's bytes: one geometry at 128 atoms
+        # (D = 8,128) and at 8,192 columns stays on split T, one column more
+        # and the 129 and 148 atoms of MD22 (the buckyball catcher) do not.
+        (600, 8128, 1, 'split_t'),
+        (600, 8192, 1, 'split_t'),
+        (600, 8193, 1, 'wide'),
+        (600, 8256, 1, 'wide'),
+        (600, 10_878, 1, 'wide'),
+        (600, 10_878, fused_predict.WIDE_MAX_B, 'wide'),
+        # Batches that only their count takes past split T's bytes keep two
+        # passes: GDMLPredict's buckets of 2 and 4 at MD22's AT-AT-CG-CG (N =
+        # 118) and stachyose (N = 87), and 2 geometries one column short of
+        # the wide route's width.
+        (600, 6903, 2, 'two_pass'),
+        (600, 6903, 4, 'two_pass'),
+        (600, 3741, 4, 'two_pass'),
+        (600, 8192, 2, 'two_pass'),
+        (600, 8193, 2, 'wide'),
+        (600, 10_878, fused_predict.WIDE_MAX_B + 1, 'two_pass'),
+        (600, 10_878, 600, 'two_pass'),  # the buckyball's CG matvecs
+        # The widest slice the kernel takes: 4 x 480 x 6 columns (152 atoms).
+        (600, 11_476, 1, 'wide'),
+        (600, 11_520, 1, 'wide'),
+        (600, 11_521, 1, 'two_pass'),
+        (800, 68_265, 1, 'two_pass'),  # MD22's nanotube, N = 370
     ],
 )
 def test_route_at_its_edges(T, D, B, expected):
     assert fused_predict.route(D, B) == expected
+
+
+def _old_route(D, B):
+    """The route before the wide route existed."""
+    return 'split_t' if B <= fused_predict.SPLIT_T_MAX_B and B * D * 8 <= fused_predict.SPLIT_T_XQ_BYTES else 'two_pass'
+
+
+def test_route_keeps_every_batch_the_wide_route_does_not_take():
+    """Every batch within split T's bytes, above WIDE_MAX_B or of queries
+    that split T would take one at a time keeps its route; the others take
+    the wide route where its kernel takes their width."""
+    for B in range(1, 3 * fused_predict.SPLIT_T_MAX_B):
+        for D in sorted({*range(1, 600, 7), *range(2040, 2090), *range(4090, 4100), *range(8000, 8400),
+                         10_878, 11_520, 11_521, 40_000}):
+            if D * 8 <= fused_predict.SPLIT_T_XQ_BYTES or B > fused_predict.WIDE_MAX_B:
+                assert fused_predict.route(D, B) == _old_route(D, B), (D, B)
+            else:
+                assert fused_predict.route(D, B) == ('wide' if D <= 11_520 else 'two_pass'), (D, B)
 
 
 def test_chip_smoke_bound_counts_with_the_package_peaks():
@@ -301,7 +347,7 @@ def test_split_k_rule(B, D, T, n_sms, expected):
     assert (splits - 1) * per < n_k <= splits * per  # no empty run
 
 
-@pytest.mark.parametrize('fn', ['two_pass', 'planes', 'forces', 'split_t'])
+@pytest.mark.parametrize('fn', ['two_pass', 'planes', 'forces', 'split_t', 'wide'])
 def test_route_and_pass_wrappers_take_plain_versions_for_cpu_tensors(monkeypatch, fn):
     """CPU tensors never reach the kernel build or a launch count."""
 
@@ -323,7 +369,7 @@ def test_route_and_pass_wrappers_take_plain_versions_for_cpu_tensors(monkeypatch
         out = getattr(fused_predict, fn)(*args)
         ref = fused_predict.fused_predict_tables_reference(*args)
     assert (fused_predict.LAUNCHES, fused_predict.PATH_LAUNCHES) == before
-    tol = 0 if fn not in ('two_pass', 'split_t') else 1e-12
+    tol = 0 if fn not in ('two_pass', 'split_t', 'wide') else 1e-12
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, r, rtol=tol, atol=tol * float(r.abs().max()))
 
@@ -372,17 +418,22 @@ def test_ptxas_report_names_each_kernel(tmp_path):
         "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120fused_predict_kernelIdLi4EEEvPKT_' "
         "for 'sm_90a'\n"
         "ptxas info    : Used 128 registers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_120fused_predict_kernelIdNS_4WideILi1EEEEEvNS_8WideArgsIT_EE' for 'sm_90a'\n"
+        "ptxas info    : Used 96 registers\n"
     )
 
     class Lib:
         _name = str(lib)
 
     report = _build.ptxas_report(Lib())
-    assert set(report) == {'planes_kernel<double>', 'reduce_kernel<float>', 'fused_predict_kernel<double, 4>'}
+    assert set(report) == {'planes_kernel<double>', 'reduce_kernel<float>', 'fused_predict_kernel<double, 4>',
+                           'fused_predict_kernel<double, Wide<1>>'}
     assert '0 bytes spill stores' in report['planes_kernel<double>']
     assert 'Used 122 registers' in report['planes_kernel<double>']
     assert report['reduce_kernel<float>'] == 'Used 32 registers'
     assert report['fused_predict_kernel<double, 4>'] == 'Used 128 registers'
+    assert report['fused_predict_kernel<double, Wide<1>>'] == 'Used 96 registers'
 
 
 @pytest.mark.parametrize('blocks', ['one', 'ragged', 'more-than-T'])
@@ -485,3 +536,100 @@ def test_split_t_rejects_what_the_kernel_does_not_take(break_):
     if break_ == 'too-wide':  # the same descriptors in f32 fit
         args = [x.float() for x in (Xq, Xt, JA, (Xt * Xt).sum(1), (Xt * JA).sum(1))]
         fused_predict.split_t(*args, None, 4.0)
+
+
+# -- The wide route ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('clusters', ['one', 'ragged', 'more-than-T'])
+@pytest.mark.parametrize('B', [1, fused_predict.WIDE_MAX_B])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32], ids=['f64', 'f32'])
+@pytest.mark.parametrize('with_aE', [False, True])
+def test_wide_plain_version_matches_reference(with_aE, dtype, B, clusters):
+    """The wide route's plain version at D = 45 (not a multiple of the
+    cluster's 4 blocks; an f32 row is 180 bytes, off 16) and T = 37: the
+    table cut into one run, 5 runs of 7 or 8 rows, or more runs than rows
+    (the runs past T empty), the slices' partial dots added in rank order;
+    equal to ``fused_predict_tables_reference`` within 1e-12 (f64) and 1e-5
+    (f32) of max |value|, and what the CPU wrapper returns."""
+    X, JA_flat, dperms, Xq, _, aE = _problem(10, 37, 1, B, seed=13)
+    tables = predict.center_tables(*predict.build_tables(_t(X, dtype), _t(JA_flat, dtype), dperms))
+    args = (_t(Xq, dtype) - tables.mu, tables.Xt, tables.JA, tables.xt_sq, tables.tja,
+            _t(aE, dtype) if with_aE else None, 6.0)
+    T, D = tables.Xt.shape
+    assert (T, D) == (37, 45) and D % fused_predict.WIDE_CLUSTER and D * 4 % 16
+    n = {'one': 1, 'ragged': 5, 'more-than-T': T + 3}[clusters]
+    bound = 1e-12 if dtype == torch.float64 else 1e-5
+    E, F_d = fused_predict.wide_reference(*args, n)
+    assert E.dtype == F_d.dtype == dtype and E.shape == (B,) and F_d.shape == (B, D)
+    E_ref, F_ref = fused_predict.fused_predict_tables_reference(*args)
+    assert _rel(E, E_ref) <= bound and _rel(F_d, F_ref) <= bound
+    E_w, F_w = fused_predict.wide(*args, clusters=n)
+    assert torch.equal(E_w, E) and torch.equal(F_w, F_d)
+
+
+@pytest.mark.parametrize('D', [8193, 10_878])
+def test_wide_plain_version_at_the_route_s_widths(D):
+    """At the route's lower edge and the buckyball catcher's width, T = 19
+    rows in 4 runs: within 1e-12 of max |value| of the plain contraction,
+    the slices of ceil(D / 4) columns ragged at the last."""
+    g = torch.Generator().manual_seed(D)
+    B, T = fused_predict.WIDE_MAX_B, 19
+    Xq = torch.randn(B, D, generator=g, dtype=torch.float64) * 0.05
+    Xt = torch.randn(T, D, generator=g, dtype=torch.float64) * 0.05
+    JA = torch.randn(T, D, generator=g, dtype=torch.float64) * 1e-2
+    args = (Xq, Xt, JA, (Xt * Xt).sum(1), (Xt * JA).sum(1), torch.randn(T, generator=g, dtype=torch.float64),
+            float(np.sqrt(D)) * 0.05)
+    assert fused_predict.route(D, 1) == 'wide'
+    E, F_d = fused_predict.wide_reference(*args, 4)
+    E_ref, F_ref = fused_predict.fused_predict_tables_reference(*args)
+    assert _rel(E, E_ref) <= 1e-12 and _rel(F_d, F_ref) <= 1e-12
+
+
+@pytest.mark.parametrize('break_', ['too-many-queries', 'too-wide', 'no-clusters', 'mixed-dtype'])
+def test_wide_rejects_what_the_kernel_does_not_take(break_):
+    """More than 4 queries, a slice past 480 x 6 columns (D = 11,521), no
+    clusters, or the inputs the wrapper rejects on every route."""
+    B, T, D = 1, 5, 9000
+    if break_ == 'too-many-queries':
+        B = 5
+    elif break_ == 'too-wide':
+        D = 11_521
+    g = torch.Generator().manual_seed(0)
+    Xq = torch.randn(B, D, generator=g, dtype=torch.float64)
+    Xt = torch.randn(T, D, generator=g, dtype=torch.float64)
+    JA = torch.randn(T, D, generator=g, dtype=torch.float64)
+    if break_ == 'mixed-dtype':
+        JA = JA.float()
+    with pytest.raises(ValueError):
+        fused_predict.wide(Xq, Xt, JA, (Xt * Xt).sum(1), (Xt * Xt).sum(1), None, 4.0,
+                           clusters=0 if break_ == 'no-clusters' else None)
+
+
+@pytest.mark.parametrize('session', [True, False])
+def test_launches_reach_the_recorder_under_a_profiler_session(monkeypatch, session):
+    """Each count of K1's launches, a graph replay's among them, adds its
+    contractions to ``k1.launches`` and its wide launches to
+    ``k1.wide_launches`` while a profiler session records, and nothing
+    while none does."""
+    monkeypatch.setattr(fused_predict, 'LAUNCHES', 0)
+    monkeypatch.setattr(fused_predict, 'PATH_LAUNCHES', dict.fromkeys(fused_predict.PATH_LAUNCHES, 0))
+    profiling.clear()
+
+    def launches():
+        with fused_predict.recording_launches() as recorded:
+            fused_predict._count({'total': 1, 'wide': 1}, capturing=True)
+            fused_predict._count({'total': 1, 'pass_a': 1, 'pass_b': 1}, capturing=True)
+        for _ in range(3):
+            fused_predict.count_replay(recorded)
+        fused_predict._add({'total': 1, 'wide': 1})
+
+    if session:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            launches()
+            counted = profiling.counter('k1.launches'), profiling.counter('k1.wide_launches')
+        assert counted == (7, 4)
+    else:
+        launches()
+        assert (profiling.counter('k1.launches'), profiling.counter('k1.wide_launches')) == (0, 0)
+    assert fused_predict.LAUNCHES == 7 and fused_predict.PATH_LAUNCHES['wide'] == 4
